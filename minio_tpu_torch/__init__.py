@@ -4,13 +4,16 @@ It mirrors the JAX package's layout and names so each module's
 counterpart is easy to find:
 
 - ``minio_tpu_torch.ops``      GF(256) host math, the Reed-Solomon codec
-  (``rs_torch``), MUR3X256 (``mur3_torch``), their hand-written CUDA kernels
-  (``rs_cuda``, ``mur3_cuda``, sources under ``csrc/``) and the fused
-  encode+hash / verify+rebuild launches (``fused``)
+  (``rs_torch``), MUR3X256 (``mur3_torch``), HighwayHash-256 (``hh_torch``),
+  ChaCha20 (``chacha_torch``), their hand-written CUDA kernels (``rs_cuda``,
+  ``mur3_cuda``, ``hh_cuda``, ``chacha_cuda``, sources under ``csrc/``) and
+  the fused encode+hash / verify+rebuild launches (``fused``)
 - ``minio_tpu_torch.erasure``  codec wrapper, bitrot framing, streaming
   encode / decode / heal
+- ``minio_tpu_torch.crypto``   SSE-C with the ChaCha20-Poly1305 package
+  cipher (EncryptReader / DecryptWriter)
 - ``minio_tpu_torch.runtime``  the batching dispatch queue
-- ``minio_tpu_torch.native``   host-side MUR3X256 (pure Python + numpy)
+- ``minio_tpu_torch.native``   host-side HighwayHash-256 and MUR3X256 (numpy)
 - ``minio_tpu_torch.storage``  shard-file sink and source on a disk directory
 - ``minio_tpu_torch.utils``    errors and device resolution
 

@@ -32,17 +32,21 @@
 // memory, registered once per encode matrix (a constant-cache broadcast).
 //
 // Bounds at the main shapes (B = 128, i = 16, W = 16384), with integer ops
-// at 64 int32 ops/clk/SM * 132 SMs * 1.98 GHz = 16.7 Tops/s:
+// at the SMs' issue rate, 128 lanes/clk/SM * 132 SMs * 1.98 GHz = 33.5 T/s,
+// and the bitwise logic (LOP3: XOR, AND), which only the ALU pipe runs, at
+// half of that, 16.7 T/s:
 // - K2, the fixed 16+4 encode matrix (o = 4): bytes 4*B*W*(i+o) = 168 MB,
 //   50 us at 3.35 TB/s. A matrix known before launch needs work only for
 //   its set coefficient bits (65 of 128 per parity row): 0.57 G ops with
-//   3-input XORs and the doublings, 34 us, so it is bound by bytes. This
-//   kernel still reads the masks as data and spends 8*i LOP3 per row-word,
-//   B*W*o*(8*i + 35) = 1.37 G ops = 82 us, above the bytes bound: baking
-//   the set bits into the code, as the TPU kernel does, is later work.
-// - K1, masks known only at run time: every coefficient bit costs a LOP3.
-//   At o = 2, 151 MB (45 us) against 0.68 G ops (41 us): bound by bytes.
-//   At o = 20 (reconstruct_batch), 6.8 G ops (409 us): bound by operations.
+//   3-input XORs and the doublings, most of them logic, under 34 us, so it
+//   is bound by bytes. This kernel still reads the masks as data and
+//   spends 8*i LOP3 per row-word: baking the set bits into the code, as
+//   the TPU kernel does, is later work.
+// - K1, masks known only at run time: every coefficient bit costs a LOP3,
+//   and each of the 7 doublings 5 ops, 3 of them logic: B*W*o*(8*i + 21)
+//   logic ops. At o = 2, 151 MB (45 us) against 0.63 G logic ops (37 us):
+//   bound by bytes. At o = 20 (reconstruct_batch), 6.2 G logic ops
+//   (374 us): bound by operations.
 // The design spends no operation on address math inside the bit loop and
 // none on table lookups.
 #include <cuda_runtime.h>

@@ -13,8 +13,9 @@
 // What bounds it on this card: the bytes (each chunk read once: N * nbytes)
 // over 3.35 TB/s, and the 44 integer ops per packet (12 for the
 // seed-independent k-mix, shared by both instances, and 16 per instance)
-// over the int32 rate, 16.7 Tops/s. At the main path's 10,240 chunks of
-// 16 KiB that is 168 MB, 50 us, and 461 M ops, 28 us: bytes bound. But a
+// over the SMs' issue rate, 33.5 T/s, its 8 XORs also over the ALU pipe's
+// 16.7 T/s. At the main path's 10,240 chunks of 16 KiB that is 168 MB,
+// 50 us, against 461 M ops, 14 us: bytes bound. But a
 // chunk is a sequential dependency chain, and
 // 10,240 threads are only ~2.4 warps per SM, too few to hide the memory
 // latency of neighbouring threads' loads 16 KiB apart (each warp load

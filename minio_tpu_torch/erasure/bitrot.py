@@ -1,14 +1,13 @@
 """Bitrot protection — the port of erasure/bitrot.py, for the streaming
-MUR3X256S algorithm: each shard file interleaves a 32-byte digest before
-every chunk, ``[H][chunk][H][chunk]...``, with a file size of
-ceil(len/chunk)*32 + len. Reads are chunk-aligned and every chunk is
-verified.
+algorithms HIGHWAYHASH256S (the default) and MUR3X256S: each shard file
+interleaves a 32-byte digest before every chunk, ``[H][chunk][H][chunk]...``,
+with a file size of ceil(len/chunk)*32 + len. Reads are chunk-aligned and
+every chunk is verified.
 
 The host digests (tail blocks, CPU-verified replacement reads) come from
-the numpy MUR3X256 (native/mur3py.py); full blocks are digested on the
-device (ops/fused.py). The other algorithms of the JAX package are not
-ported yet: HighwayHash256S, the JAX package's default, follows with
-ops/hh_jax.py in a later slice; the remaining ones raise too.
+numpy (native/hhpy.py, native/mur3py.py); full blocks are digested on the
+device (ops/fused.py). The JAX package's other algorithms (HIGHWAYHASH256,
+SHA256, BLAKE2B512, BLAKE2B256S) are not ported and raise.
 """
 from __future__ import annotations
 
@@ -17,8 +16,10 @@ import os
 
 import numpy as np
 
-from ..native import mur3py
+from ..native import hhpy, mur3py
+from ..ops.fused import ALGO_HIGHWAY as ALGO_ID_HIGHWAY
 from ..ops.fused import ALGO_MUR3 as ALGO_ID_MUR3
+from ..ops.fused import chunk_align
 from ..utils import errors
 
 #: Default streaming chunk: 16 KiB, so the device hash (parallel across
@@ -31,9 +32,12 @@ DEFAULT_BITROT_CHUNK = 16384
 HIGHWAY_KEY = bytes.fromhex(
     "4be734fa8e238acd263e83e6bb968552040f935da39f441497e09d1322de36a0")
 
-_NOT_PORTED = ("bitrot algorithm {} is not ported: only MUR3X256S is; "
-               "HighwayHash256S follows with ops/hh_jax.py in a later slice "
-               "of the port")
+_NOT_PORTED = ("bitrot algorithm {} is not ported: only HIGHWAYHASH256S "
+               "and MUR3X256S are")
+
+#: host batch hashers per native ALGO_* id: uint8 [n, L] -> uint8 [n, 32]
+_HOST_BATCH = {ALGO_ID_HIGHWAY: hhpy.hash256_batch,
+               ALGO_ID_MUR3: mur3py.hash256_batch}
 
 
 def pick_bitrot_chunk(shard_size: int, chunk: int | None = None) -> int:
@@ -53,7 +57,8 @@ def pick_bitrot_chunk(shard_size: int, chunk: int | None = None) -> int:
 
 
 class BitrotAlgorithm(enum.Enum):
-    """The JAX package's algorithm names; only MUR3X256S is ported."""
+    """The JAX package's algorithm names; HIGHWAYHASH256S and MUR3X256S are
+    ported."""
     SHA256 = "sha256"
     BLAKE2B512 = "blake2b"
     HIGHWAYHASH256 = "highwayhash256"
@@ -62,7 +67,7 @@ class BitrotAlgorithm(enum.Enum):
     MUR3X256S = "mur3x256S"
 
     def _check(self) -> None:
-        if self is not BitrotAlgorithm.MUR3X256S:
+        if native_algo_id(self) is None:
             raise NotImplementedError(_NOT_PORTED.format(self.value))
 
     @property
@@ -78,31 +83,70 @@ class BitrotAlgorithm(enum.Enum):
 
     def new(self):
         self._check()
+        if self is BitrotAlgorithm.HIGHWAYHASH256S:
+            return hhpy.HighwayHash256(HIGHWAY_KEY)
         return mur3py.Mur3x256(HIGHWAY_KEY)
 
 
 def native_algo_id(algo: BitrotAlgorithm) -> int | None:
     """The native ALGO_* id of an algorithm with a device hash."""
-    return ALGO_ID_MUR3 if algo is BitrotAlgorithm.MUR3X256S else None
+    return {BitrotAlgorithm.HIGHWAYHASH256S: ALGO_ID_HIGHWAY,
+            BitrotAlgorithm.MUR3X256S: ALGO_ID_MUR3}.get(algo)
+
+
+def default_bitrot_algo() -> BitrotAlgorithm:
+    """HIGHWAYHASH256S, the JAX package's default whenever its native
+    library builds and the reference's own (cmd/bitrot.go:51). Overridable
+    with MINIO_TPU_BITROT_ALGO, as in the JAX package, by any ported
+    streaming algorithm."""
+    env = os.environ.get("MINIO_TPU_BITROT_ALGO", "")
+    if env:
+        try:
+            a = BitrotAlgorithm(env)
+        except ValueError:
+            a = None
+        if a is not None and a.streaming and native_algo_id(a) is not None:
+            return a
+    return BitrotAlgorithm.HIGHWAYHASH256S
+
+
+#: the default itself, whatever the environment says
+DEFAULT_BITROT_ALGO = BitrotAlgorithm.HIGHWAYHASH256S
+
+
+def device_chunk(shard_len: int, chunk: int, algo_id: int) -> int | None:
+    """The chunk size at which one block's shards of ``shard_len`` bytes
+    are digested on the device: ``chunk`` when the shard is whole chunks,
+    the shard length itself when the shard is one short tail chunk the
+    device hash takes (a tail block's), else None (the host hashes)."""
+    if shard_len <= 0 or chunk <= 0:
+        return None
+    align = chunk_align(algo_id)
+    if shard_len % chunk == 0 and chunk % align == 0:
+        return chunk
+    if shard_len < chunk and shard_len % align == 0:
+        return shard_len
+    return None
 
 
 def _batch_digests(algo: BitrotAlgorithm, blob, n: int, chunk_size: int
                    ) -> np.ndarray:
     """Digests of n equal chunks as uint8 [n, 32]."""
     algo._check()
-    return mur3py.hash256_batch(
+    return _HOST_BATCH[native_algo_id(algo)](
         HIGHWAY_KEY, np.frombuffer(blob, dtype=np.uint8).reshape(
             n, chunk_size))
 
 
 def shard_chunk_digests(shards: np.ndarray, chunk: int,
-                        algo_id: int = ALGO_ID_MUR3) -> np.ndarray:
+                        algo_id: int = ALGO_ID_HIGHWAY) -> np.ndarray:
     """Per-chunk digests of each row of uint8 [k, shard_len] as uint8
     [k, n_chunks*32]: full ``chunk``-size pieces batched, a short tail piece
     (shard_len % chunk) digested last — the [digest][chunk] framing order
     of the shard files."""
-    if algo_id != ALGO_ID_MUR3:
+    if algo_id not in _HOST_BATCH:
         raise NotImplementedError(_NOT_PORTED.format(f"id {algo_id}"))
+    batch = _HOST_BATCH[algo_id]
     shards = np.ascontiguousarray(shards, dtype=np.uint8)
     k, shard_len = shards.shape
     n_full = shard_len // chunk
@@ -110,13 +154,11 @@ def shard_chunk_digests(shards: np.ndarray, chunk: int,
     nc = n_full + (1 if tail else 0)
     out = np.empty((k, nc * 32), dtype=np.uint8)
     if n_full:
-        full = mur3py.hash256_batch(
-            HIGHWAY_KEY, shards[:, : n_full * chunk].reshape(k * n_full,
-                                                             chunk))
+        full = batch(HIGHWAY_KEY, shards[:, : n_full * chunk].reshape(
+            k * n_full, chunk))
         out[:, : n_full * 32] = full.reshape(k, n_full * 32)
     if tail:
-        out[:, n_full * 32:] = mur3py.hash256_batch(
-            HIGHWAY_KEY, shards[:, n_full * chunk:])
+        out[:, n_full * 32:] = batch(HIGHWAY_KEY, shards[:, n_full * chunk:])
     return out
 
 
@@ -238,8 +280,8 @@ class StreamingBitrotReader:
     @property
     def fusable(self) -> bool:
         """True when chunk digests can be verified on the device (MUR3X256
-        needs 16-byte packets)."""
-        return self.shard_size % 16 == 0
+        needs 16-byte packets, HighwayHash 4-byte words)."""
+        return self.shard_size % chunk_align(native_algo_id(self.algo)) == 0
 
     def _read_phys_span(self, offset: int, length: int) -> bytes:
         """Aligned physical read covering ceil(length/chunk) digests +

@@ -5,10 +5,11 @@ Shard I/O runs on a shared thread pool (it overlaps across disks); the
 GF(256) math and the bitrot hash of full blocks ride the dispatch queue,
 which batches concurrent requests' blocks into single device launches:
 
-- PUT: blocks whose shards are whole bitrot chunks go through
-  ``encode_hashed`` (parity + digests of all k+m shards in one flush), and
-  the host only interleaves ``[digest][chunk]`` frames; tail blocks go
-  through ``encode`` with the digests computed on the host.
+- PUT: blocks whose shards are whole bitrot chunks, or one short tail
+  chunk the device hash takes, go through ``encode_hashed`` (parity +
+  digests of all k+m shards in one flush), and the host only interleaves
+  ``[digest][chunk]`` frames; other tail blocks go through ``encode`` with
+  the digests computed on the host.
 - GET: the k source shards are read raw and their digests checked on the
   device — together with the rebuild of missing data shards (``fused``)
   for a degraded read, alone (``verify``) for a healthy one. A mismatch
@@ -163,6 +164,7 @@ def erasure_encode(erasure: Erasure, stream, writers: list,
     Up to ENCODE_WINDOW blocks are in flight through the dispatch queue,
     and shard writes ride per-disk ordered chains; write-quorum errors are
     harvested per block as its writes drain."""
+    from .bitrot import device_chunk
     total = 0
     owriters = [None if w is None else _OrderedWriter(w) for w in writers]
     enc_window: deque = deque()    # [kind, future, shard_len]
@@ -175,10 +177,12 @@ def erasure_encode(erasure: Erasure, stream, writers: list,
 
     def encode_block(buf: bytes):
         shard_len = ceil_div(len(buf), k) if buf else 0
-        if framed is not None and buf and shard_len % chunk == 0 \
-                and chunk % 16 == 0:
-            # device hash lane: parity + all-shard digests in one flush
-            return ["pyh", erasure.encode_hashed_async(buf, chunk, algo_id),
+        dchunk = None if framed is None \
+            else device_chunk(shard_len, chunk, algo_id)
+        if dchunk is not None:
+            # device hash lane: parity + all-shard digests in one flush (a
+            # tail block whose shards are one short chunk included)
+            return ["pyh", erasure.encode_hashed_async(buf, dchunk, algo_id),
                     shard_len]
         if framed is not None and buf:
             # a tail (or unaligned) block: host digests, same framing
@@ -280,18 +284,22 @@ class _ParallelReader:
     def fusable(self, shard_len: int) -> bool:
         """True when this block's source digests can be checked on the
         device: every live reader supports raw chunk reads, all share one
-        chunk size, and the read covers whole chunks."""
+        chunk size and algorithm, and the read covers whole chunks (or is
+        one short tail chunk the device hash takes)."""
         live = [r for r in self.readers if r is not None]
         if not live or not all(getattr(r, "fusable", False) for r in live):
             return False
-        chunks = {r.shard_size for r in live}
-        if len(chunks) != 1 or len({r.algo for r in live}) != 1:
+        if len({r.shard_size for r in live}) != 1 or \
+                len({r.algo for r in live}) != 1:
             return False
-        (c,) = chunks
-        return shard_len > 0 and c % 4 == 0 and shard_len % c == 0
+        return self.fuse_chunk(shard_len) is not None
 
-    def fuse_chunk(self) -> int:
-        return next(r.shard_size for r in self.readers if r is not None)
+    def fuse_chunk(self, shard_len: int) -> int | None:
+        """The device-hash chunk size of a block's shards (bitrot.
+        device_chunk)."""
+        from .bitrot import device_chunk
+        c = next(r.shard_size for r in self.readers if r is not None)
+        return device_chunk(shard_len, c, self.fuse_algo())
 
     def fuse_algo(self) -> int:
         from .bitrot import native_algo_id
@@ -395,7 +403,7 @@ def erasure_decode(erasure: Erasure, writer, readers: list, offset: int,
         if preader.fusable(shard_len):
             shards = preader.read_block(shard_offset, shard_len, raw=True)
             fut = erasure.decode_data_blocks_verified_async(
-                shards, preader.last_digests, preader.fuse_chunk(),
+                shards, preader.last_digests, preader.fuse_chunk(shard_len),
                 preader.fuse_algo())
             return ["verified", fut, b, block_data_len, boff, blen]
         shards = preader.read_block(shard_offset, shard_len)
@@ -471,6 +479,7 @@ def erasure_heal(erasure: Erasure, writers: list, readers: list,
     window: deque = deque()
     # framed heal writers on the sources' chunk size get the rebuilt
     # shards' digests from the same flush, so the host hashes nothing
+    from .bitrot import device_chunk
     framed = _framed_writers(erasure, writers)
 
     def submit(b: int):
@@ -478,8 +487,10 @@ def erasure_heal(erasure: Erasure, writers: list, readers: list,
         shard_len = ceil_div(block_data_len, k)
         shard_offset = b * erasure.shard_size()
         if preader.fusable(shard_len):
-            chunk = preader.fuse_chunk()
-            hashed = framed is not None and framed[0] == chunk
+            chunk = preader.fuse_chunk(shard_len)
+            hashed = framed is not None and \
+                framed[1] == preader.fuse_algo() and \
+                device_chunk(shard_len, *framed) == chunk
             shards = preader.read_block(shard_offset, shard_len, raw=True)
             fut = erasure.rebuild_targets_verified_async(
                 shards, preader.last_digests, targets, chunk,

@@ -1,2 +1,2 @@
-"""Host-side hashing without a native library: MUR3X256 in pure Python and
-numpy (the port carries no ctypes CPU library of its own)."""
+"""Host-side hashing without a native library: HighwayHash-256 and MUR3X256
+in numpy (the port carries no ctypes CPU library of its own)."""

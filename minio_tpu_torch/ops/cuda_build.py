@@ -31,6 +31,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _U = ctypes.c_uint
+_ULL = ctypes.c_ulonglong
 
 #: the C entry points of each library: name -> (argtypes, restype)
 SIGNATURES = {
@@ -42,6 +43,12 @@ SIGNATURES = {
     },
     "mur3x256": {
         "mur3_chunks": ([_P, _P, _LL, _I, _U, _U, _P], _I),
+    },
+    "chacha20": {
+        "chacha20_xor": ([_P, _P, _P, _P, _P, _LL, _I, _I, _P], _I),
+    },
+    "highwayhash": {
+        "hh256_chunks": ([_P, _P, _LL, _I, _ULL, _ULL, _ULL, _ULL, _P], _I),
     },
 }
 

@@ -11,28 +11,44 @@ the port of ops/fused.py:
   whose k data shards need no rebuild.
 
 On the card each is a sequence of kernel launches on one stream (the GF
-kernel and the MUR3 kernel) plus a PyTorch equality reduction; one fused
+kernel and the hash kernel) plus a PyTorch equality reduction; one fused
 kernel that hashes from the tile it encodes is later work. Hash ids follow
-the JAX package's native ALGO_* ids: 1 = MUR3X256. HighwayHash-256 (id 0)
-has no port yet.
+the JAX package's native ALGO_* ids: 0 = HighwayHash-256 (K5,
+ops/hh_cuda.py), 1 = MUR3X256 (K3, ops/mur3_cuda.py).
 """
 from __future__ import annotations
 
 import torch
 
-from . import mur3_cuda
+from . import hh_cuda, hh_torch, mur3_cuda
 from ..native.mur3py import seeds_from_key
 
-#: the JAX package's native ALGO_* wire id of MUR3X256
+#: the JAX package's native ALGO_* wire ids
+ALGO_HIGHWAY = 0
 ALGO_MUR3 = 1
 
+#: (key -> kernel key words, hash kernel, chunk alignment in bytes) per id:
+#: the MUR3 kernel walks 16-byte packets, the HighwayHash kernel takes any
+#: 4-byte multiple (its 32-byte packets plus the remainder)
+_HASHES = {
+    ALGO_HIGHWAY: (hh_torch.key_words, hh_cuda.highwayhash256_chunks, 4),
+    ALGO_MUR3: (seeds_from_key, mur3_cuda.mur3x256_chunks, 16),
+}
 
-def _hash_fn(algo: int):
-    if algo != ALGO_MUR3:
-        raise NotImplementedError(
-            "only the MUR3X256 device hash is ported; HighwayHash-256 "
-            "follows with ops/hh_jax.py in a later slice of the port")
-    return mur3_cuda.mur3x256_chunks
+
+def chunk_align(algo: int) -> int:
+    """The byte multiple a chunk needs for the device hash ``algo``."""
+    return _HASHES[algo][2]
+
+
+def _hash_fn(algo: int, key: bytes):
+    """The device hash of ``algo`` bound to ``key``: (nbytes, words
+    [..., nbytes//4]) -> digests [..., 8]."""
+    if algo not in _HASHES:
+        raise NotImplementedError(f"no device hash for algorithm id {algo}")
+    key_fn, kernel, _ = _HASHES[algo]
+    kw = key_fn(key)
+    return lambda nbytes, words: kernel(kw, nbytes, words)
 
 
 def _chunks(words: torch.Tensor, chunk_nbytes: int) -> torch.Tensor:
@@ -51,12 +67,11 @@ def verify_fn_for(key: bytes, shard_nbytes: int, chunk_nbytes: int,
                   algo: int = 0):
     """(words [B, k, W], digests [B, k, nc*8]) -> valid bool [B, k]."""
     _check_chunk(shard_nbytes, chunk_nbytes)
-    hash_fn = _hash_fn(algo)
-    seeds = seeds_from_key(key)
+    hash_fn = _hash_fn(algo, key)
 
     def verify(words, digests):
         B, k, _ = words.shape
-        computed = hash_fn(seeds, chunk_nbytes, _chunks(words, chunk_nbytes))
+        computed = hash_fn(chunk_nbytes, _chunks(words, chunk_nbytes))
         return torch.all(computed.reshape(B, k, -1) == digests, dim=-1)
     return verify
 
@@ -73,15 +88,14 @@ def fused_fn_for(key: bytes, shard_nbytes: int, backend_mm,
     if not chunk_nbytes:
         chunk_nbytes = shard_nbytes
     verify = verify_fn_for(key, shard_nbytes, chunk_nbytes, algo)
-    hash_fn = _hash_fn(algo)
-    seeds = seeds_from_key(key)
+    hash_fn = _hash_fn(algo, key)
 
     def fused(masks, words, digests):
         valid = verify(words, digests)
         out = backend_mm(masks, words)
         if not hash_out:
             return out, valid
-        digs = hash_fn(seeds, chunk_nbytes, _chunks(out, chunk_nbytes))
+        digs = hash_fn(chunk_nbytes, _chunks(out, chunk_nbytes))
         return out, valid, digs.reshape(out.shape[0], out.shape[1], -1)
     return fused
 
@@ -92,15 +106,14 @@ def encode_hashed_fn_for(key: bytes, shard_nbytes: int, encode_mm,
     [B, k+m, nc*8]). ``encode_mm`` is the codec's batched fixed-matrix
     encode (ReedSolomon.encode_words_batch)."""
     _check_chunk(shard_nbytes, chunk_nbytes)
-    hash_fn = _hash_fn(algo)
-    seeds = seeds_from_key(key)
+    hash_fn = _hash_fn(algo, key)
 
     def encode_hashed(words):
         B, k, _ = words.shape
         parity = encode_mm(words)
         # data and parity digested in place, no concatenated copy of the
         # payload: only the 32-byte digests are joined
-        digs = [hash_fn(seeds, chunk_nbytes, _chunks(t, chunk_nbytes))
+        digs = [hash_fn(chunk_nbytes, _chunks(t, chunk_nbytes))
                 .reshape(B, t.shape[1], -1) for t in (words, parity)]
         return parity, torch.cat(digs, dim=1)
     return encode_hashed

@@ -14,9 +14,12 @@ Ops, with the meaning of the JAX ``_flush_device`` branches:
 digests of all k+m shards), ``masked`` (rebuild o rows from per-item
 [8, o, k] masks), ``fused`` (masked + digest check of the k sources), and
 ``verify`` (the digest check alone, for the healthy GET, whose rebuild-free
-verify the JAX package runs in native C++ on the host).
+verify the JAX package runs in native C++ on the host), and ``sse_xor`` (the
+ChaCha20 keystream XOR of SSE packages, many objects each under its own key,
+in one launch per flush).
 
-Left out for later slices: the QoS planner and spill-to-CPU, the
+Left out for later slices: the QoS planner and spill-to-CPU (a failed
+launch fails its futures; no flush is salvaged on the host), the
 interactive lane, the device mesh and per-lane placement, input donation,
 and batch padding (it bounded XLA recompiles; PyTorch runs eagerly).
 """
@@ -30,15 +33,16 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from ..ops import chacha_cuda, rs_cuda
 from ..ops import fused as _fused
-from ..ops import rs_cuda
+from ..ops.chacha_torch import check_shared_nonce
 from ..ops.rs_torch import words_to_device
 from ..utils.device import resolve_device
 
 MAX_BATCH = 128
 MAX_DELAY_S = 1e-3
 
-OPS = ("encode", "encode_hashed", "masked", "fused", "verify")
+OPS = ("encode", "encode_hashed", "masked", "fused", "verify", "sse_xor")
 
 
 @dataclass
@@ -46,6 +50,8 @@ class _Pending:
     words: np.ndarray                   # [k, W] uint32 packed input shards
     masks: np.ndarray | None = None     # [8, o, k] rebuild masks
     digests: np.ndarray | None = None   # [k, nc*8] expected digest words
+    nonces: np.ndarray | None = None    # sse_xor: [P, 3] package nonces
+    cipher_key: bytes = b""              # sse_xor: the object's package key
     future: Future = field(default_factory=Future)
     t: float = field(default_factory=time.monotonic)
 
@@ -133,6 +139,24 @@ class DispatchQueue:
             key, _Bucket(codec, "verify", hash_key, chunk_size, hash_algo),
             _Pending(words, None, digests))
 
+    def sse_xor(self, words: np.ndarray, cipher_key: bytes,
+                nonces: np.ndarray) -> Future:
+        """SSE ChaCha20 package crypto (ops/chacha_cuda.py, K4): one
+        object's packages uint32 [P, pkg//4] under its 32-byte key and
+        per-package nonces uint32 [P, 3] -> Future[(xored uint32
+        [P, pkg//4], poly_keys uint32 [P, 8])]. Items of many objects, each
+        with its own key, share one launch per flush."""
+        if len(cipher_key) != 32:
+            raise ValueError("ChaCha20 keys are 32 bytes")
+        if nonces.shape != (words.shape[0], 3):
+            raise ValueError(f"nonces {nonces.shape} do not match "
+                             f"{words.shape[0]} packages")
+        check_shared_nonce(nonces)
+        key = ("sse_xor", words.shape)
+        return self._submit(key, _Bucket(None, "sse_xor"),
+                            _Pending(words, nonces=nonces,
+                                     cipher_key=cipher_key))
+
     def _submit(self, key: tuple, new_bucket: _Bucket, p: _Pending) -> Future:
         with self._cv:
             if self._stop:
@@ -196,7 +220,13 @@ class DispatchQueue:
         n = len(items)
         words = _stack([p.words for p in items], dev)
         shard_nbytes = int(words.shape[-1]) * 4
-        if b.op == "encode":
+        if b.op == "sse_xor":
+            keys = np.stack([np.frombuffer(p.cipher_key, "<u4")
+                             for p in items])
+            outs = chacha_cuda.chacha20_xor(
+                words_to_device(keys, dev),
+                _stack([p.nonces for p in items], dev), words)
+        elif b.op == "encode":
             outs = (b.codec.encode_words_batch(words),)
         elif b.op == "encode_hashed":
             outs = _fused.encode_hashed_fn_for(
@@ -222,7 +252,10 @@ class DispatchQueue:
         self.items[b.op] += n
         self.max_items = max(self.max_items, n)
         for i, p in enumerate(items):
-            res = tuple(h[i] for h in host)
+            # sse_xor results are whole payloads: each item gets a copy, so
+            # one slow consumer's slice does not pin the flush's batch
+            res = tuple(h[i].copy() if b.op == "sse_xor" else h[i]
+                        for h in host)
             p.future.set_result(res if len(res) > 1 else res[0])
 
     def stop(self):

@@ -8,8 +8,9 @@ plus the same reduction algorithm: count identical errors, return the one
 meeting quorum, else an ErasureQuorumError.
 
 A copy of the part of minio_tpu/utils/errors.py that the erasure path
-raises or reduces (the port imports nothing of the JAX package); the other
-types come over with the slice that first raises them.
+raises or reduces (the port imports nothing of the JAX package), and of the
+object API errors of minio_tpu/objectlayer/datatypes.py that the SSE-C path
+raises; the other types come over with the slice that first raises them.
 """
 from __future__ import annotations
 
@@ -123,3 +124,49 @@ def reduce_read_quorum_errs(errs, ignored, read_quorum):
 
 def reduce_write_quorum_errs(errs, ignored, write_quorum):
     return reduce_quorum_errs(errs, ignored, write_quorum, ErasureWriteQuorum())
+
+
+# --- object API errors (minio_tpu/objectlayer/datatypes.py) ----------------
+
+
+class ObjectAPIError(Exception):
+    """Base of user-visible object API errors; maps to S3 error codes."""
+    code = "InternalError"
+    http_status = 500
+
+    def __init__(self, bucket: str = "", object: str = "", extra: str = ""):
+        self.bucket = bucket
+        self.object = object
+        self.extra = extra
+        super().__init__(f"{self.code}: {bucket}/{object} {extra}".strip())
+
+
+class InvalidEncryptionAlgo(ObjectAPIError):
+    code = "InvalidEncryptionAlgorithmError"
+    http_status = 400
+
+
+class InvalidSSEKey(ObjectAPIError):
+    code = "InvalidArgument"
+    http_status = 400
+
+
+class SSEKeyMD5Mismatch(ObjectAPIError):
+    code = "XMinioSSECustomerKeyMD5Mismatch"
+    http_status = 400
+
+
+class SSEKeyMismatch(ObjectAPIError):
+    code = "AccessDenied"
+    http_status = 403
+
+
+class SSEEncryptedObject(ObjectAPIError):
+    """GET/HEAD of an SSE-C object without the customer key headers."""
+    code = "InvalidRequest"
+    http_status = 400
+
+
+class SSEDecryptError(ObjectAPIError):
+    code = "XMinioSSEDecryptFailure"
+    http_status = 400

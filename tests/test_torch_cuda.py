@@ -1,8 +1,10 @@
 """The port's hand-written CUDA kernels held to their plain PyTorch versions
 on the card, bit for bit, over shapes the CPU tests cannot reach (ragged
 word counts, every template bound of the GF kernels, more than 32 output
-rows), plus one erasure round trip on the card. Marked ``cuda``: they skip
-on hosts without a CUDA card. On the card:
+rows, chunk lengths with and without a HighwayHash remainder, unaligned
+views), the fused launches at both device hashes, plus an erasure round
+trip and an SSE-C round trip on the card. Marked ``cuda``: they skip on
+hosts without a CUDA card. On the card:
 
     MINIO_TPU_TEST_ON_DEVICE=1 MINIO_TPU_LOCKRANK=0 \
         python -m pytest -m cuda tests/test_torch_cuda.py -q
@@ -17,7 +19,9 @@ from minio_tpu_torch.erasure import (BitrotAlgorithm, Erasure,
                                      new_bitrot_reader, new_bitrot_writer)
 from minio_tpu_torch.erasure.streaming import (BufferSink, BufferSource,
                                                erasure_decode, erasure_encode)
-from minio_tpu_torch.ops import gf256, mur3_cuda, rs_cuda
+from minio_tpu_torch.crypto import sse
+from minio_tpu_torch.ops import (chacha_cuda, chacha_torch, fused, gf256,
+                                 hh_cuda, hh_torch, mur3_cuda, rs_cuda)
 
 pytestmark = pytest.mark.cuda
 
@@ -116,3 +120,107 @@ def test_erasure_round_trip_on_card(dev):
     out = BufferSink()
     erasure_decode(er, out, readers, 0, len(data), len(data))
     assert out.getvalue() == data
+
+
+@pytest.mark.parametrize("items,pkgs,w", [(1, 1, 16), (3, 2, 64),
+                                          (5, 16, 1024), (2, 3, 16384)])
+def test_chacha_kernel_matches_plain(dev, items, pkgs, w):
+    keys = words((items, 8), items, dev)
+    keys[:, 0] |= -2**31
+    nonces = words((items, pkgs, 3), pkgs, dev)
+    nonces[:, :, 2] = -1 - torch.arange(pkgs, dtype=torch.int32, device=dev)
+    data = words((items, pkgs, w), w, dev)
+    got = chacha_cuda.chacha20_xor(keys, nonces, data)
+    want = chacha_torch.multi_xor(keys, nonces, data)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_chacha_single_object_and_unaligned_view(dev):
+    nonces = words((4, 3), 1, dev)
+    nonces[:, :2] = nonces[0, :2]
+    data = words((4 * 64 + 1,), 2, dev)[1:].view(4, 64)
+    assert data.data_ptr() % 16
+    key = bytes(range(32))
+    got = chacha_cuda.xor_packages(key, nonces, data)
+    want = chacha_torch.xor_packages(key, nonces, data)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    with pytest.raises(ValueError):  # words 0/1 must be shared
+        chacha_cuda.xor_packages(key, words((4, 3), 3, dev), data)
+
+
+@pytest.mark.parametrize("nbytes,n", [(4, 1), (28, 3), (32, 5), (36, 7),
+                                      (64, 67), (1028, 33), (16384, 40)])
+def test_hh_kernel_matches_plain(dev, nbytes, n):
+    x = words((n, nbytes // 4), nbytes + n, dev)
+    kw = hh_torch.key_words(bytes(range(32)))
+    assert torch.equal(hh_cuda.highwayhash256_chunks(kw, nbytes, x),
+                       hh_cuda.highwayhash256_ref(kw, nbytes, x))
+
+
+@pytest.mark.parametrize("nbytes", [64, 1028])
+def test_hh_kernel_takes_unaligned_views(dev, nbytes):
+    n = 9
+    x = words((n * nbytes // 4 + 1,), 7, dev)[1:].view(n, nbytes // 4)
+    assert x.data_ptr() % 16
+    kw = hh_torch.key_words(bytes(range(32)))
+    assert torch.equal(hh_cuda.highwayhash256_chunks(kw, nbytes, x),
+                       hh_cuda.highwayhash256_ref(kw, nbytes, x))
+
+
+@pytest.mark.parametrize("algo", [0, 1])
+def test_fused_launches_match_cpu(dev, algo):
+    """encode_hashed, fused (with hash_out) and verify on the card give the
+    CPU plain versions' words, at HighwayHash (0) and MUR3X256 (1)."""
+    k, m, w, chunk = 4, 2, 1024, 1024
+    key = bytes(range(32))
+    x = words((3, k, w), 11, "cpu")
+    res = {}
+    for d in ("cpu", dev):
+        codec = rs_cuda.gf_encode_batched
+        par_rows = np.random.default_rng(1).integers(0, 256, (m, k),
+                                                     dtype=np.uint8)
+        enc = fused.encode_hashed_fn_for(
+            key, w * 4, lambda t: codec(par_rows, t), chunk, algo)
+        par, digs = enc(x.to(d))
+        masks = torch.from_numpy(np.stack([gf256.coeff_masks(
+            par_rows)] * 3).view(np.int32)).to(d)
+        bad = digs[:, :k].clone()
+        bad[1, 2, 0] ^= 1
+        out, valid, odigs = fused.fused_fn_for(
+            key, w * 4, rs_cuda.gf_matmul_batched, chunk, algo,
+            hash_out=True)(masks, x.to(d), bad)
+        ok = fused.verify_fn_for(key, w * 4, chunk, algo)(
+            x.to(d), digs[:, :k])
+        res[str(d)] = [t.cpu() for t in (par, digs, out, valid, odigs, ok)]
+    for a, b in zip(res["cpu"], res[str(dev)]):
+        assert torch.equal(a, b)
+    assert not res["cpu"][3][1, 2] and res["cpu"][5].all()
+
+
+def test_sse_hh_round_trip_on_card(dev):
+    """One SSE-C object at HighwayHash256S: sealed through the card's
+    sse_xor, erasure-coded, read back whole and ranged, degraded."""
+    k, m, bs = 4, 2, 64 << 10
+    plain = np.random.default_rng(4).integers(
+        0, 256, 5 * sse.PKG_SIZE + 777, dtype=np.uint8).tobytes()
+    oek, iv = bytes(range(32)), bytes(range(12))
+    ct = sse.EncryptReader(io.BytesIO(plain), oek, iv).read()
+    assert len(ct) == sse.enc_size(len(plain))
+    er = Erasure(k, m, bs)
+    algo = BitrotAlgorithm.HIGHWAYHASH256S
+    sinks = [BufferSink() for _ in range(k + m)]
+    ws = [new_bitrot_writer(s, algo, 16384) for s in sinks]
+    assert erasure_encode(er, io.BytesIO(ct), ws, k) == len(ct)
+    for w in ws:
+        w.close()
+    till = er.shard_file_size(len(ct))
+    for drop, off, ln in (((), 0, len(plain)), ((0, 1), 65536 - 3, 70001)):
+        eo, el, seq0, skip = sse.decrypt_range_bounds(off, ln, len(plain))
+        readers = [None if i in drop else new_bitrot_reader(
+            BufferSource(s.getvalue()), algo, till, 16384)
+            for i, s in enumerate(sinks)]
+        out = BufferSink()
+        dw = sse.DecryptWriter(out, oek, iv, seq0, skip, ln)
+        erasure_decode(er, dw, readers, eo, el, len(ct))
+        dw.close()
+        assert out.getvalue() == plain[off: off + ln]

@@ -107,8 +107,8 @@ def test_guards():
                            1000, 1)
     with pytest.raises(ValueError):
         fused.encode_hashed_fn_for(HIGHWAY_KEY, 4096, None, 0, 1)
-    with pytest.raises(NotImplementedError):  # HighwayHash: not ported yet
-        fused.verify_fn_for(HIGHWAY_KEY, 4096, 1024, 0)
+    with pytest.raises(NotImplementedError):  # no device hash for id 2
+        fused.verify_fn_for(HIGHWAY_KEY, 4096, 1024, 2)
 
 
 def test_dispatch_ops_match_direct_calls(setup):
