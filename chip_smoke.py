@@ -10,16 +10,19 @@ Phases, each printing one JSON line:
 1. build — compiles minio_tpu_torch/csrc/*.cu with nvcc (one process per
    source, all at once) into build/minio_tpu_torch/, cached by content hash.
 2. card — the card's name and power limit from nvidia-smi.
-3. kernels — each hand-written kernel (K1-K5) at the shapes the paths give
+3. kernels — each hand-written kernel (K1-K6) at the shapes the paths give
    it, batched and single-block, held bit-exact against its plain PyTorch
    version on the card, with CUDA-event medians, the plain version's time,
    the computed bound and a device-to-device copy of the same bytes as the
-   measured memory floor.
+   measured memory floor. K6 (the S3 Select scan) runs at the select path's
+   flush (128 lineitem blocks of 1 MiB), at one block, and on a small block
+   of parse edge cases under a program with every op kind over 8 columns;
+   the flush's peak device memory is reported.
 4. main path (MUR3X256S) — a 16+4 erasure set over 20 disk directories,
-   1 MiB blocks, MUR3X256S bitrot with 16 KiB chunks: 128 objects of 4 MiB
-   PUT from 128 threads through erasure_encode, GET back, two data shards
+   1 MiB blocks, MUR3X256S bitrot with 16 KiB chunks: 64 objects of 4 MiB
+   PUT from 64 threads through erasure_encode, GET back, two data shards
    of every object removed and a degraded GET of all, one flipped byte
-   detected with the GET still exact, and erasure_heal of all 128 objects
+   detected with the GET still exact, and erasure_heal of all 64 objects
    with the healed files byte-identical to the originals. One object's
    first block is also checked against the host reference math.
 5. SSE path (HighwayHash256S, the default bitrot algorithm) — 128 SSE-C
@@ -32,6 +35,15 @@ Phases, each printing one JSON line:
    files are byte-identical, and the host Poly1305 seconds are reported.
    Every keystream (full packages, short packages, the key envelope) is
    K4's.
+6. select path — TPC-H lineitem at scale factor 0.5 (3,000,608 rows in
+   dbgen's '|' text, made in numpy from --seed) split on row boundaries
+   into 64 objects, stored at 16+4 / 1 MiB / HighwayHash256S with 16 KiB
+   chunks, every ninth one SSE-C, every fourth with two data shards
+   removed; then Query A from 64 threads, one SelectObjectContent each
+   (select_object_content: erasure decode, decrypt, run_select, the scan
+   on K6), and the residual-heavy Query B on one object. Every response's
+   records are held byte for byte to rows built in numpy from the
+   generated columns, and its Stats to the object's sizes.
 
 Kernel launch counts are reset just before each path (each SSE sub-phase)
 and read just after; every kernel a path should run must have launched.
@@ -67,6 +79,9 @@ K, M = 16, 4
 BLOCK = 1 << 20
 CHUNK = 16384
 N_OBJECTS = 128
+#: the MUR3X256S path's objects: cut from 128 so that the whole script,
+#: the select path included, stays near four minutes
+MUR3_OBJECTS = 64
 OBJECT_BYTES = 4 << 20
 #: every second SSE object is this many bytes short of whole packages
 TAIL_SHORT = 333
@@ -74,6 +89,33 @@ TAIL_SHORT = 333
 REPS = 20
 #: the plain versions' timings: the median of this many calls
 PLAIN_REPS = 3
+#: the select path: the lineitem table's scale factor (cut from 1 to keep
+#: the script near four minutes; Query A's wall grows with the table), its
+#: objects, its two queries, and the objects that are SSE-C (every ninth)
+#: or lose two data shards (every fourth)
+SELECT_SCALE = 0.5
+SELECT_OBJECTS = 64
+QUERY_A = ("SELECT s._1, s._2, s._5 FROM s3object s "
+           "WHERE s._2 < 2000 AND s._5 <= 24")
+QUERY_B = "SELECT s._1 FROM s3object s WHERE s._6 < 1000.5"
+SSE_EVERY = 9
+DEGRADED_EVERY = 4
+PIPE, COMMA = 124, 44
+#: K6's edge-case block: the parse corners of tests/test_scan_pallas.py
+#: (cells that parse, and cells that must not) and a program with every op
+#: kind over 8 columns (slots 0-7 = CSV columns 1-8)
+EDGE_INTS = (b"34", b" 41 ", b"-7", b"+19", b"007", b"999999999", b"0",
+             b"-0", b"-999999999", b"7", b"19", b"3", b"40", b"\t5 ")
+EDGE_BAD = (b"2.5", b"", b"12_000", b"1234567890", b"1 2",
+            b"                9", b"5-3", b"123\x00", b"\x0045", b"+-4",
+            b"- 4", b"x")
+EDGE_PROGRAM = (
+    ("num", 0, "lt", 10), ("num", 1, "le", 3), ("or",),
+    ("num", 2, "gt", -5), ("and",), ("num", 3, "ge", 0),
+    ("num", 4, "eq", 7), ("or",), ("and",), ("num", 5, "ne", 3), ("and",),
+    ("between", 6, 5, 20), ("in", 7, ()), ("not",), ("and",), ("or",),
+    ("in", 0, (7, 19, 34)), ("const", True), ("and",), ("or",),
+    ("const", False), ("not",), ("and",))
 
 
 def emit(obj) -> None:
@@ -152,6 +194,170 @@ def bound_ms(nbytes: int, ops: int, logic_ops: int) -> tuple[float, str]:
     tb = nbytes / HBM_BYTES_S * 1e3
     to = max(ops / ISSUE_OPS_S, logic_ops / LOGIC_OPS_S) * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+# --- TPC-H lineitem ---------------------------------------------------------
+
+#: TPC-H v3.0.1, the LINEITEM table (1.4.1) with dbgen's value rules (4.2.3):
+#: orders and rows at scale factor 1, parts and suppliers, dates, the fixed
+#: SHIPINSTRUCT and SHIPMODE words. The comment words hold no quote, CR,
+#: NUL, '|' or ',' (a quote, CR or NUL anywhere would send a select to the
+#: classic interpreter and no row would reach the scan).
+ORDERS_SF1 = 1_500_000
+ROWS_SF1 = 6_001_215
+PARTS_SF1 = 200_000
+SUPPS_SF1 = 10_000
+SHIPINSTRUCT = (b"DELIVER IN PERSON", b"COLLECT COD", b"NONE",
+                b"TAKE BACK RETURN")
+SHIPMODE = (b"REG AIR", b"AIR", b"RAIL", b"SHIP", b"TRUCK", b"MAIL", b"FOB")
+COMMENT_WORDS = (
+    b"furiously carefully quickly slyly blithely fluffily final regular "
+    b"express pending ironic bold special even unusual silent daring "
+    b"deposits requests accounts packages instructions theodolites foxes "
+    b"pinto beans ideas dependencies excuses platelets asymptotes courts "
+    b"dolphins sleep wake are haggle nag use boost affix detect integrate "
+    b"cajole above against along among around the about after").split()
+
+
+def _digits(v, width: int):
+    """Decimal digits of non-negative ints ``v`` left-aligned in uint8
+    [N, width], with their lengths."""
+    import numpy as np
+    v = np.asarray(v, dtype=np.int64)
+    p = 10 ** np.arange(width - 1, -1, -1, dtype=np.int64)
+    right = ((v[:, None] // p) % 10 + 48).astype(np.uint8)
+    nd = np.ones(len(v), dtype=np.int64)
+    for k in range(1, width):
+        nd += v >= 10 ** k
+    idx = np.minimum(np.arange(width) + (width - nd)[:, None], width - 1)
+    return np.take_along_axis(right, idx, 1), nd
+
+
+def _fixed(text: bytes, n: int):
+    import numpy as np
+    return np.broadcast_to(np.frombuffer(text, np.uint8), (n, len(text))), \
+        None
+
+
+def _pick(words, idx):
+    """Words of a table by index: (uint8 [N, longest], lengths)."""
+    import numpy as np
+    w = max(len(t) for t in words)
+    arr = np.array(words, dtype=f"S{w}").view(np.uint8).reshape(-1, w)
+    return arr[idx], np.array([len(t) for t in words])[idx]
+
+
+def _cents(v, width: int):
+    """``v`` hundredths as 'int.dd': the pieces of one decimal field."""
+    import numpy as np
+    v = np.asarray(v, dtype=np.int64)
+    frac = ((v % 100)[:, None] // np.array([10, 1]) % 10 + 48)
+    return [_digits(v // 100, width), _fixed(b".", len(v)),
+            (frac.astype(np.uint8), None)]
+
+
+def _assemble(pieces) -> tuple[bytes, object]:
+    """Rows made of pieces (uint8 [N, w], lengths [N] or None for all w)
+    back to back -> (the text of every row in order, each row's length)."""
+    import numpy as np
+    n = len(pieces[0][0])
+    width = sum(a.shape[1] for a, _ in pieces)
+    cells = np.empty((n, width), np.uint8)
+    mask = np.ones((n, width), bool)
+    col = 0
+    for a, ln in pieces:
+        w = a.shape[1]
+        cells[:, col:col + w] = a
+        if ln is not None:
+            mask[:, col:col + w] = np.arange(w) < ln[:, None]
+        col += w
+    return cells[mask].tobytes(), mask.sum(axis=1)
+
+
+def lineitem(seed: int, scale: float = 1.0) -> dict:
+    """TPC-H lineitem at scale factor ``scale`` in dbgen's '|'-delimited
+    .tbl text (a trailing '|', no header), made in numpy from ``seed`` with
+    dbgen's formats and ranges: 1,500,000 x scale orders of 1-7 lines each
+    (nudged to 6,001,215 x scale rows in all, SF 1's count), sparse order
+    keys, l_partkey uniform over 200,000 x scale parts and its supplier
+    among 10,000 x scale, l_quantity 1-50, the extended price from the
+    part's retail price, discounts 0.00-0.10, taxes 0.00-0.08, ISO dates,
+    flags from the dates, the fixed SHIPINSTRUCT and SHIPMODE words,
+    comments of 10-43 characters. Returns the text, each row's byte offset
+    (N + 1 of them) and the columns the selects read. (dbgen's own random
+    streams are not reproduced: the rows are other rows of the same
+    distributions.)"""
+    import numpy as np
+    gen = np.random.default_rng(seed)
+    n_orders = max(1, round(ORDERS_SF1 * scale))
+    parts = max(1, round(PARTS_SF1 * scale))
+    supps = max(1, round(SUPPS_SF1 * scale))
+    counts = gen.integers(1, 8, n_orders)
+    diff = round(ROWS_SF1 * scale) - int(counts.sum())
+    room = np.flatnonzero(counts < 7 if diff > 0 else counts > 1)
+    pick = gen.choice(room, min(abs(diff), len(room)), replace=False)
+    counts[pick] += 1 if diff > 0 else -1
+    n = int(counts.sum())
+    order = np.repeat(np.arange(n_orders), counts)
+    line = np.arange(n) - np.repeat(np.cumsum(counts) - counts, counts) + 1
+    orderkey = (order // 8) * 32 + order % 8 + 1
+    partkey = gen.integers(1, parts + 1, n)
+    i = gen.integers(0, 4, n)
+    suppkey = (partkey + i * (supps // 4 + (partkey - 1) // supps)) \
+        % supps + 1
+    quantity = gen.integers(1, 51, n)
+    retail = 90000 + (partkey // 10) % 20001 + 100 * (partkey % 1000)
+    price = quantity * retail
+    discount = gen.integers(0, 11, n)
+    tax = gen.integers(0, 9, n)
+    start = np.datetime64("1992-01-01")
+    current = np.datetime64("1995-06-17")
+    order_days = int((np.datetime64("1998-12-31") - 151 - start)
+                     // np.timedelta64(1, "D"))
+    # dates as days since 1992-01-01, printed from a table of every day
+    orderdate = gen.integers(0, order_days + 1, n_orders)[order]
+    ship = orderdate + gen.integers(1, 122, n)
+    commit = orderdate + gen.integers(30, 91, n)
+    receipt = ship + gen.integers(1, 31, n)
+    today = int((current - start) // np.timedelta64(1, "D"))
+    flag = np.where(receipt <= today, gen.integers(0, 2, n), 2)
+    status = (ship > today).astype(np.int64)
+    days = np.datetime_as_string(start + np.arange(order_days + 152)) \
+        .astype("S10").view(np.uint8).reshape(-1, 10)
+    pool = []
+    for _ in range(4096):
+        words = b" ".join(COMMENT_WORDS[j] for j in gen.integers(
+            0, len(COMMENT_WORDS), 12))
+        pool.append(words[:int(gen.integers(10, 44))].strip())
+    comment = gen.integers(0, len(pool), n)
+    instruct = gen.integers(0, len(SHIPINSTRUCT), n)
+    mode = gen.integers(0, len(SHIPMODE), n)
+
+    def date(d):
+        return days[d], None
+
+    texts, lens = [], []
+    for a in range(0, n, 1 << 16):     # cache-sized slices of rows
+        sl = slice(a, min(n, a + (1 << 16)))
+        m = sl.stop - sl.start
+        bar = _fixed(b"|", m)
+        pieces = [_digits(orderkey[sl], 7), bar, _digits(partkey[sl], 6), bar,
+                  _digits(suppkey[sl], 5), bar, _digits(line[sl], 1), bar,
+                  _digits(quantity[sl], 2), bar, *_cents(price[sl], 6), bar,
+                  *_cents(discount[sl], 1), bar, *_cents(tax[sl], 1), bar,
+                  _pick((b"R", b"A", b"N"), flag[sl]), bar,
+                  _pick((b"F", b"O"), status[sl]), bar,
+                  date(ship[sl]), bar, date(commit[sl]), bar,
+                  date(receipt[sl]), bar, _pick(SHIPINSTRUCT, instruct[sl]),
+                  bar, _pick(SHIPMODE, mode[sl]), bar,
+                  _pick(pool, comment[sl]), bar, _fixed(b"\n", m)]
+        t, ln = _assemble(pieces)
+        texts.append(t)
+        lens.append(ln)
+    offsets = np.concatenate(([0], np.cumsum(np.concatenate(lens))))
+    return {"text": b"".join(texts), "offsets": offsets, "rows": n,
+            "orderkey": orderkey, "partkey": partkey, "quantity": quantity,
+            "price_cents": price}
 
 
 # --- phases ---------------------------------------------------------------
@@ -293,10 +499,84 @@ def sass_mix(lib: str, symbol: str) -> dict:
             "by_opcode": dict(sorted(ops.items(), key=lambda kv: -kv[1]))}
 
 
-def phase_kernels(device, small: bool) -> dict:
+def select_program(sql: str) -> tuple[tuple, tuple]:
+    """The compiled WHERE program and CSV columns of a header-less query."""
+    from minio_tpu_torch.s3select.device import compile_where
+    from minio_tpu_torch.s3select.sql import parse_select
+    sel = parse_select(sql)
+    return compile_where(sel.where, sel.alias or "", {})
+
+
+def select_blocks(text: bytes, n: int, device):
+    """The first ``n`` blocks the select path's DeviceScan cuts from
+    ``text``, newline-padded as it pads them, on ``device`` -> (uint8
+    [n, L], the request's max_rows)."""
+    import numpy as np
+    import torch
+    from minio_tpu_torch.s3select.device import DeviceScan, _next_pow2
+    prog, cols = select_program(QUERY_A)
+    data = np.frombuffer(text[:(n + 8) * BLOCK], np.uint8)
+    # a span of exactly 1 MiB pads to 2 MiB and takes a bucket of its own:
+    # the flush shape is the other spans'
+    spans = [sp for sp in DeviceScan(data, prog, cols, PIPE, device).spans
+             if sp[1] - sp[0] < BLOCK][:n]
+    check(len(spans) == n and not any(r for _, _, r in spans),
+          f"{len(spans)} scan blocks, not {n}")
+    L = max(_next_pow2(max(e - a + 1, 4096)) for a, e, _ in spans)
+    out = np.full((n, L), 10, np.uint8)
+    rows = 1
+    for i, (a, e, _) in enumerate(spans):
+        out[i, :e - a] = data[a:e]
+        rows = max(rows, int(np.count_nonzero(data[a:e] == 10)))
+    return torch.from_numpy(out).to(device), _next_pow2(rows)
+
+
+def edge_block(gen, L: int = 4096):
+    """Rows of 9 fields, the last 8 drawn from EDGE_INTS, every third row
+    with one cell from EDGE_BAD, every seventh cut short (a blank row
+    among them), newline-padded to ``L`` bytes."""
+    import numpy as np
+    rows = []
+    while True:
+        k = len(rows)
+        nf = 9 if k % 7 else int(gen.integers(0, 9))
+        cells = [b"r%d" % k] + [EDGE_INTS[j] for j in gen.integers(
+            0, len(EDGE_INTS), 8)]
+        if k % 3 == 0:
+            cells[1 + int(gen.integers(0, 8))] = \
+                EDGE_BAD[int(gen.integers(0, len(EDGE_BAD)))]
+        row = b",".join(cells[:nf]) + b"\n"
+        if sum(map(len, rows)) + len(row) > L - 32:
+            break
+        rows.append(row)
+    txt = b"".join(rows)
+    return np.frombuffer(txt + b"\n" * (L - len(txt)), np.uint8)[None] \
+        .copy()
+
+
+def scan_ops(x, program: tuple, cols: tuple, delim: int, max_rows: int
+             ) -> tuple[int, int]:
+    """(integer operations, of them ALU-only) that these blocks' scan needs:
+    one compare per block byte (is it a newline), per byte of a referenced
+    cell of at most 16 bytes 3 (a digit test on the ALU pipe, the
+    multiply-add and the power of ten), and per row the program's ops
+    (compares on the ALU pipe). Counted from this run's data (the plain
+    version's cells)."""
+    import torch
+    from minio_tpu_torch.ops import scan_torch
+    c = scan_torch.cells(x, cols, delim, max_rows)
+    cell_bytes = int(((c != 0) & (c != scan_torch.POISON)).sum())
+    del c
+    real_rows = int(torch.clamp((x == 10).sum(dim=1), max=max_rows).sum())
+    n = x.numel() + real_rows * len(program)
+    return n + 3 * cell_bytes, n + cell_bytes
+
+
+def phase_kernels(device, small: bool, table: dict) -> dict:
     """Each kernel against its plain version at the shapes the paths give
     it: the batched shapes of a 128-object flush and the B = 1 / I = 1
-    shapes of the single-block entry points."""
+    shapes of the single-block entry points; K6 on the blocks of ``table``
+    (the select path's lineitem text)."""
     import numpy as np
     import torch
     from minio_tpu_torch.erasure.bitrot import HIGHWAY_KEY
@@ -424,6 +704,53 @@ def phase_kernels(device, small: bool) -> dict:
             lambda d=d, nb=nbytes: hh_cuda.highwayhash256_ref(kw, nb, d),
             n * nbytes + n * 32, hh_ops(n, nbytes), device))
     rows["highwayhash256_chunks"] = {**hh[0], "also": hh[1:]}
+
+    # K6: Query A's program over the select path's flush (128 lineitem
+    # blocks of 1 MiB), over one of those blocks, and the edge-case block
+    # under EDGE_PROGRAM over 8 columns, whose max_rows passes its newline
+    # count
+    from minio_tpu_torch.ops import scan_cuda, scan_torch
+    prog, cols = select_program(QUERY_A)
+    blocks, max_rows = select_blocks(table["text"], 4 if small else N_OBJECTS,
+                                     device)
+    edge = torch.from_numpy(edge_block(gen)).to(device)
+    check(int((edge == 10).sum()) < 1024, "edge block has too many rows")
+    scan = []
+    for xb, p, c, d, mr in ((blocks, prog, cols, PIPE, max_rows),
+                            (blocks[:1], prog, cols, PIPE, max_rows),
+                            (edge, EDGE_PROGRAM, tuple(range(1, 9)), COMMA,
+                             1024)):
+        scan.append(kernel_row(
+            "scan_codes", "minio_tpu_torch/csrc/scan.cu",
+            "minio_tpu/ops/scan_pallas.py:259",
+            f"B={xb.shape[0]} L={xb.shape[1]} max_rows={mr} C={len(c)} "
+            f"ops={len(p)}",
+            lambda xb=xb, p=p, c=c, d=d, mr=mr: scan_cuda.scan_codes(
+                xb, p, c, d, mr),
+            lambda xb=xb, p=p, c=c, d=d, mr=mr: scan_torch.scan_blocks(
+                xb, p, c, d, mr),
+            xb.numel() + 4 * xb.shape[0] * mr, scan_ops(xb, p, c, d, mr),
+            device))
+    codes = scan_cuda.scan_codes(edge, EDGE_PROGRAM, tuple(range(1, 9)),
+                                 COMMA, 1024)
+    check(all(bool((codes == v).any()) for v in (0, 1, 2)),
+          "the edge block's codes lack a match, a miss or a residual")
+    if device.type == "cuda":
+        # device memory of one flush beyond its input blocks
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        scan_cuda.scan_codes(blocks, prog, cols, PIPE, max_rows)
+        torch.cuda.synchronize()
+        scan[0]["flush_peak_bytes"] = torch.cuda.max_memory_allocated() - base
+        scan[0]["input_bytes"] = blocks.numel()
+        emit({"phase": "scan_flush_memory",
+              "peak_bytes_beyond_inputs": scan[0]["flush_peak_bytes"],
+              "input_bytes": blocks.numel()})
+    rows["scan_codes"] = {**scan[0], "also": scan[1:]}
+    if not small:
+        scan[0]["sass"] = sass_mix("scan", "scan_kernel")
+        emit({"phase": "sass", "kernel": "scan_kernel", **scan[0]["sass"]})
     return rows
 
 
@@ -441,8 +768,9 @@ def _percentile(vals: list, q: float) -> float:
 
 
 def _kernel_modules():
-    from minio_tpu_torch.ops import chacha_cuda, hh_cuda, mur3_cuda, rs_cuda
-    return rs_cuda, mur3_cuda, chacha_cuda, hh_cuda
+    from minio_tpu_torch.ops import (chacha_cuda, hh_cuda, mur3_cuda, rs_cuda,
+                                     scan_cuda)
+    return rs_cuda, mur3_cuda, chacha_cuda, hh_cuda, scan_cuda
 
 
 def reset_launches() -> None:
@@ -470,6 +798,8 @@ def _phase_row(q, total: int, wall: float) -> dict:
                 for op, v in st["ops"].items() if v["batches"]},
             "dispatcher_busy_s": st["flush_seconds"],
             "dispatcher_busy_share": st["flush_seconds"] / wall,
+            "dispatcher_busy_s_by_op": {
+                op: v for op, v in st["seconds_by_op"].items() if v},
             "ops": {op: v for op, v in st["ops"].items() if v["items"]}}
 
 
@@ -657,6 +987,53 @@ class _Clock:
 
     def __exit__(self, *exc):
         setattr(self.module, self.name, self.fn)
+
+
+class _Sampler:
+    """Where the host's threads are while installed: every ``every``
+    seconds, the innermost Python frame of each thread (file:function:line;
+    a thread blocked in C, or waiting for the interpreter lock after a C
+    call, shows the line of that call), counted apart for the dispatcher
+    thread and for the others. The sampling thread takes the lock once per
+    sample."""
+
+    def __init__(self, every: float = 0.01):
+        import collections
+        import threading
+        self.every = every
+        self.counts = {"dispatcher": collections.Counter(),
+                       "others": collections.Counter()}
+        self.samples = 0
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._loop, daemon=True)
+
+    def _loop(self):
+        import threading
+        me = threading.get_ident()
+        while not self._stop.wait(self.every):
+            names = {t.ident: t.name for t in threading.enumerate()}
+            self.samples += 1
+            for ident, fr in sys._current_frames().items():
+                if ident == me:
+                    continue
+                who = "dispatcher" if names.get(ident, "").startswith(
+                    "minio-tpu-torch-dispatch") else "others"
+                code = fr.f_code
+                self.counts[who][f"{os.path.basename(code.co_filename)}:"
+                                 f"{code.co_name}:{fr.f_lineno}"] += 1
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+
+    def top(self, n: int = 12) -> dict:
+        """Each group's most frequent frames, as shares of the samples."""
+        return {who: [(k, v / max(1, self.samples)) for k, v in
+                      c.most_common(n)] for who, c in self.counts.items()}
 
 
 def phase_sse(device, n_objects: int, plain_bytes: int, seed: int) -> dict:
@@ -848,6 +1225,240 @@ def phase_sse(device, n_objects: int, plain_bytes: int, seed: int) -> dict:
     return result
 
 
+def _expected_rows(table: dict, r0: int, r1: int, which: str) -> bytes:
+    """The records a query must return over rows [r0, r1), built from the
+    generated columns (not from the text): Query A's 'orderkey,partkey,
+    quantity' where partkey < 2000 and quantity <= 24, Query B's orderkey
+    where the extended price is below 1000.50."""
+    import numpy as np
+    sl = slice(r0, r1)
+    ok, pk, qty = (table[k][sl] for k in ("orderkey", "partkey",
+                                            "quantity"))
+    if which == "A":
+        m = (pk < 2000) & (qty <= 24)
+        if not m.any():
+            return b""
+        n = int(m.sum())
+        comma = _fixed(b",", n)
+        return _assemble([_digits(ok[m], 7), comma, _digits(pk[m], 6),
+                          comma, _digits(qty[m], 2),
+                          _fixed(b"\n", n)])[0]
+    m = table["price_cents"][sl] < 100050
+    if not m.any():
+        return b""
+    return _assemble([_digits(ok[m], 7), _fixed(b"\n", int(m.sum()))])[0]
+
+
+def _request(sql: str) -> bytes:
+    from xml.sax.saxutils import escape
+    return (b"<SelectObjectContentRequest><Expression>%s</Expression>"
+            b"<ExpressionType>SQL</ExpressionType><InputSerialization>"
+            b"<CompressionType>NONE</CompressionType><CSV>"
+            b"<FileHeaderInfo>NONE</FileHeaderInfo><FieldDelimiter>|"
+            b"</FieldDelimiter></CSV></InputSerialization>"
+            b"<OutputSerialization><CSV/></OutputSerialization>"
+            b"</SelectObjectContentRequest>" % escape(sql).encode())
+
+
+def phase_select(device, table: dict, n_objects: int, seed: int) -> dict:
+    """TPC-H lineitem as erasure-coded objects and SelectObjectContent over
+    them (see the module docstring): PUT, Query A from one thread per
+    object, Query B on one object. Every response's records are compared
+    byte for byte with _expected_rows, its Stats with the object's sizes;
+    launch counts are reset before and read after each sub-phase."""
+    import base64
+    import hashlib
+    import numpy as np
+    import torch
+    from minio_tpu_torch.crypto import sse
+    from minio_tpu_torch.erasure import (BitrotAlgorithm, Erasure,
+                                         new_bitrot_reader, new_bitrot_writer)
+    from minio_tpu_torch.erasure.bitrot import pick_bitrot_chunk
+    from minio_tpu_torch.erasure.streaming import erasure_encode
+    from minio_tpu_torch.ops import scan_cuda
+    from minio_tpu_torch.runtime import dispatch
+    from minio_tpu_torch.runtime.dispatch import global_queue
+    from minio_tpu_torch.s3select import object as s3object
+    from minio_tpu_torch.s3select import select_object_content
+    from minio_tpu_torch.s3select.message import decode_messages
+    from minio_tpu_torch.storage.xlstorage import XLStorage
+
+    algo = BitrotAlgorithm.HIGHWAYHASH256S
+    er = Erasure(K, M, BLOCK, device=device)
+    chunk = pick_bitrot_chunk(er.shard_size(), CHUNK)
+    check(chunk == CHUNK, f"bitrot chunk {chunk} != {CHUNK}")
+    root = _disk_root("select")
+    disks = [XLStorage(os.path.join(root, f"d{i:02d}"))
+             for i in range(K + M)]
+    text, offs = table["text"], table["offsets"]
+    # objects of about equal bytes, cut on row boundaries
+    cuts = np.searchsorted(offs, np.arange(n_objects + 1) * (len(text) /
+                                                             n_objects))
+    cuts[0], cuts[-1] = 0, table["rows"]
+    rows_of = [(int(cuts[j]), int(cuts[j + 1])) for j in range(n_objects)]
+    plains = [text[offs[a]:offs[b]] for a, b in rows_of]
+    gen = np.random.default_rng(seed + 2)
+    ssec = [j % SSE_EVERY == 0 for j in range(n_objects)]
+    keys = [gen.bytes(32) for _ in range(n_objects)]
+    lost = (0, 1)
+    degraded = [j % DEGRADED_EVERY == 0 for j in range(n_objects)]
+    bucket = "tpch"
+    meta: list = [{} for _ in range(n_objects)]
+    sizes = [len(p) for p in plains]
+    q = global_queue(device)
+    total = sum(sizes)
+    result = {"table": "TPC-H lineitem", "rows": table["rows"],
+              "text_bytes": len(text), "objects": n_objects,
+              "object_bytes": [min(sizes), max(sizes)],
+              "sse_c_objects": sum(ssec), "degraded_objects": sum(degraded),
+              "geometry": f"{K}+{M}", "block": BLOCK, "chunk": chunk,
+              "algo": algo.value, "threads": n_objects, "disk_root": root}
+
+    def headers(j):
+        if not ssec[j]:
+            return {}
+        return {
+            "x-amz-server-side-encryption-customer-algorithm": "AES256",
+            "x-amz-server-side-encryption-customer-key":
+                base64.b64encode(keys[j]).decode(),
+            "x-amz-server-side-encryption-customer-key-md5":
+                base64.b64encode(hashlib.md5(keys[j]).digest()).decode()}
+
+    def path(j):
+        return f"lineitem/part-{j:05d}.tbl"
+
+    stored = [0] * n_objects
+
+    def put(j):
+        stream, size = io.BytesIO(plains[j]), sizes[j]
+        if ssec[j]:
+            info = sse.parse_sse_headers(headers(j), bucket, path(j))
+            stream, size, _ = sse.encrypt_setup(
+                info, stream, sizes[j], meta[j], bucket, path(j),
+                device=device)
+        ws = [new_bitrot_writer(d.create_file_writer(bucket, path(j)),
+                                algo, chunk) for d in disks]
+        n = erasure_encode(er, stream, ws, K)
+        for w in ws:
+            w.close()
+        stored[j] = n
+        return n == size
+
+    def select(j, sql):
+        till = er.shard_file_size(stored[j])
+        readers = [None if degraded[j] and i in lost else new_bitrot_reader(
+            disks[i].read_file_at(bucket, path(j)), algo, till, chunk)
+            for i in range(K + M)]
+        out = io.BytesIO()
+        t0 = time.monotonic()
+        st = select_object_content(_request(sql), er, readers, stored[j],
+                                   meta[j], headers(j), bucket, path(j), out,
+                                   device=device)
+        lat = time.monotonic() - t0
+        msgs = decode_messages(out.getvalue())
+        recs = b"".join(p for h, p in msgs
+                        if h.get(":event-type") == "Records")
+        stats = [p for h, p in msgs if h.get(":event-type") == "Stats"]
+        return recs, st, stats[0].decode() if stats else "", lat
+
+    def run(fn, jobs, label, kernels, nbytes):
+        q.reset_stats()
+        reset_launches()
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        # thread-summed wall seconds inside the request's stages and the
+        # dispatcher's scan flush (stacking, then K6 with its read-back)
+        clocks = [_Clock(mod, name) for mod, name in (
+            (s3object, "erasure_decode"), (s3object, "run_select"),
+            (dispatch, "_stack"), (scan_cuda, "scan_codes"))]
+        for c in clocks:
+            c.__enter__()
+        try:
+            with _Sampler() as sampler:
+                t0, c0 = time.monotonic(), time.process_time()
+                with ThreadPoolExecutor(max_workers=len(jobs)) as ex:
+                    res = list(ex.map(fn, jobs))
+                wall, cpu = time.monotonic() - t0, time.process_time() - c0
+        finally:
+            for c in clocks:
+                c.__exit__()
+        row = _phase_row(q, nbytes, wall)
+        row["host_cpu_s"] = cpu
+        row["thread_wall_s"] = {c.name: c.wall_s for c in clocks}
+        row["host_frames"] = sampler.top()
+        row["launches"] = read_launches()
+        if device.type == "cuda":
+            row["peak_device_bytes"] = torch.cuda.max_memory_allocated()
+            for name in kernels:
+                check(row["launches"][name] > 0,
+                      f"kernel {name} never launched in select {label}")
+        result[label] = row
+        return res
+
+    ok = run(put, range(n_objects), "put",
+             ("gf_encode_batched", "highwayhash256_chunks", "chacha20_xor"),
+             total)
+    check(all(ok), "a lineitem PUT stored a wrong size")
+    for j in range(n_objects):
+        if degraded[j]:
+            for i in lost:
+                os.remove(os.path.join(disks[i].root, bucket, path(j)))
+
+    def check_reply(j, reply, which):
+        recs, st, stats_xml, _ = reply
+        a, b = rows_of[j]
+        check(recs == _expected_rows(table, a, b, which),
+              f"Query {which} records of object {j} differ from the "
+              f"expected rows")
+        want = {"scanned": stored[j], "processed": sizes[j],
+                "returned": len(recs)}
+        check(st == want, f"Query {which} stats of object {j}: {st} != "
+              f"{want}")
+        for tag, v in (("BytesScanned", want["scanned"]),
+                       ("BytesProcessed", want["processed"]),
+                       ("BytesReturned", want["returned"])):
+            check(f"<{tag}>{v}</{tag}>" in stats_xml,
+                  f"Stats event of object {j} lacks {tag} {v}")
+        return len(recs)
+
+    replies = run(lambda j: select(j, QUERY_A), range(n_objects), "query_a",
+                  ("scan_codes", "highwayhash256_chunks", "gf_matmul_batched",
+                   "chacha20_xor"), total)
+    matched = 0
+    for j, reply in enumerate(replies):
+        check_reply(j, reply, "A")
+        matched += reply[0].count(b"\n")
+    lat = [r[3] for r in replies]
+    qa = result["query_a"]
+    qa.update(rows_matched=matched, p50_ms=_percentile(lat, 0.5) * 1e3,
+              p99_ms=_percentile(lat, 0.99) * 1e3,
+              gib_s_processed=total / qa["wall_s"] / 2**30)
+    check(matched > 0, "Query A matched no row")
+    plain_j = next(j for j in range(n_objects)
+                   if not ssec[j] and not degraded[j])
+    sse_j = next(j for j in range(n_objects) if ssec[j])
+    result["stats_checked"] = {
+        "plain": {"object": plain_j, **replies[plain_j][1]},
+        "sse_c": {"object": sse_j, **replies[sse_j][1]}}
+    check(replies[sse_j][1]["scanned"] == sse.enc_size(sizes[sse_j]) >
+          sizes[sse_j], "SSE-C BytesScanned is not the sealed size")
+
+    reply = run(lambda j: select(j, QUERY_B), [plain_j], "query_b",
+                ("scan_codes", "highwayhash256_chunks"), sizes[plain_j])[0]
+    check_reply(plain_j, reply, "B")
+    qb = result["query_b"]
+    qb.update(object=plain_j, rows_matched=reply[0].count(b"\n"),
+              latency_ms=reply[3] * 1e3,
+              gib_s_processed=sizes[plain_j] / qb["wall_s"] / 2**30)
+    launched = {}
+    for label in ("put", "query_a", "query_b"):
+        for name, n in result[label]["launches"].items():
+            launched[name] = launched.get(name, 0) + n
+    result["launches"] = launched
+    shutil.rmtree(root, ignore_errors=True)
+    return result
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--cpu-rehearsal", action="store_true",
@@ -856,6 +1467,7 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=20261016,
                     help="seed of the objects and the customer keys")
     args = ap.parse_args()
+    t_start = time.monotonic()
     try:
         import torch
     except ImportError:
@@ -874,6 +1486,9 @@ def main() -> int:
         return 2
     rehearsal = args.cpu_rehearsal
     device = torch.device("cpu" if rehearsal else "cuda")
+    # the rehearsal's lineitem rows (~48,000) still fill the four scan
+    # blocks of its kernels phase
+    scale, n_sel = (0.008, 8) if rehearsal else (SELECT_SCALE, SELECT_OBJECTS)
     # the rehearsal's MUR3 objects of 2.1 MiB still hold an unaligned tail;
     # its 1 MiB SSE objects end in a 256-byte ciphertext block (those 333
     # bytes short, in a short package)
@@ -884,10 +1499,18 @@ def main() -> int:
         phase_build(rehearsal)
         phase = "card"
         card = phase_card(rehearsal)
+        phase = "lineitem"
+        t0 = time.monotonic()
+        table = lineitem(args.seed, scale)
+        emit({"phase": "lineitem", "scale_factor": scale,
+              "rows": table["rows"],
+              "bytes": len(table["text"]),
+              "seconds": time.monotonic() - t0})
         phase = "kernels"
-        rows = phase_kernels(device, rehearsal)
+        rows = phase_kernels(device, rehearsal, table)
         phase = "main_path"
-        res = phase_main(device, n_obj, obj_bytes, args.seed)
+        res = phase_main(device, n_obj if rehearsal else MUR3_OBJECTS,
+                         obj_bytes, args.seed)
         if rehearsal:
             res["cut"] = f"{n_obj} objects of {obj_bytes} bytes"
         emit({"phase": "main_path", "card": card, **res})
@@ -896,9 +1519,15 @@ def main() -> int:
         if rehearsal:
             sres["cut"] = f"{n_obj} objects of {sse_bytes} bytes"
         emit({"phase": "sse_path", "card": card, **sres})
+        phase = "select_path"
+        selres = phase_select(device, table, n_sel, args.seed)
+        if rehearsal:
+            selres["cut"] = f"{table['rows']} rows in {n_sel} objects"
+        emit({"phase": "select_path", "card": card, **selres})
         for name, row in rows.items():
             by_path = {"mur3x256s_path": res["launches"][name],
-                       "sse_hh256s_path": sres["launches"][name]}
+                       "sse_hh256s_path": sres["launches"][name],
+                       "select_path": selres["launches"][name]}
             row["launches"] = sum(by_path.values())
             row["launches_by_path"] = by_path
     except Exception as e:  # noqa: BLE001 — report the phase, exit non-zero
@@ -911,6 +1540,9 @@ def main() -> int:
         from minio_tpu_torch.runtime.dispatch import shutdown_global
         shutdown_global()
         shutdown_pools()
+    # the script's own seconds, from argument parsing to here (the build
+    # included, the interpreter's start-up not)
+    emit({"phase": "done", "script_seconds": time.monotonic() - t_start})
     emit({"kernels": list(rows.values())})
     if rehearsal:
         print("cpu rehearsal done; no result", file=sys.stderr)

@@ -5,13 +5,16 @@ counterpart is easy to find:
 
 - ``minio_tpu_torch.ops``      GF(256) host math, the Reed-Solomon codec
   (``rs_torch``), MUR3X256 (``mur3_torch``), HighwayHash-256 (``hh_torch``),
-  ChaCha20 (``chacha_torch``), their hand-written CUDA kernels (``rs_cuda``,
-  ``mur3_cuda``, ``hh_cuda``, ``chacha_cuda``, sources under ``csrc/``) and
-  the fused encode+hash / verify+rebuild launches (``fused``)
+  ChaCha20 (``chacha_torch``), the S3 Select CSV scan (``scan_torch``), their
+  hand-written CUDA kernels (``rs_cuda``, ``mur3_cuda``, ``hh_cuda``,
+  ``chacha_cuda``, ``scan_cuda``, sources under ``csrc/``) and the fused
+  encode+hash / verify+rebuild launches (``fused``)
 - ``minio_tpu_torch.erasure``  codec wrapper, bitrot framing, streaming
   encode / decode / heal
 - ``minio_tpu_torch.crypto``   SSE-C with the ChaCha20-Poly1305 package
   cipher (EncryptReader / DecryptWriter)
+- ``minio_tpu_torch.s3select`` SelectObjectContent over an erasure-coded
+  object, the SQL engine, and the CSV scan lane on the card
 - ``minio_tpu_torch.runtime``  the batching dispatch queue
 - ``minio_tpu_torch.native``   host-side HighwayHash-256 and MUR3X256 (numpy)
 - ``minio_tpu_torch.storage``  shard-file sink and source on a disk directory

@@ -50,6 +50,10 @@ SIGNATURES = {
     "highwayhash": {
         "hh256_chunks": ([_P, _P, _LL, _I, _ULL, _ULL, _ULL, _ULL, _P], _I),
     },
+    "scan": {
+        "scan_codes": ([_P, _P, _P, _I, _P, _P, _I, _I, _LL, _I, _I, _P, _P],
+                       _I),
+    },
 }
 
 _lock = threading.Lock()

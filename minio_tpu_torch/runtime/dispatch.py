@@ -12,11 +12,14 @@ Mechanics (as in the JAX package):
 Ops, with the meaning of the JAX ``_flush_device`` branches:
 ``encode`` (parity of [k, W] words), ``encode_hashed`` (parity + per-chunk
 digests of all k+m shards), ``masked`` (rebuild o rows from per-item
-[8, o, k] masks), ``fused`` (masked + digest check of the k sources), and
+[8, o, k] masks), ``fused`` (masked + digest check of the k sources),
 ``verify`` (the digest check alone, for the healthy GET, whose rebuild-free
-verify the JAX package runs in native C++ on the host), and ``sse_xor`` (the
+verify the JAX package runs in native C++ on the host), ``sse_xor`` (the
 ChaCha20 keystream XOR of SSE packages, many objects each under its own key,
-in one launch per flush).
+in one launch per flush) and ``select_scan`` (the S3 Select row codes of CSV
+blocks under one compiled WHERE program: K6 on a CUDA queue, its plain
+version on a CPU queue; concurrent selects with the same SQL share a
+flush).
 
 Left out for later slices: the QoS planner and spill-to-CPU (a failed
 launch fails its futures; no flush is salvaged on the host), the
@@ -33,7 +36,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from ..ops import chacha_cuda, rs_cuda
+from ..ops import chacha_cuda, rs_cuda, scan_cuda
 from ..ops import fused as _fused
 from ..ops.chacha_torch import check_shared_nonce
 from ..ops.rs_torch import words_to_device
@@ -42,7 +45,8 @@ from ..utils.device import resolve_device
 MAX_BATCH = 128
 MAX_DELAY_S = 1e-3
 
-OPS = ("encode", "encode_hashed", "masked", "fused", "verify", "sse_xor")
+OPS = ("encode", "encode_hashed", "masked", "fused", "verify", "sse_xor",
+       "select_scan")
 
 
 @dataclass
@@ -64,6 +68,7 @@ class _Bucket:
     chunk_size: int = 0
     hash_algo: int = 0
     hash_out: bool = False
+    params: tuple = ()                  # select_scan: program, cols, ...
     items: list = field(default_factory=list)
 
 
@@ -82,6 +87,8 @@ class DispatchQueue:
         self._stop = False
         self.batches = {op: 0 for op in OPS}
         self.items = {op: 0 for op in OPS}
+        #: wall seconds inside flushes, per op
+        self.seconds = {op: 0.0 for op in OPS}
         self.max_items = 0
         #: wall seconds the dispatcher spent inside flushes (stack, host->
         #: device copy, launches, readback): its busy share of a run
@@ -157,6 +164,20 @@ class DispatchQueue:
                             _Pending(words, nonces=nonces,
                                      cipher_key=cipher_key))
 
+    def select_scan(self, words: np.ndarray, program: tuple, cols: tuple,
+                    delim: int, max_rows: int) -> Future:
+        """S3 Select predicate scan (ops/scan_cuda.py, K6): one CSV block
+        as uint32 words [1, L//4] (newline-terminated, newline-padded) ->
+        Future[codes int32 [max_rows]]. Blocks of one request, and of
+        concurrent requests running the same compiled program, bucket
+        together into one launch."""
+        key = ("select_scan", words.shape[-1], program, cols, delim,
+               max_rows)
+        return self._submit(
+            key, _Bucket(None, "select_scan",
+                         params=(program, cols, delim, max_rows)),
+            _Pending(words))
+
     def _submit(self, key: tuple, new_bucket: _Bucket, p: _Pending) -> Future:
         with self._cv:
             if self._stop:
@@ -211,7 +232,9 @@ class DispatchQueue:
                     for p in items:
                         if not p.future.done():
                             p.future.set_exception(e)
-                self.flush_seconds += time.monotonic() - t0
+                dt = time.monotonic() - t0
+                self.flush_seconds += dt
+                self.seconds[b.op] += dt
             if stopping:
                 return
 
@@ -220,7 +243,9 @@ class DispatchQueue:
         n = len(items)
         words = _stack([p.words for p in items], dev)
         shard_nbytes = int(words.shape[-1]) * 4
-        if b.op == "sse_xor":
+        if b.op == "select_scan":
+            outs = (scan_cuda.scan_codes(words.reshape(n, -1), *b.params),)
+        elif b.op == "sse_xor":
             keys = np.stack([np.frombuffer(p.cipher_key, "<u4")
                              for p in items])
             outs = chacha_cuda.chacha20_xor(
@@ -246,8 +271,9 @@ class DispatchQueue:
                 b.hash_key, shard_nbytes, b.chunk_size, b.hash_algo)(
                     words, _stack([p.digests for p in items], dev)),)
         host = [o.cpu().numpy() for o in outs]
-        host = [h.view(np.uint32) if h.dtype == np.int32 else h
-                for h in host]
+        if b.op != "select_scan":   # words travel as int32 holding uint32
+            host = [h.view(np.uint32) if h.dtype == np.int32 else h
+                    for h in host]
         self.batches[b.op] += 1
         self.items[b.op] += n
         self.max_items = max(self.max_items, n)
@@ -268,6 +294,7 @@ class DispatchQueue:
         for op in OPS:
             self.batches[op] = 0
             self.items[op] = 0
+            self.seconds[op] = 0.0
         self.max_items = 0
         self.flush_seconds = 0.0
 
@@ -277,6 +304,7 @@ class DispatchQueue:
         return {"batches": batches, "items": items,
                 "ops": {op: {"batches": self.batches[op],
                              "items": self.items[op]} for op in OPS},
+                "seconds_by_op": dict(self.seconds),
                 "max_items": self.max_items,
                 "flush_seconds": self.flush_seconds,
                 "avg_batch": items / batches if batches else 0.0}

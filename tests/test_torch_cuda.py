@@ -3,7 +3,9 @@ on the card, bit for bit, over shapes the CPU tests cannot reach (ragged
 word counts, every template bound of the GF kernels, more than 32 output
 rows, chunk lengths with and without a HighwayHash remainder, unaligned
 views), the fused launches at both device hashes, plus an erasure round
-trip and an SSE-C round trip on the card. Marked ``cuda``: they skip on
+trip and an SSE-C round trip on the card; the S3 Select scan kernel (K6) at
+the chip smoke's three shapes, and one select_scan flush and one select
+through the CUDA queue. Marked ``cuda``: they skip on
 hosts without a CUDA card. On the card:
 
     MINIO_TPU_TEST_ON_DEVICE=1 MINIO_TPU_LOCKRANK=0 \
@@ -21,7 +23,8 @@ from minio_tpu_torch.erasure.streaming import (BufferSink, BufferSource,
                                                erasure_decode, erasure_encode)
 from minio_tpu_torch.crypto import sse
 from minio_tpu_torch.ops import (chacha_cuda, chacha_torch, fused, gf256,
-                                 hh_cuda, hh_torch, mur3_cuda, rs_cuda)
+                                 hh_cuda, hh_torch, mur3_cuda, rs_cuda,
+                                 scan_cuda, scan_torch)
 
 pytestmark = pytest.mark.cuda
 
@@ -224,3 +227,105 @@ def test_sse_hh_round_trip_on_card(dev):
         erasure_decode(er, dw, readers, eo, el, len(ct))
         dw.close()
         assert out.getvalue() == plain[off: off + ln]
+
+
+@pytest.fixture(scope="module")
+def smoke():
+    import os
+    import sys
+    sys.path.insert(0, os.path.dirname(os.path.dirname(__file__)))
+    import chip_smoke
+    return chip_smoke
+
+
+@pytest.mark.parametrize("shape", ["flush", "one", "edge"])
+def test_scan_kernel_matches_plain(dev, smoke, shape):
+    """K6 at the chip smoke's shapes: Query A over 128 lineitem blocks of
+    1 MiB, over one of them, and the edge-case block under a program with
+    every op kind over 8 columns."""
+    if shape == "edge":
+        x = torch.from_numpy(smoke.edge_block(np.random.default_rng(3)))
+        x, prog, cols, delim, mr = (x.to(dev), smoke.EDGE_PROGRAM,
+                                    tuple(range(1, 9)), smoke.COMMA, 1024)
+    else:
+        n = 128 if shape == "flush" else 1
+        table = smoke.lineitem(11, 0.2 if n > 1 else 0.002)
+        x, mr = smoke.select_blocks(table["text"], n, dev)
+        (prog, cols), delim = smoke.select_program(smoke.QUERY_A), smoke.PIPE
+    before = scan_cuda.launches["scan_codes"]
+    got = scan_cuda.scan_codes(x, prog, cols, delim, mr)
+    assert scan_cuda.launches["scan_codes"] == before + 1
+    want = scan_torch.scan_blocks(x, prog, cols, delim, mr)
+    assert torch.equal(got, want)
+    assert (want == 1).any() and (want == 2).any()
+
+
+def test_scan_kernel_refuses_bad_inputs(dev):
+    x = torch.full((1, 64), 10, dtype=torch.uint8, device=dev)
+    with pytest.raises(ValueError):
+        scan_cuda.scan_codes(x, (("num", 0, "lt", 1),), tuple(range(9)), 44,
+                             8)
+    with pytest.raises(ValueError):
+        scan_cuda.scan_codes(x, (("num", 1, "lt", 1),), (0,), 44, 8)
+    with pytest.raises(TypeError):
+        scan_cuda.scan_codes(x.to(torch.int64), (("num", 0, "lt", 1),),
+                             (0,), 44, 8)
+
+
+def test_select_scan_flush_on_card(dev):
+    """Blocks of two requests with the same program share one CUDA flush of
+    K6; its codes equal the plain version's on the CPU."""
+    from minio_tpu_torch.runtime.dispatch import DispatchQueue
+    rows = [b"%d|%d|x\n" % (i, i * 37 % 101 - 50) for i in range(300)]
+    txt = b"".join(rows)
+    block = np.frombuffer(txt + b"\n" * (8192 - len(txt)), np.uint8)
+    prog, cols = (("num", 0, "lt", 0), ("num", 1, "ge", 5), ("or",)), (1, 0)
+    q = DispatchQueue(dev, max_delay=0.05)
+    try:
+        before = scan_cuda.launches["scan_codes"]
+        futs = [q.select_scan(block.view("<u4").reshape(1, -1), prog, cols,
+                              124, 512) for _ in range(2)]
+        got = [f.result(timeout=60) for f in futs]
+        assert scan_cuda.launches["scan_codes"] == before + 1
+        assert q.stats()["ops"]["select_scan"] == {"batches": 1, "items": 2}
+    finally:
+        q.stop()
+    want = scan_torch.scan_blocks(torch.from_numpy(block[None].copy()),
+                                  prog, cols, 124, 512)[0].numpy()
+    for g in got:
+        assert g.dtype == np.int32 and np.array_equal(g, want)
+
+
+def test_select_object_content_on_card(dev):
+    """One SelectObjectContent over an erasure-coded object on the card:
+    the records of the CPU run, the scan through K6."""
+    from minio_tpu_torch.s3select import S3SelectRequest, run_select
+    rows = [b"%d|%d|%d.5|\n" % (i, i * 7 % 50, i) for i in range(5000)]
+    data = b"".join(rows)
+    k, m, bs = 4, 2, 64 << 10
+    er = Erasure(k, m, bs)
+    algo = BitrotAlgorithm.HIGHWAYHASH256S
+    sinks = [BufferSink() for _ in range(k + m)]
+    ws = [new_bitrot_writer(s, algo, 16384) for s in sinks]
+    assert erasure_encode(er, io.BytesIO(data), ws, k) == len(data)
+    for w in ws:
+        w.close()
+    till = er.shard_file_size(len(data))
+    readers = [None if i in (0, 1) else new_bitrot_reader(
+        BufferSource(s.getvalue()), algo, till, 16384)
+        for i, s in enumerate(sinks)]
+    from minio_tpu_torch.s3select import select_object_content
+    body = (b"<SelectObjectContentRequest><Expression>SELECT s._1 FROM "
+            b"s3object s WHERE s._2 &lt; 10 AND s._3 &gt; 100</Expression>"
+            b"<InputSerialization><CSV><FieldDelimiter>|</FieldDelimiter>"
+            b"</CSV></InputSerialization></SelectObjectContentRequest>")
+    before = scan_cuda.launches["scan_codes"]
+    out = io.BytesIO()
+    st = select_object_content(body, er, readers, len(data), {}, {}, "b",
+                               "k", out)
+    assert scan_cuda.launches["scan_codes"] > before
+    req = S3SelectRequest.parse(body)
+    want = io.BytesIO()
+    run_select(req, data, want, device="cpu")
+    assert out.getvalue() == want.getvalue()
+    assert st["processed"] == len(data)
