@@ -12,12 +12,16 @@ Phases, each printing one JSON line:
 2. card — the card's name and power limit from nvidia-smi.
 3. kernels — each hand-written kernel (K1-K6) at the shapes the paths give
    it, batched and single-block, held bit-exact against its plain PyTorch
-   version on the card, with CUDA-event medians, the plain version's time,
+   version on the card, timed as one CUDA-event pair around a run of
+   launches on cold inputs (``time_ms``), with the plain version's time,
    the computed bound and a device-to-device copy of the same bytes as the
-   measured memory floor. K6 (the S3 Select scan) runs at the select path's
-   flush (128 lineitem blocks of 1 MiB), at one block, and on a small block
-   of parse edge cases under a program with every op kind over 8 columns;
-   the flush's peak device memory is reported.
+   measured memory floor. K3 and K5 run at the chunk counts the paths
+   launch (1, 256, 1,024 and 10,240 chunks of 16 KiB), each row with its
+   launch plan, registers and shared memory per CTA. K6 (the S3 Select
+   scan) runs at the select path's flush (128 lineitem blocks of 1 MiB), at
+   one block, and on a small block of parse edge cases under a program with
+   every op kind over 8 columns; the flush's peak device memory is
+   reported.
 4. main path (MUR3X256S) — a 16+4 erasure set over 20 disk directories,
    1 MiB blocks, MUR3X256S bitrot with 16 KiB chunks: 64 objects of 4 MiB
    PUT from 64 threads through erasure_encode, GET back, two data shards
@@ -47,6 +51,8 @@ Phases, each printing one JSON line:
 
 Kernel launch counts are reset just before each path (each SSE sub-phase)
 and read just after; every kernel a path should run must have launched.
+K3's and K5's launches are also counted by chunk count (``launch_sizes``,
+powers of two), printed per path.
 Then the {"kernels": [...]} summary line and, last, the ok line. Any
 failure exits non-zero without the ok line; so does a host without CUDA.
 """
@@ -57,7 +63,6 @@ import io
 import json
 import os
 import shutil
-import statistics
 import subprocess
 import sys
 import time
@@ -85,10 +90,16 @@ MUR3_OBJECTS = 64
 OBJECT_BYTES = 4 << 20
 #: every second SSE object is this many bytes short of whole packages
 TAIL_SHORT = 333
-#: CUDA-event timings per kernel: the median of this many launches
-REPS = 20
-#: the plain versions' timings: the median of this many calls
+#: CUDA-event timings per kernel: the mean of a run of this many launches
+REPS = 50
+#: the plain versions' timings: the mean of a run of this many calls
 PLAIN_REPS = 3
+#: a timed kernel's inputs are rotated over copies of at least this many
+#: bytes (twice the H100's 50 MB L2), so each launch reads them cold
+COLD_BYTES = 100 * 10**6
+#: the spin kernel that holds the stream while the host enqueues a timed
+#: run counts GPU clock cycles: about this many per second
+SPIN_CYCLES_S = 2.0e9
 #: the select path: the lineitem table's scale factor (cut from 1 to keep
 #: the script near four minutes; Query A's wall grows with the table), its
 #: objects, its two queries, and the objects that are SSE-C (every ninth)
@@ -134,36 +145,68 @@ def check(cond: bool, msg: str) -> None:
 # --- timing ---------------------------------------------------------------
 
 
-def time_ms(fn, reps: int, device) -> float:
-    """Median milliseconds of ``fn()`` over ``reps`` calls after one warm-up
-    call: CUDA events around each call on the card, the host clock on the
-    CPU (rehearsal only)."""
+def cold_copies(args: tuple, total: int = COLD_BYTES) -> list:
+    """Argument tuples for a run of calls that each read their inputs from
+    device memory, as the paths do: k copies of the tensors of ``args``,
+    ``total`` bytes in all, k = 1 when the inputs alone are that large."""
     import torch
-    fn()
-    times = []
-    for _ in range(reps):
-        if device.type == "cuda":
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            fn()
-            b.record()
-            b.synchronize()
-            times.append(a.elapsed_time(b))
-        else:
-            t0 = time.perf_counter()
-            fn()
-            times.append((time.perf_counter() - t0) * 1e3)
-    return statistics.median(times)
+    size = sum(a.numel() * a.element_size() for a in args
+               if isinstance(a, torch.Tensor))
+    k = max(1, -(-total // max(size, 1)))
+    if k == 1:
+        return [args]
+    stacks = [a.unsqueeze(0).expand(k, *a.shape).clone()
+              if isinstance(a, torch.Tensor) else None for a in args]
+    return [tuple(a if st is None else st[i] for a, st in zip(args, stacks))
+            for i in range(k)]
+
+
+def time_ms(fn, args: tuple, reps: int, device, cold: bool = True) -> float:
+    """Milliseconds per call of ``fn(*args)``: on the card, one CUDA-event
+    pair around a run of ``reps`` calls after a warm-up call, divided by
+    ``reps``; with ``cold``, the calls rotate over copies of the inputs
+    (``cold_copies``, past the 50 MB L2, read out of it before the run), and
+    a spin kernel holds the stream while the host enqueues the run, so that
+    the host's wrapper time does not enter the window. On the CPU
+    (rehearsal only) the host clock."""
+    import torch
+    sets = cold_copies(args) if cold and device.type == "cuda" else [args]
+    fn(*sets[-1])
+    if device.type != "cuda":
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn(*args)
+        return (time.perf_counter() - t0) * 1e3 / reps
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    if cold:
+        t0 = time.perf_counter()
+        for i in range(3):
+            fn(*sets[-1 - i % len(sets)])
+        host_s = (time.perf_counter() - t0) / 3
+        torch.cuda.synchronize()
+        flush = torch.empty(COLD_BYTES // 4, dtype=torch.int32, device=device)
+        flush.sum()
+        del flush
+        torch.cuda._sleep(int(min(2 * host_s * reps + 1e-3, 1.0) *
+                              SPIN_CYCLES_S))
+    a.record()
+    for i in range(reps):
+        fn(*sets[i % len(sets)])
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
 
 
 def copy_floor_ms(nbytes: int, reps: int, device) -> float:
-    """A device-to-device copy that reads and writes ``nbytes`` in all."""
+    """A device-to-device copy that reads and writes ``nbytes`` in all,
+    under the kernels' timer."""
     import torch
     n = max(1, nbytes // 8)
     src = torch.empty(n, dtype=torch.int32, device=device)
-    dst = torch.empty_like(src)
-    return time_ms(lambda: dst.copy_(src), reps, device)
+    return time_ms(lambda s, d: d.copy_(s), (src, torch.empty_like(src)),
+                   reps, device)
 
 
 def max_abs_err(a, b) -> int:
@@ -408,21 +451,23 @@ def _err(got, want) -> int:
 
 
 def kernel_row(name: str, source: str, replaces: str, shape: str, run,
-               plain, nbytes: int, ops: tuple[int, int], device) -> dict:
-    """One kernel at one shape: held word for word against its plain
-    version on the same inputs, then timed (CUDA-event medians), with the
-    bound of the work, what bounds it, and a device-to-device copy of the
-    same bytes as the measured memory floor."""
-    err = _err(run(), plain())
+               plain, args: tuple, nbytes: int, ops: tuple[int, int], device,
+               **extra) -> dict:
+    """One kernel at one shape: ``run(*args)`` held word for word against
+    its plain version ``plain(*args)``, then both timed (``time_ms``, the
+    kernel on cold inputs), with the bound of the work, what bounds it, and
+    a device-to-device copy of the same bytes as the measured memory
+    floor."""
+    err = _err(run(*args), plain(*args))
     check(err == 0, f"{name} at {shape} disagrees with its plain version: "
           f"max_abs_err {err}")
     b_ms, b_by = bound_ms(nbytes, *ops)
     row = {"name": name, "route": "cuda", "source": source,
            "replaces": replaces, "shape": shape, "max_abs_err": err,
-           "ms": time_ms(run, REPS, device),
-           "plain_ms": time_ms(plain, PLAIN_REPS, device),
+           "ms": time_ms(run, args, REPS, device),
+           "plain_ms": time_ms(plain, args, PLAIN_REPS, device, cold=False),
            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-           "copy_floor_ms": copy_floor_ms(nbytes, REPS, device)}
+           "copy_floor_ms": copy_floor_ms(nbytes, REPS, device), **extra}
     emit({"phase": "kernel", **row})
     return row
 
@@ -497,6 +542,43 @@ def sass_mix(lib: str, symbol: str) -> dict:
     check(sum(counts.values()) > 0, f"no SASS found for {symbol} in {lib}")
     return {"per_pipe": counts, "total": sum(counts.values()),
             "by_opcode": dict(sorted(ops.items(), key=lambda kv: -kv[1]))}
+
+
+def ptxas_info(lib: str) -> dict:
+    """Registers and static shared memory of each kernel of a built
+    library, read from its build log's ptxas lines: {mangled name:
+    {"registers": r, "static_smem_bytes": b}}."""
+    import re
+    from minio_tpu_torch.ops import cuda_build
+    out, cur = {}, None
+    for line in cuda_build.build_log(lib).splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = out.setdefault(m.group(1), {"registers": None,
+                                              "static_smem_bytes": 0})
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur is not None:
+            cur["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            cur["static_smem_bytes"] = int(sm.group(1)) if sm else 0
+    return out
+
+
+def hash_geometry(lib: str, symbol: str, n: int, nbytes: int,
+                  device) -> dict:
+    """The launch plan of a K3/K5 launch over ``n`` chunks of ``nbytes``
+    (16-byte-aligned rows) and its kernel's registers and shared memory per
+    CTA (the ring's dynamic bytes plus the static ones)."""
+    import torch
+    from minio_tpu_torch.ops import hh_cuda
+    sms = torch.cuda.get_device_properties(device).multi_processor_count \
+        if device.type == "cuda" else hh_cuda.SMS
+    plan = hh_cuda.launch_plan(n, nbytes, nbytes % 16 == 0, sms)
+    res = next((v for k, v in ptxas_info(lib).items() if symbol in k),
+               {"registers": None, "static_smem_bytes": 0})
+    return {"plan": plan._asdict(), "registers": res["registers"],
+            "smem_bytes_per_cta": plan.smem_bytes + res["static_smem_bytes"]}
 
 
 def select_program(sql: str) -> tuple[tuple, tuple]:
@@ -603,8 +685,8 @@ def phase_kernels(device, small: bool, table: dict) -> dict:
         xb = x[:b]
         enc.append(kernel_row(
             "gf_encode_batched", gf_src, replaces, f"B={b} {K}+{M} W={W}",
-            lambda xb=xb: rs_cuda.gf_encode_batched(par, xb),
-            lambda xb=xb: rs_cuda.gf_matmul_batched_ref(enc_masks, xb),
+            lambda xb: rs_cuda.gf_encode_batched(par, xb),
+            lambda xb: rs_cuda.gf_matmul_batched_ref(enc_masks, xb), (xb,),
             4 * b * W * (K + M),
             tuple(b * W * v for v in fixed_matrix_ops(par)), device))
     rows["gf_encode_batched"] = {**enc[0], "also": enc[1:]}
@@ -629,25 +711,10 @@ def phase_kernels(device, small: bool, table: dict) -> dict:
         xb = x[:b]
         mm.append(kernel_row(
             "gf_matmul_batched", gf_src, replaces, f"B={b} o={o} i={K} W={W}",
-            lambda mk=mk, xb=xb: rs_cuda.gf_matmul_batched(mk, xb),
-            lambda mk=mk, xb=xb: rs_cuda.gf_matmul_batched_ref(mk, xb),
-            4 * b * (K * W + o * W + 8 * o * K),
+            rs_cuda.gf_matmul_batched, rs_cuda.gf_matmul_batched_ref,
+            (mk, xb), 4 * b * (K * W + o * W + 8 * o * K),
             (b * W * o * (8 * K + 35), b * W * o * (8 * K + 21)), device))
     rows["gf_matmul_batched"] = {**mm[0], "also": mm[1:]}
-
-    # K3: digests of every 16 KiB chunk of a 128-item 16+4 batch (44 ops
-    # per 16-byte packet, 8 of them XORs)
-    nc = (W * 4) // CHUNK if not small else 2
-    cw = CHUNK // 4 if not small else 64
-    data = _words(gen, (B, K + M, nc, cw), device)
-    seeds = seeds_from_key(HIGHWAY_KEY)
-    n = B * (K + M) * nc
-    rows["mur3x256_chunks"] = kernel_row(
-        "mur3x256_chunks", "minio_tpu_torch/csrc/mur3x256.cu",
-        "minio_tpu/ops/mur3_pallas.py:164", f"N={n} chunks x {cw * 4} B",
-        lambda: mur3_cuda.mur3x256_chunks(seeds, cw * 4, data),
-        lambda: mur3_cuda.mur3x256_ref(seeds, cw * 4, data),
-        n * cw * 4 + n * 32, (n * (cw // 4) * 44, n * (cw // 4) * 8), device)
 
     # K4: the sse_xor flush (128 objects of 16 packages of 64 KiB, each
     # object under its own key), and one object's packages under one key
@@ -666,9 +733,9 @@ def phase_kernels(device, small: bool, table: dict) -> dict:
     multi = kernel_row(
         "chacha20_xor", ch_src, "minio_tpu/ops/chacha_pallas.py:210",
         f"I={items} P={pkgs} W={pw}",
-        lambda: chacha_cuda.chacha20_xor(keys, nonces, payload),
-        lambda: chacha_torch.multi_xor(keys, nonces, payload),
-        chacha_bytes(items, pkgs, pw), chacha_ops(items, pkgs, pw), device)
+        chacha_cuda.chacha20_xor, chacha_torch.multi_xor,
+        (keys, nonces, payload), chacha_bytes(items, pkgs, pw),
+        chacha_ops(items, pkgs, pw), device)
     key0 = gen.bytes(32)
     one_nonce = nonces[0].clone()
     one_nonce[:, :2] = one_nonce[0, :2]
@@ -680,30 +747,50 @@ def phase_kernels(device, small: bool, table: dict) -> dict:
     single = kernel_row(
         "chacha20_xor", ch_src, "minio_tpu/ops/chacha_pallas.py:92",
         f"I=1 P={pkgs} W={pw}",
-        lambda: chacha_cuda.chacha20_xor(kw0, one_nonce[None], payload[:1]),
-        lambda: chacha_torch.multi_xor(kw0, one_nonce[None], payload[:1]),
-        chacha_bytes(1, pkgs, pw), chacha_ops(1, pkgs, pw), device)
+        chacha_cuda.chacha20_xor, chacha_torch.multi_xor,
+        (kw0, one_nonce[None], payload[:1]), chacha_bytes(1, pkgs, pw),
+        chacha_ops(1, pkgs, pw), device)
     rows["chacha20_xor"] = {**multi, "also": [single]}
     if not small:
         multi["sass"] = sass_mix("chacha20", "chacha20_kernelILb1E")
         emit({"phase": "sass", "kernel": "chacha20_kernel<true>",
               **multi["sass"]})
 
-    # K5: every 16 KiB chunk of a 128-item 16+4 flush, and the short tail
-    # chunks of the SSE objects' last block (64 B: 1 KiB of ciphertext over
-    # 16 data shards) and of a remainder past the last packet (1,028 B)
+    # K3 and K5 at the chunk counts the paths launch (launch_sizes): every
+    # 16 KiB chunk of a 128-item 16+4 flush (10,240), one chunk (the serial
+    # chain), a verify flush (~256) and an SSE encode_hashed data launch
+    # (~1,024); K5 also at the short tail chunks of the SSE objects' last
+    # block (64 B: 1 KiB of ciphertext over 16 data shards) and at a
+    # remainder past the last packet (1,028 B, the direct-load case)
+    nc = (W * 4) // CHUNK if not small else 2
+    cw = CHUNK // 4 if not small else 64
+    seeds = seeds_from_key(HIGHWAY_KEY)
     kw = hh_torch.key_words(HIGHWAY_KEY)
-    hh = []
-    for n, nbytes in ((B * (K + M) * nc, cw * 4),
-                      (B * (K + M), 64), (B * (K + M), 1028)):
+    sizes = [(n, cw * 4) for n in (B * (K + M) * nc, 1, 256, 1024)]
+    k3, k5 = [], []
+    for n, nbytes in sizes + [(B * (K + M), 64), (B * (K + M), 1028)]:
         d = _words(gen, (n, nbytes // 4), device)
-        hh.append(kernel_row(
+        shape = f"N={n} chunks x {nbytes} B"
+        if (n, nbytes) in sizes:
+            k3.append(kernel_row(
+                "mur3x256_chunks", "minio_tpu_torch/csrc/mur3x256.cu",
+                "minio_tpu/ops/mur3_pallas.py:164", shape,
+                lambda d, nb=nbytes: mur3_cuda.mur3x256_chunks(seeds, nb, d),
+                lambda d, nb=nbytes: mur3_cuda.mur3x256_ref(seeds, nb, d),
+                (d,), n * nbytes + n * 32,
+                (n * (nbytes // 16) * 44, n * (nbytes // 16) * 8), device,
+                **hash_geometry("mur3x256", "mur3x256_kernel", n, nbytes,
+                                device)))
+        k5.append(kernel_row(
             "highwayhash256_chunks", "minio_tpu_torch/csrc/highwayhash.cu",
-            "minio_tpu/ops/hh_jax.py:302", f"N={n} chunks x {nbytes} B",
-            lambda d=d, nb=nbytes: hh_cuda.highwayhash256_chunks(kw, nb, d),
-            lambda d=d, nb=nbytes: hh_cuda.highwayhash256_ref(kw, nb, d),
-            n * nbytes + n * 32, hh_ops(n, nbytes), device))
-    rows["highwayhash256_chunks"] = {**hh[0], "also": hh[1:]}
+            "minio_tpu/ops/hh_jax.py:302", shape,
+            lambda d, nb=nbytes: hh_cuda.highwayhash256_chunks(kw, nb, d),
+            lambda d, nb=nbytes: hh_cuda.highwayhash256_ref(kw, nb, d),
+            (d,), n * nbytes + n * 32, hh_ops(n, nbytes), device,
+            **hash_geometry("highwayhash", "hh256_kernelILb%dE" % (
+                nbytes % 16 == 0), n, nbytes, device)))
+    rows["mur3x256_chunks"] = {**k3[0], "also": k3[1:]}
+    rows["highwayhash256_chunks"] = {**k5[0], "also": k5[1:]}
 
     # K6: Query A's program over the select path's flush (128 lineitem
     # blocks of 1 MiB), over one of those blocks, and the edge-case block
@@ -725,10 +812,10 @@ def phase_kernels(device, small: bool, table: dict) -> dict:
             "minio_tpu/ops/scan_pallas.py:259",
             f"B={xb.shape[0]} L={xb.shape[1]} max_rows={mr} C={len(c)} "
             f"ops={len(p)}",
-            lambda xb=xb, p=p, c=c, d=d, mr=mr: scan_cuda.scan_codes(
+            lambda xb, p=p, c=c, d=d, mr=mr: scan_cuda.scan_codes(
                 xb, p, c, d, mr),
-            lambda xb=xb, p=p, c=c, d=d, mr=mr: scan_torch.scan_blocks(
-                xb, p, c, d, mr),
+            lambda xb, p=p, c=c, d=d, mr=mr: scan_torch.scan_blocks(
+                xb, p, c, d, mr), (xb,),
             xb.numel() + 4 * xb.shape[0] * mr, scan_ops(xb, p, c, d, mr),
             device))
     codes = scan_cuda.scan_codes(edge, EDGE_PROGRAM, tuple(range(1, 9)),
@@ -783,6 +870,26 @@ def read_launches() -> dict:
     for mod in _kernel_modules():
         out.update(mod.launches)
     return out
+
+
+def read_launch_sizes() -> dict:
+    """K3's and K5's launches since the reset by chunk count: {kernel:
+    {"<=2^k": launches}}, a launch of n chunks under the least power of two
+    at or above n."""
+    from minio_tpu_torch.ops import hh_cuda, mur3_cuda
+    out = {}
+    for mod in (mur3_cuda, hh_cuda):
+        for name, hist in mod.launch_sizes.items():
+            out[name] = {f"<={b}": hist[b] for b in sorted(hist)}
+    return out
+
+
+def merge_sizes(into: dict, sizes: dict) -> None:
+    """Adds one sub-phase's ``read_launch_sizes`` into a path's."""
+    for name, hist in sizes.items():
+        dst = into.setdefault(name, {})
+        for b, v in hist.items():
+            dst[b] = dst.get(b, 0) + v
 
 
 def _phase_row(q, total: int, wall: float) -> dict:
@@ -944,6 +1051,7 @@ def phase_main(device, n_objects: int, obj_bytes: int, seed: int) -> dict:
 
     launches = read_launches()
     result["launches"] = launches
+    result["launch_sizes"] = read_launch_sizes()
     flushes = [result[p]["max_items_per_flush"]
                for p in ("put", "get", "degraded_get", "heal")]
     result["max_items_per_flush"] = max(flushes)
@@ -1153,7 +1261,7 @@ def phase_sse(device, n_objects: int, plain_bytes: int, seed: int) -> dict:
         erasure_heal(er, ws, readers(j, lost), enc_totals[j])
         return time.monotonic() - t0
 
-    launched = {}
+    launched, sized = {}, {}
 
     def run(fn, label, kernels):
         q.reset_stats()
@@ -1166,6 +1274,7 @@ def phase_sse(device, n_objects: int, plain_bytes: int, seed: int) -> dict:
             cpu = time.process_time() - c0
         row = _phase_row(q, total, wall)
         row["launches"] = read_launches()
+        row["launch_sizes"] = read_launch_sizes()
         # host CPU seconds of the whole process, and those inside Poly1305
         # (its wall seconds add the calling threads' waits for the lock)
         row["host_cpu_s"] = cpu
@@ -1179,6 +1288,7 @@ def phase_sse(device, n_objects: int, plain_bytes: int, seed: int) -> dict:
                       f"kernel {name} never launched in SSE {label}")
         for name, n in row["launches"].items():
             launched[name] = launched.get(name, 0) + n
+        merge_sizes(sized, row["launch_sizes"])
         return res
 
     ok = run(put, "put", ("chacha20_xor", "highwayhash256_chunks",
@@ -1221,6 +1331,7 @@ def phase_sse(device, n_objects: int, plain_bytes: int, seed: int) -> dict:
     # the healed files serve the plaintext again
     check(get(0) == plains[0], "GET after heal is not exact")
     result["launches"] = launched
+    result["launch_sizes"] = sized
     shutil.rmtree(root, ignore_errors=True)
     return result
 
@@ -1387,6 +1498,7 @@ def phase_select(device, table: dict, n_objects: int, seed: int) -> dict:
         row["thread_wall_s"] = {c.name: c.wall_s for c in clocks}
         row["host_frames"] = sampler.top()
         row["launches"] = read_launches()
+        row["launch_sizes"] = read_launch_sizes()
         if device.type == "cuda":
             row["peak_device_bytes"] = torch.cuda.max_memory_allocated()
             for name in kernels:
@@ -1450,11 +1562,13 @@ def phase_select(device, table: dict, n_objects: int, seed: int) -> dict:
     qb.update(object=plain_j, rows_matched=reply[0].count(b"\n"),
               latency_ms=reply[3] * 1e3,
               gib_s_processed=sizes[plain_j] / qb["wall_s"] / 2**30)
-    launched = {}
+    launched, sized = {}, {}
     for label in ("put", "query_a", "query_b"):
         for name, n in result[label]["launches"].items():
             launched[name] = launched.get(name, 0) + n
+        merge_sizes(sized, result[label]["launch_sizes"])
     result["launches"] = launched
+    result["launch_sizes"] = sized
     shutil.rmtree(root, ignore_errors=True)
     return result
 
@@ -1530,6 +1644,14 @@ def main() -> int:
                        "select_path": selres["launches"][name]}
             row["launches"] = sum(by_path.values())
             row["launches_by_path"] = by_path
+            if name in res["launch_sizes"]:
+                row["launch_sizes_by_path"] = {
+                    "mur3x256s_path": res["launch_sizes"].get(name, {}),
+                    "sse_hh256s_path": sres["launch_sizes"].get(name, {}),
+                    "select_path": selres["launch_sizes"].get(name, {})}
+        emit({"phase": "launch_sizes", **{
+            name: row["launch_sizes_by_path"] for name, row in rows.items()
+            if "launch_sizes_by_path" in row}})
     except Exception as e:  # noqa: BLE001 — report the phase, exit non-zero
         import traceback
         traceback.print_exc()

@@ -7,17 +7,10 @@
 // rebuild launches. The TPU has no 64-bit integers, so hh_jax.py carries
 // every lane as a (lo, hi) uint32 pair, multiplies in 16-bit limbs and
 // builds the zipper merge from masked shifts across the halves. Hopper has
-// native 64-bit lanes: K5 highwayhash256_chunks keeps the 16 uint64 state
-// words in registers, multiplies with one 32x32->64 multiply
-// (IMAD.WIDE.U32), and does each half of a zipper merge as byte
-// permutes (__byte_perm, 3 per 64-bit addend).
-//
-// One thread per chunk: the 32-byte packet chain is sequential within a
-// chunk, as in K3 (csrc/mur3x256.cu). The thread walks its nbytes/32
-// packets, then the remainder (nbytes % 32, a multiple of 4 here) with the
-// reference's padded remainder packet, then the 10 finalize rounds and the
-// modular reduction, so a chunk of any 4-byte-multiple length, a bitrot
-// file's short tail chunk included, needs no host hash.
+// native 64-bit lanes: K5 highwayhash256_chunks keeps the state words in
+// registers, multiplies with one 32x32->64 multiply (IMAD.WIDE.U32), and
+// does each half of a zipper merge as byte permutes (__byte_perm, 3 per
+// 64-bit addend).
 //
 // What bounds it on this card: the bytes (each chunk read once, 32 bytes
 // of digest written) over 3.35 TB/s, against the int32 operations over
@@ -28,26 +21,44 @@
 // and two adds) and ~1,018 per chunk for the 10 finalize rounds, the key
 // set-up and the modular reduction. At 10,240 chunks of 16 KiB that is
 // 168 MB, 0.050 ms, against 514 M operations, 0.015 ms: bound by bytes.
-// As for K3, 10,240 threads are ~2.4 warps per SM, too few to hide the
-// load latency; the loop is unrolled so several packets' loads are in
-// flight, with 64-thread blocks spread over all SMs. Splitting a chunk's
-// 4 lanes over threads with shuffles is later work.
-#include <cuda_runtime.h>
-#include <stdint.h>
+// No wgmma: the work is chains of 64-bit integer adds, multiplies and
+// permutes, not products of matrices.
+//
+// The design. A chunk's 32-byte packets form one chain (the digest format
+// is fixed on disk), but the chain has two independent halves: the packet
+// update is lane-local except the zipper merges, which pair lanes {0, 1}
+// and lanes {2, 3} and never cross the pairs. So two neighbouring threads
+// hash a chunk: thread 2c owns lanes 0 and 1 (bytes 0-15 of each packet),
+// thread 2c+1 lanes 2 and 3 (bytes 16-31), each with its 8 state words in
+// registers and no communication in the packet loop. Only the 10 finalize
+// rounds' permute crosses the pairs: each round swaps v0 with the partner,
+// four __shfl_xor_sync. Each thread then reduces its half and writes 16
+// bytes of the digest. The remainder packet (nbytes % 32, a multiple of 4)
+// stays lane-local: each thread reads the remainder words it needs from
+// device memory, the last word moved to bytes 28-31 when the remainder
+// holds 16 bytes or more.
+//
+// The packets reach the threads through the shared-memory ring of
+// csrc/chunk_ring.cuh (bulk copies on mbarriers, a producer warp), so the
+// chain never waits on a load of its own; the launch plan spreads the
+// chunks over every SM, two CTAs on each. How the ring was sized: Little's
+// law at 3.35 TB/s / 132 SMs and ~1 us of loaded latency asks for ~25 KB
+// in flight per SM; at 10,240 chunks of 16 KiB each CTA holds 39 chunks in
+// 2 stages of 1 KiB tiles (82 KB of shared memory): 80 KB in flight per SM
+// while the other stage is hashed. A sweep on the card (tiles of 512 B to
+// 4 KiB, 2-8 stages, 1-3 CTAs per SM) put two CTAs per SM ahead of one by
+// ~1.4x at that shape, and large tiles ahead at small chunk counts, where
+// a chunk's whole 16 KiB can be in flight. Rows that bulk copies cannot
+// take (nbytes % 16 != 0, an unaligned view) run the direct-load case of
+// the same kernel: the same two threads per chunk, each loading its packet
+// words from device memory.
+#include "chunk_ring.cuh"
 
 namespace {
 
-constexpr int kThreads = 64;
-
-__constant__ uint64_t kInit0[4] = {
-    0xdbe6d5d5fe4cce2full, 0xa4093822299f31d0ull, 0x13198a2e03707344ull,
-    0x243f6a8885a308d3ull};
-__constant__ uint64_t kInit1[4] = {
-    0x3bd39e10cb0ef593ull, 0xc0acf169b5f18a8cull, 0xbe5466cf34e90c6cull,
-    0x452821e638d01377ull};
-
-struct State {
-  uint64_t v0[4], v1[4], mul0[4], mul1[4];
+// The two lanes of a thread's pair, lane 2h + i in slot i.
+struct Half {
+  uint64_t v0[2], v1[2], mul0[2], mul1[2];
 };
 
 __device__ __forceinline__ uint64_t make64(uint32_t lo, uint32_t hi) {
@@ -75,24 +86,23 @@ __device__ __forceinline__ uint64_t mul32(uint64_t lo_of, uint64_t hi_of) {
   return (uint64_t)(uint32_t)lo_of * (uint32_t)(hi_of >> 32);
 }
 
-__device__ __forceinline__ void update(State& s, const uint64_t lanes[4]) {
+// The reference's Update for the pair's two lanes of a packet.
+__device__ __forceinline__ void update(Half& s, uint64_t lane0,
+                                       uint64_t lane1) {
+  const uint64_t lanes[2] = {lane0, lane1};
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < 2; ++i) {
     s.v1[i] += s.mul0[i] + lanes[i];
     s.mul0[i] ^= mul32(s.v1[i], s.v0[i]);
     s.v0[i] += s.mul1[i];
     s.mul1[i] ^= mul32(s.v0[i], s.v1[i]);
   }
   zipper_add(s.v1[1], s.v1[0], s.v0[1], s.v0[0]);
-  zipper_add(s.v1[3], s.v1[2], s.v0[3], s.v0[2]);
   zipper_add(s.v0[1], s.v0[0], s.v1[1], s.v1[0]);
-  zipper_add(s.v0[3], s.v0[2], s.v1[3], s.v1[2]);
 }
 
-__device__ __forceinline__ void update_words(State& s, const uint32_t w[8]) {
-  const uint64_t lanes[4] = {make64(w[0], w[1]), make64(w[2], w[3]),
-                             make64(w[4], w[5]), make64(w[6], w[7])};
-  update(s, lanes);
+__device__ __forceinline__ void update(Half& s, uint4 w) {
+  update(s, make64(w.x, w.y), make64(w.z, w.w));
 }
 
 __device__ __forceinline__ void modular_reduction(uint64_t a3_unmasked,
@@ -104,101 +114,162 @@ __device__ __forceinline__ void modular_reduction(uint64_t a3_unmasked,
   m0 = a0 ^ (a2 << 1) ^ (a2 << 2);
 }
 
-// kVec: the chunk's packets are 16-byte aligned (base aligned and
-// nbytes % 16 == 0), so each packet moves as two uint4 loads
-template <bool kVec>
-__global__ void __launch_bounds__(kThreads)
+// The thread's 16 bytes of packet q of a chunk read straight from device
+// memory, as 4-byte words (rows the ring cannot take need not be 16-byte
+// aligned).
+__device__ __forceinline__ uint4 direct_packet(const uint32_t* p, int q,
+                                               int half) {
+  const uint32_t* w = p + q * 8 + half * 4;
+  return make_uint4(__ldg(w), __ldg(w + 1), __ldg(w + 2), __ldg(w + 3));
+}
+
+// kBulk: the chunk rows come through the shared-memory ring (nbytes % 16
+// == 0 and 16-byte aligned data); else each thread loads its words from
+// device memory.
+template <bool kBulk>
+__global__ void __launch_bounds__(ring::kMaxThreads, 2)
     hh256_kernel(const uint32_t* __restrict__ data, uint32_t* __restrict__ out,
-                 long long n, int nbytes, uint64_t k0, uint64_t k1,
-                 uint64_t k2, uint64_t k3) {
-  const long long c = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= n) return;
-  const int nwords = nbytes / 4;
-  const uint32_t* p = data + c * nwords;
-  const uint64_t key[4] = {k0, k1, k2, k3};
-  State s;
+                 long long n, int nbytes, int per_cta, int stages, int tile,
+                 int pitch, uint64_t k0, uint64_t k1, uint64_t k2,
+                 uint64_t k3) {
+  extern __shared__ __align__(128) char smem[];
+  long long first;
+  int count;
+  ring::cta_chunks(n, first, count);
+  const char* rows = reinterpret_cast<const char*>(data) + first * nbytes;
+  const int consumers = ring::consumer_threads(per_cta);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* empty = full + stages;
+  char* rng = smem + ring::kHeader;
+  if (kBulk) {
+    ring::setup(full, empty, stages, consumers / 32);
+    if ((int)threadIdx.x >= consumers) {
+      ring::produce(rows, count, nbytes, per_cta, stages, tile, pitch, rng,
+                    full, empty);
+      return;
+    }
+  }
+  // every thread of a hashing warp runs the whole chain (the finalize
+  // shuffles need the full warp); one past the CTA's chunks hashes chunk 0
+  // again and writes nothing
+  const int r = threadIdx.x >> 1, half = threadIdx.x & 1;
+  const bool live = r < count;
+  const int rr = live ? r : 0;
+  const uint32_t* p = reinterpret_cast<const uint32_t*>(rows) +
+                      (size_t)rr * (nbytes / 4);
+  const uint64_t key[2] = {half ? k2 : k0, half ? k3 : k1};
+  const uint64_t init0[2] = {
+      half ? 0x13198a2e03707344ull : 0xdbe6d5d5fe4cce2full,
+      half ? 0x243f6a8885a308d3ull : 0xa4093822299f31d0ull};
+  const uint64_t init1[2] = {
+      half ? 0xbe5466cf34e90c6cull : 0x3bd39e10cb0ef593ull,
+      half ? 0x452821e638d01377ull : 0xc0acf169b5f18a8cull};
+  Half s;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    s.mul0[i] = kInit0[i];
-    s.mul1[i] = kInit1[i];
-    s.v0[i] = kInit0[i] ^ key[i];
-    s.v1[i] = kInit1[i] ^ swap32(key[i]);
+  for (int i = 0; i < 2; ++i) {
+    s.mul0[i] = init0[i];
+    s.mul1[i] = init1[i];
+    s.v0[i] = init0[i] ^ key[i];
+    s.v1[i] = init1[i] ^ swap32(key[i]);
   }
   const int packets = nbytes / 32;
+  if (kBulk) {
+    const int nt = ring::tiles(nbytes, tile);
+    for (int t = 0; t < nt; ++t) {
+      const int st = ring::acquire(full, t, stages);
+      const char* src = ring::row(rng, st, rr, per_cta, pitch) + half * 16;
+      const int q1 = min(tile, nbytes - t * tile) / 32;
 #pragma unroll 4
-  for (int q = 0; q < packets; ++q) {
-    uint32_t w[8];
-    if (kVec) {
-      const uint4* src = reinterpret_cast<const uint4*>(p + q * 8);
-      const uint4 a = __ldg(src), b = __ldg(src + 1);
-      w[0] = a.x; w[1] = a.y; w[2] = a.z; w[3] = a.w;
-      w[4] = b.x; w[5] = b.y; w[6] = b.z; w[7] = b.w;
-    } else {
-#pragma unroll
-      for (int j = 0; j < 8; ++j) w[j] = __ldg(p + q * 8 + j);
+      for (int q = 0; q < q1; ++q)
+        update(s, *reinterpret_cast<const uint4*>(src + q * 32));
+      ring::release(empty, st);
     }
-    update_words(s, w);
+  } else {
+#pragma unroll 4
+    for (int q = 0; q < packets; ++q)
+      update(s, direct_packet(p, q, half));
   }
   const int rem = nbytes & 31;
   if (rem) {
     // the reference's UpdateRemainder for a remainder of whole words
     const uint64_t add = ((uint64_t)rem << 32) + (uint64_t)rem;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < 2; ++i) {
       s.v0[i] += add;
       const uint32_t lo = (uint32_t)s.v1[i], hi = (uint32_t)(s.v1[i] >> 32);
       s.v1[i] = make64(__funnelshift_l(lo, lo, rem),
                        __funnelshift_l(hi, hi, rem));
     }
     const int nw = rem / 4;
-    const uint32_t* t = p + packets * 8;
-    uint32_t w[8];
+    const uint32_t* tail = p + packets * 8;
+    uint32_t w[4];
 #pragma unroll
-    for (int j = 0; j < 8; ++j) w[j] = j < nw ? __ldg(t + j) : 0u;
-    if (rem & 16) w[7] = __ldg(t + nw - 1);  // last 4 bytes -> bytes 28-31
-    update_words(s, w);
+    for (int j = 0; j < 4; ++j) {
+      const int k = half * 4 + j;
+      w[j] = k < nw ? __ldg(tail + k) : 0u;
+    }
+    // the remainder's last 4 bytes go to bytes 28-31
+    if (half && (rem & 16)) w[3] = __ldg(tail + nw - 1);
+    update(s, make_uint4(w[0], w[1], w[2], w[3]));
   }
 #pragma unroll 1
-  for (int r = 0; r < 10; ++r) {
-    const uint64_t perm[4] = {swap32(s.v0[2]), swap32(s.v0[3]),
-                              swap32(s.v0[0]), swap32(s.v0[1])};
-    update(s, perm);
+  for (int rd = 0; rd < 10; ++rd) {
+    // lane i takes the swapped v0 of lane i ^ 2, which the partner holds
+    uint32_t o[4];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      o[2 * i] = __shfl_xor_sync(0xffffffffu, (uint32_t)s.v0[i], 1);
+      o[2 * i + 1] =
+          __shfl_xor_sync(0xffffffffu, (uint32_t)(s.v0[i] >> 32), 1);
+    }
+    update(s, make64(o[1], o[0]), make64(o[3], o[2]));
   }
-  uint64_t h[4];
+  if (!live) return;
+  uint64_t h0, h1;
   modular_reduction(s.v1[1] + s.mul1[1], s.v1[0] + s.mul1[0],
-                    s.v0[1] + s.mul0[1], s.v0[0] + s.mul0[0], h[1], h[0]);
-  modular_reduction(s.v1[3] + s.mul1[3], s.v1[2] + s.mul1[2],
-                    s.v0[3] + s.mul0[3], s.v0[2] + s.mul0[2], h[3], h[2]);
-  uint4* o = reinterpret_cast<uint4*>(out + c * 8);
-  o[0] = make_uint4((uint32_t)h[0], (uint32_t)(h[0] >> 32), (uint32_t)h[1],
-                    (uint32_t)(h[1] >> 32));
-  o[1] = make_uint4((uint32_t)h[2], (uint32_t)(h[2] >> 32), (uint32_t)h[3],
-                    (uint32_t)(h[3] >> 32));
+                    s.v0[1] + s.mul0[1], s.v0[0] + s.mul0[0], h1, h0);
+  reinterpret_cast<uint4*>(out + (first + r) * 8)[half] =
+      make_uint4((uint32_t)h0, (uint32_t)(h0 >> 32), (uint32_t)h1,
+                 (uint32_t)(h1 >> 32));
 }
 
 }  // namespace
 
 // K5: data u32 [n][nbytes/4] (nbytes % 4 == 0) -> out u32 [n][8] (16-byte
 // aligned), digest words h0.lo, h0.hi, ..., h3.hi as the reference's
-// 32-byte digest.
+// 32-byte digest. grid, per_cta, stages, tile and pitch are the launch plan
+// (ops/hh_cuda.py launch_plan); rows that bulk copies cannot take run the
+// direct-load case, which reads only grid and per_cta.
 extern "C" int hh256_chunks(const void* data, void* out, long long n,
-                            int nbytes, unsigned long long k0,
+                            int nbytes, int grid, int per_cta, int stages,
+                            int tile, int pitch, unsigned long long k0,
                             unsigned long long k1, unsigned long long k2,
                             unsigned long long k3, void* stream) {
-  if (n <= 0 || nbytes <= 0 || nbytes % 4) return (int)cudaErrorInvalidValue;
-  if (reinterpret_cast<uintptr_t>(out) % 16) return (int)cudaErrorInvalidValue;
-  const long long blocks = (n + kThreads - 1) / kThreads;
-  if (blocks > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
-  const bool vec =
+  if (nbytes % 4 || reinterpret_cast<uintptr_t>(out) % 16)
+    return (int)cudaErrorInvalidValue;
+  const bool bulk =
       nbytes % 16 == 0 && reinterpret_cast<uintptr_t>(data) % 16 == 0;
+  if (!ring::plan_ok(n, nbytes, grid, per_cta, stages, tile, pitch, bulk))
+    return (int)cudaErrorInvalidValue;
+  // a tile holds whole packets unless it is the chunk's only one
+  if (bulk && tile < nbytes && tile % 32) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const uint32_t* d = static_cast<const uint32_t*>(data);
   uint32_t* o = static_cast<uint32_t*>(out);
-  if (vec)
-    hh256_kernel<true><<<(unsigned)blocks, kThreads, 0, s>>>(
-        d, o, n, nbytes, k0, k1, k2, k3);
-  else
-    hh256_kernel<false><<<(unsigned)blocks, kThreads, 0, s>>>(
-        d, o, n, nbytes, k0, k1, k2, k3);
+  const int threads = ring::consumer_threads(per_cta);
+  if (bulk) {
+    const size_t smem = ring::smem_bytes(per_cta, stages, pitch);
+    if (smem > 48 * 1024) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          hh256_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          ring::kSmemMax);
+      if (e != cudaSuccess) return (int)e;
+    }
+    hh256_kernel<true><<<grid, threads + 32, smem, s>>>(
+        d, o, n, nbytes, per_cta, stages, tile, pitch, k0, k1, k2, k3);
+  } else {
+    hh256_kernel<false><<<grid, threads, 0, s>>>(
+        d, o, n, nbytes, per_cta, stages, tile, pitch, k0, k1, k2, k3);
+  }
   return (int)cudaGetLastError();
 }

@@ -11,6 +11,7 @@ CPU tests import every module on hosts without ``nvcc``.
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -42,13 +43,15 @@ SIGNATURES = {
         "gfk_const_capacity": ([], _I),
     },
     "mur3x256": {
-        "mur3_chunks": ([_P, _P, _LL, _I, _U, _U, _P], _I),
+        "mur3_chunks": ([_P, _P, _LL, _I, _I, _I, _I, _I, _I, _U, _U, _P],
+                        _I),
     },
     "chacha20": {
         "chacha20_xor": ([_P, _P, _P, _P, _P, _LL, _I, _I, _P], _I),
     },
     "highwayhash": {
-        "hh256_chunks": ([_P, _P, _LL, _I, _ULL, _ULL, _ULL, _ULL, _P], _I),
+        "hh256_chunks": ([_P, _P, _LL, _I, _I, _I, _I, _I, _I, _ULL, _ULL,
+                          _ULL, _ULL, _P], _I),
     },
     "scan": {
         "scan_codes": ([_P, _P, _P, _I, _P, _P, _I, _I, _LL, _I, _I, _P, _P],
@@ -69,10 +72,13 @@ def nvcc() -> str:
 
 
 def target(name: str) -> tuple[str, str]:
-    """(source path, library path) of one kernel library."""
+    """(source path, library path) of one kernel library. The name hashes
+    the source, the shared headers of csrc/ and the flags."""
     src = os.path.join(CSRC_DIR, name + ".cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [src] + sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh"))):
+        with open(path, "rb") as f:
+            digest.update(f.read())
     return src, os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
 
 

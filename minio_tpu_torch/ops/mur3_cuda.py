@@ -5,8 +5,9 @@ ops/mur3_pallas.py.
 words [..., nbytes//4] -> digest words [..., 8]; it replaces
 mur3_pallas._make_kernel / _jitted. Given CPU tensors it returns its plain
 version, ``mur3x256_ref`` (ops/mur3_torch.py); given CUDA tensors it
-launches the kernel on the current stream or raises. ``launches`` counts
-kernel launches.
+launches the kernel on the current stream or raises, with the CTA geometry
+of ``hh_cuda.launch_plan``. ``launches`` counts kernel launches,
+``launch_sizes`` the same launches by chunk count (powers of two).
 """
 from __future__ import annotations
 
@@ -14,16 +15,21 @@ import torch
 
 from . import cuda_build
 from .mur3_torch import hash256_device_words as mur3x256_ref
+from .hh_cuda import count_launch, device_plan
 from .rs_cuda import _as_i32, _check_cuda
 
-__all__ = ["mur3x256_chunks", "mur3x256_ref", "launches", "reset_launches"]
+__all__ = ["mur3x256_chunks", "mur3x256_ref", "launch_sizes", "launches",
+           "reset_launches"]
 
 #: kernel launches (plain-version calls are not counted)
 launches = {"mur3x256_chunks": 0}
+#: the same launches by chunk count, rounded up to a power of two
+launch_sizes: dict[str, dict[int, int]] = {"mur3x256_chunks": {}}
 
 
 def reset_launches() -> None:
     launches["mur3x256_chunks"] = 0
+    launch_sizes["mur3x256_chunks"] = {}
 
 
 def mur3x256_chunks(key_words: tuple[int, int], nbytes: int,
@@ -45,12 +51,14 @@ def mur3x256_chunks(key_words: tuple[int, int], nbytes: int,
     n = out.numel() // 8
     if n == 0:
         return out
+    plan = device_plan(n, nbytes, data32)
     lib = cuda_build.library("mur3x256")
     with torch.cuda.device(data32.device):
         err = lib.mur3_chunks(
-            data32.data_ptr(), out.data_ptr(), n, nbytes,
+            data32.data_ptr(), out.data_ptr(), n, nbytes, plan.grid,
+            plan.chunks_per_cta, plan.stages, plan.tile_bytes, plan.pitch,
             int(key_words[0]) & 0xFFFFFFFF, int(key_words[1]) & 0xFFFFFFFF,
             torch.cuda.current_stream().cuda_stream)
     cuda_build.check(err, "mur3x256_chunks")
-    launches["mur3x256_chunks"] += 1
+    count_launch(launches, launch_sizes, "mur3x256_chunks", n)
     return out

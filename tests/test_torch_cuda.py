@@ -1,9 +1,10 @@
 """The port's hand-written CUDA kernels held to their plain PyTorch versions
 on the card, bit for bit, over shapes the CPU tests cannot reach (ragged
 word counts, every template bound of the GF kernels, more than 32 output
-rows, chunk lengths with and without a HighwayHash remainder, unaligned
-views), the fused launches at both device hashes, plus an erasure round
-trip and an SSE-C round trip on the card; the S3 Select scan kernel (K6) at
+rows, chunk lengths with and without a HighwayHash remainder at the edges
+of the hash kernels' tiles and at the flush shape, unaligned views), the
+fused launches at both device hashes, plus an erasure round trip and an
+SSE-C round trip on the card; the S3 Select scan kernel (K6) at
 the chip smoke's three shapes, and one select_scan flush and one select
 through the CUDA queue. Marked ``cuda``: they skip on
 hosts without a CUDA card. On the card:
@@ -65,8 +66,15 @@ def test_matmul_kernel_matches_plain(dev, o, i, w):
     assert torch.equal(got, rs_cuda.gf_matmul_batched_ref(masks, x))
 
 
-@pytest.mark.parametrize("nbytes,n", [(16, 1), (64, 67), (1024, 129),
-                                      (16384, 40)])
+#: chunk counts around one CTA per SM (132) and one chunk per CTA, and
+#: chunk lengths at the edges of the ring's 512-byte tiles (1, 3 and 32
+#: tiles, one packet either side) for K3 and K5 (csrc/chunk_ring.cuh)
+HASH_COUNTS = [1, 2, 3, 131, 133, 257]
+HASH_NBYTES = [16, 32, 48, 496, 512, 528, 16384, 16416]
+
+
+@pytest.mark.parametrize("nbytes", HASH_NBYTES)
+@pytest.mark.parametrize("n", HASH_COUNTS)
 def test_mur3_kernel_matches_plain(dev, nbytes, n):
     x = words((n, nbytes // 4), nbytes + n, dev)
     seeds = (0x12345678, 0x9E3779B9)
@@ -151,8 +159,8 @@ def test_chacha_single_object_and_unaligned_view(dev):
         chacha_cuda.xor_packages(key, words((4, 3), 3, dev), data)
 
 
-@pytest.mark.parametrize("nbytes,n", [(4, 1), (28, 3), (32, 5), (36, 7),
-                                      (64, 67), (1028, 33), (16384, 40)])
+@pytest.mark.parametrize("nbytes", HASH_NBYTES + [4, 28, 36, 1028])
+@pytest.mark.parametrize("n", HASH_COUNTS)
 def test_hh_kernel_matches_plain(dev, nbytes, n):
     x = words((n, nbytes // 4), nbytes + n, dev)
     kw = hh_torch.key_words(bytes(range(32)))
@@ -160,14 +168,36 @@ def test_hh_kernel_matches_plain(dev, nbytes, n):
                        hh_cuda.highwayhash256_ref(kw, nbytes, x))
 
 
-@pytest.mark.parametrize("nbytes", [64, 1028])
-def test_hh_kernel_takes_unaligned_views(dev, nbytes):
-    n = 9
+@pytest.mark.parametrize("n", [9, 133])
+@pytest.mark.parametrize("nbytes", [64, 1028, 16384])
+def test_hh_kernel_takes_unaligned_views(dev, nbytes, n):
+    # rows a bulk copy cannot take: the kernel's direct-load case
     x = words((n * nbytes // 4 + 1,), 7, dev)[1:].view(n, nbytes // 4)
     assert x.data_ptr() % 16
     kw = hh_torch.key_words(bytes(range(32)))
     assert torch.equal(hh_cuda.highwayhash256_chunks(kw, nbytes, x),
                        hh_cuda.highwayhash256_ref(kw, nbytes, x))
+
+
+@pytest.mark.parametrize("kernel", ["mur3", "hh"])
+def test_hash_kernels_at_the_flush_shape(dev, kernel):
+    # 10,240 chunks of 16 KiB (a 128-item 16+4 flush): several chunks per
+    # CTA on every SM, a 4-stage ring; one launch, counted by its size
+    x = words((10240, 4096), 11, dev)
+    if kernel == "mur3":
+        mod, name, run, ref = (mur3_cuda, "mur3x256_chunks",
+                               mur3_cuda.mur3x256_chunks,
+                               mur3_cuda.mur3x256_ref)
+        key = (0x12345678, 0x9E3779B9)
+    else:
+        mod, name, run, ref = (hh_cuda, "highwayhash256_chunks",
+                               hh_cuda.highwayhash256_chunks,
+                               hh_cuda.highwayhash256_ref)
+        key = hh_torch.key_words(bytes(range(32)))
+    mod.reset_launches()
+    assert torch.equal(run(key, 16384, x), ref(key, 16384, x))
+    assert mod.launches[name] == 1
+    assert mod.launch_sizes[name] == {16384: 1}
 
 
 @pytest.mark.parametrize("algo", [0, 1])
