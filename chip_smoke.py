@@ -8,20 +8,27 @@
 Phases, each printing one JSON line:
 
 1. build — compiles minio_tpu_torch/csrc/*.cu with nvcc (one process per
-   source, all at once) into build/minio_tpu_torch/, cached by content hash.
+   library, all at once) into build/minio_tpu_torch/, cached by content
+   hash: one library per source, and K2 (csrc/gf_encode.cu) once per
+   encode matrix, here the 16+4 and 8+4 codecs' (``build_keys``).
 2. card — the card's name and power limit from nvidia-smi.
 3. kernels — each hand-written kernel (K1-K6) at the shapes the paths give
    it, batched and single-block, held bit-exact against its plain PyTorch
    version on the card, timed as one CUDA-event pair around a run of
    launches on cold inputs (``time_ms``), with the plain version's time,
    the computed bound and a device-to-device copy of the same bytes as the
-   measured memory floor. K3 and K5 run at the chunk counts the paths
-   launch (1, 256, 1,024 and 10,240 chunks of 16 KiB), each row with its
-   launch plan, registers and shared memory per CTA. K6 (the S3 Select
-   scan) runs at the select path's flush (128 lineitem blocks of 1 MiB), at
-   one block, and on a small block of parse edge cases under a program with
-   every op kind over 8 columns; the flush's peak device memory is
-   reported.
+   measured memory floor. K2 runs at B = 1, 16, 64 and 128 at 16+4, at
+   B = 128 at 8+4 and on an unaligned view, with its launch plan,
+   registers and (at 16+4) its static SASS mix. K3 and K5 run at the chunk
+   counts the paths launch (1, 256, 1,024 and 10,240 chunks of 16 KiB),
+   each row with its launch plan, registers and shared memory per CTA. K6
+   (the S3 Select scan) runs at the select path's flush (128 lineitem
+   blocks of 1 MiB), at Query A's flush of 16, at one block, on a small
+   block of parse edge cases under a program with every op kind over 8
+   columns, and on the edge blocks of ``edge_blocks`` (a row longer than a
+   tile and its halo, no newline, wide rows), each with its tile plan,
+   registers and shared memory per CTA; the flush's device memory beyond
+   its inputs is reported and held to the codes plus 64 KiB.
 4. main path (MUR3X256S) — a 16+4 erasure set over 20 disk directories,
    1 MiB blocks, MUR3X256S bitrot with 16 KiB chunks: 64 objects of 4 MiB
    PUT from 64 threads through erasure_encode, GET back, two data shards
@@ -51,8 +58,9 @@ Phases, each printing one JSON line:
 
 Kernel launch counts are reset just before each path (each SSE sub-phase)
 and read just after; every kernel a path should run must have launched.
-K3's and K5's launches are also counted by chunk count (``launch_sizes``,
-powers of two), printed per path.
+Launches are also counted by size (``launch_sizes``, printed per path):
+K3's and K5's by chunk count and K2's by batch size (powers of two), K6's
+by batch size.
 Then the {"kernels": [...]} summary line and, last, the ok line. Any
 failure exits non-zero without the ok line; so does a host without CUDA.
 """
@@ -81,6 +89,8 @@ ISSUE_OPS_S = 128 * 132 * 1.98e9
 LOGIC_OPS_S = 64 * 132 * 1.98e9
 
 K, M = 16, 4
+#: K2's libraries built in the build phase: the paths' 16+4 and the 8+4 row
+ENCODE_GEOMETRIES = ((K, M), (8, 4))
 BLOCK = 1 << 20
 CHUNK = 16384
 N_OBJECTS = 128
@@ -112,6 +122,8 @@ QUERY_B = "SELECT s._1 FROM s3object s WHERE s._6 < 1000.5"
 SSE_EVERY = 9
 DEGRADED_EVERY = 4
 PIPE, COMMA = 124, 44
+#: K6's flush scratch beyond its codes at most (the tiles' status words)
+SCAN_SCRATCH_MAX = 64 << 10
 #: K6's edge-case block: the parse corners of tests/test_scan_pallas.py
 #: (cells that parse, and cells that must not) and a program with every op
 #: kind over 8 columns (slots 0-7 = CSV columns 1-8)
@@ -406,18 +418,35 @@ def lineitem(seed: int, scale: float = 1.0) -> dict:
 # --- phases ---------------------------------------------------------------
 
 
+def encode_key(k: int, m: int) -> tuple:
+    """K2's library key for the k+m codec's encode matrix."""
+    from minio_tpu_torch.ops import gf256, rs_cuda
+    return ("gf_encode",
+            rs_cuda.encode_defines(gf256.build_matrix(k, m)[k:]))
+
+
+def build_keys() -> list:
+    """Every library the paths and the kernels phase load: one per source,
+    and K2's for each encode matrix of ENCODE_GEOMETRIES."""
+    from minio_tpu_torch.ops import cuda_build
+    return [n for n in cuda_build.SIGNATURES if n not in cuda_build.VARIANTS] \
+        + [encode_key(k, m) for k, m in ENCODE_GEOMETRIES]
+
+
 def phase_build(rehearsal: bool) -> None:
     from minio_tpu_torch.ops import cuda_build
     if rehearsal:
         emit({"phase": "build", "skipped": "cpu rehearsal"})
         return
     t0 = time.monotonic()
-    took = cuda_build.build()
+    keys = build_keys()
+    took = cuda_build.build(keys)
     ptxas = {}
-    for name in cuda_build.SIGNATURES:
-        lines = [ln.strip() for ln in cuda_build.build_log(name).splitlines()
-                 if "registers" in ln or "spill" in ln]
-        ptxas[name] = lines[:8]
+    for key in keys:
+        name, defines = (key, ()) if isinstance(key, str) else key
+        lines = [ln.strip() for ln in cuda_build.build_log(
+            name, defines).splitlines() if "registers" in ln or "spill" in ln]
+        ptxas[cuda_build.label(key)] = lines[:8]
     emit({"phase": "build", "seconds": round(time.monotonic() - t0, 3),
           "per_library_s": {k: round(v, 3) for k, v in took.items()},
           "ptxas": ptxas})
@@ -512,7 +541,7 @@ _PIPES = {
 }
 
 
-def sass_mix(lib: str, symbol: str) -> dict:
+def sass_mix(lib: str, symbol: str, defines: tuple = ()) -> dict:
     """Static SASS instruction counts of one kernel of a built library, by
     issuing pipe (``cuobjdump -sass``, beside nvcc; NOP padding left out).
     The kernels are fully unrolled, so this is what one thread issues,
@@ -520,7 +549,8 @@ def sass_mix(lib: str, symbol: str) -> dict:
     import re
     from minio_tpu_torch.ops import cuda_build
     tool = os.path.join(os.path.dirname(cuda_build.nvcc()), "cuobjdump")
-    dump = subprocess.run([tool, "-sass", cuda_build.target(lib)[1]],
+    dump = subprocess.run([tool, "-sass",
+                           cuda_build.target(lib, defines)[1]],
                           capture_output=True, text=True, timeout=120,
                           check=True).stdout
     counts = {k: 0 for k in (*_PIPES, "other")}
@@ -544,19 +574,24 @@ def sass_mix(lib: str, symbol: str) -> dict:
             "by_opcode": dict(sorted(ops.items(), key=lambda kv: -kv[1]))}
 
 
-def ptxas_info(lib: str) -> dict:
-    """Registers and static shared memory of each kernel of a built
+def ptxas_info(lib: str, defines: tuple = ()) -> dict:
+    """Registers, spills and static shared memory of each kernel of a built
     library, read from its build log's ptxas lines: {mangled name:
-    {"registers": r, "static_smem_bytes": b}}."""
+    {"registers": r, "spill_bytes": s, "static_smem_bytes": b}}."""
     import re
     from minio_tpu_torch.ops import cuda_build
     out, cur = {}, None
-    for line in cuda_build.build_log(lib).splitlines():
+    for line in cuda_build.build_log(lib, defines).splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
             cur = out.setdefault(m.group(1), {"registers": None,
+                                              "spill_bytes": 0,
                                               "static_smem_bytes": 0})
             continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and cur is not None:
+            cur["spill_bytes"] = int(m.group(1)) + int(m.group(2))
         m = re.search(r"Used (\d+) registers", line)
         if m and cur is not None:
             cur["registers"] = int(m.group(1))
@@ -579,6 +614,69 @@ def hash_geometry(lib: str, symbol: str, n: int, nbytes: int,
                {"registers": None, "static_smem_bytes": 0})
     return {"plan": plan._asdict(), "registers": res["registers"],
             "smem_bytes_per_cta": plan.smem_bytes + res["static_smem_bytes"]}
+
+
+def encode_geometry(mat, x) -> dict:
+    """K2's launch over x [B, i, W] by ``mat``: its grid, threads and words
+    per thread (4 through 16-byte loads when W % 4 == 0, the view is
+    16-byte aligned and i <= 16), and the kernel's registers, spills and
+    shared memory per CTA from the ptxas lines of its library's build."""
+    from minio_tpu_torch.ops import rs_cuda
+    b, i, w = x.shape
+    v = 4 if w % 4 == 0 and x.data_ptr() % 16 == 0 and i <= 16 else 1
+    res = next((r for k, r in ptxas_info(
+        "gf_encode", rs_cuda.encode_defines(mat)).items()
+        if f"gf_encode_kernelILi{v}E" in k), {})
+    groups = -(-w // v)
+    return {"plan": {"grid": [-(-groups // 128), b], "threads": 128,
+                     "words_per_thread": v},
+            "registers": res.get("registers"),
+            "spill_bytes": res.get("spill_bytes"),
+            "smem_bytes_per_cta": res.get("static_smem_bytes", 0)}
+
+
+def scan_geometry(x) -> dict:
+    """K6's tile plan over x [B, L] and its kernel's registers, spills and
+    shared memory per CTA (the plan's dynamic bytes plus the static ones);
+    bulk copies take the tiles when L % 16 == 0 and x is 16-byte aligned."""
+    from minio_tpu_torch.ops import scan_cuda
+    b, L = x.shape
+    plan = scan_cuda.tile_plan(L, b)
+    bulk = L % 16 == 0 and x.data_ptr() % 16 == 0
+    res = next((r for k, r in ptxas_info("scan").items()
+                if f"scan_tiles_kernelILb{int(bulk)}E" in k), {})
+    return {"plan": {**plan._asdict(), "bulk_copies": bulk},
+            "registers": res.get("registers"),
+            "spill_bytes": res.get("spill_bytes"),
+            "smem_bytes_per_cta": plan.smem_bytes
+            + res.get("static_smem_bytes", 0)}
+
+
+def edge_blocks(text: bytes, L: int) -> dict:
+    """K6's edge blocks of L bytes from lineitem text (uint8 [L] each):
+    ``long_row``: a block whose newlines in 20,000 bytes at its middle are
+    spaces (one row longer than a tile and its halo); ``no_newline``: every
+    newline a '|' (the block is one unterminated row); ``wide_rows``: each
+    row's comment widened by 1,000 bytes, newline-padded as DeviceScan
+    pads (~1,000 rows where the flush's max_rows is 16,384, so the last
+    tile fills more ranks than a tile holds rows)."""
+    import numpy as np
+    base = np.frombuffer(text[:L], np.uint8).copy()
+    long_row = base.copy()
+    mid = long_row[L // 2: L // 2 + 20000]
+    mid[mid == 10] = 32
+    no_newline = base.copy()
+    no_newline[no_newline == 10] = PIPE
+    wide, size = [], 0
+    for row in text[:L].split(b"\n"):
+        row = row[:-1] + b"w" * 1000 + b"|\n"
+        if size + len(row) > L:
+            break
+        wide.append(row)
+        size += len(row)
+    wide_rows = np.frombuffer(b"".join(wide).ljust(L, b"\n"), np.uint8)
+    return {"long_row": long_row, "no_newline": no_newline,
+            "wide_rows": wide_rows.copy()}
 
 
 def select_program(sql: str) -> tuple[tuple, tuple]:
@@ -674,22 +772,43 @@ def phase_kernels(device, small: bool, table: dict) -> dict:
     gf_src = "minio_tpu_torch/csrc/gf_matmul.cu"
     rows = {}
 
-    # K2: the fixed 16+4 encode matrix over the batch, and over one block
-    # (ReedSolomon.encode)
-    par = codec.parity_rows
-    enc_masks = torch.from_numpy(
-        gf256.coeff_masks(par).view(np.int32)).to(device)
+    # K2: the encode matrix compiled into its kernel, over the batch (B =
+    # 128, and the paths' PUT flushes: MUR3 ~85 items, SSE ~18, Select
+    # 5-12, so 64 and 16), over one block (ReedSolomon.encode), at 8+4
+    # (its own library), and on a view one word into its storage (not
+    # 16-byte aligned: one word per thread)
     enc = []
-    for b, replaces in ((B, "minio_tpu/ops/rs_pallas.py:300"),
-                        (1, "minio_tpu/ops/rs_pallas.py:224")):
-        xb = x[:b]
+    for k, m, b, line, unaligned in (
+            (K, M, B, 300, False), (K, M, 1, 224, False),
+            (K, M, 16, 300, False), (K, M, 64, 300, False),
+            (8, 4, B, 300, False), (K, M, B, 300, True)):
+        par = get_codec(k, m, device=device).parity_rows
+        masks = torch.from_numpy(
+            gf256.coeff_masks(par).view(np.int32)).to(device)
+        wk = W * K // k
+        b = min(b, B)
+        if unaligned:
+            xb = _words(gen, (b * k * wk + 1,), device)[1:].view(b, k, wk)
+            check(xb.data_ptr() % 16 != 0, "the view is 16-byte aligned")
+        elif k == K:
+            xb = x[:b]
+        else:
+            xb = _words(gen, (b, k, wk), device)
         enc.append(kernel_row(
-            "gf_encode_batched", gf_src, replaces, f"B={b} {K}+{M} W={W}",
-            lambda xb: rs_cuda.gf_encode_batched(par, xb),
-            lambda xb: rs_cuda.gf_matmul_batched_ref(enc_masks, xb), (xb,),
-            4 * b * W * (K + M),
-            tuple(b * W * v for v in fixed_matrix_ops(par)), device))
+            "gf_encode_batched", "minio_tpu_torch/csrc/gf_encode.cu",
+            f"minio_tpu/ops/rs_pallas.py:{line}",
+            f"B={b} {k}+{m} W={wk}" + (" unaligned" if unaligned else ""),
+            lambda xb, par=par: rs_cuda.gf_encode_batched(par, xb),
+            lambda xb, masks=masks: rs_cuda.gf_matmul_batched_ref(masks, xb),
+            (xb,), 4 * b * wk * (k + m),
+            tuple(b * wk * v for v in fixed_matrix_ops(par)), device,
+            **encode_geometry(par, xb)))
     rows["gf_encode_batched"] = {**enc[0], "also": enc[1:]}
+    if not small:
+        enc[0]["sass"] = sass_mix("gf_encode", "gf_encode_kernelILi4E",
+                                  encode_key(K, M)[1])
+        emit({"phase": "sass", "kernel": f"gf_encode_kernel<4> {K}+{M}",
+              **enc[0]["sass"]})
 
     # K1: per-element masks, known only at run time, so every coefficient
     # bit costs one LOP3 ((mask & x) ^ acc), plus 7 doublings of 5 ops (3
@@ -793,51 +912,66 @@ def phase_kernels(device, small: bool, table: dict) -> dict:
     rows["highwayhash256_chunks"] = {**k5[0], "also": k5[1:]}
 
     # K6: Query A's program over the select path's flush (128 lineitem
-    # blocks of 1 MiB), over one of those blocks, and the edge-case block
-    # under EDGE_PROGRAM over 8 columns, whose max_rows passes its newline
-    # count
+    # blocks of 1 MiB), over Query A's own flush of 16, over one of those
+    # blocks, the edge-case block under EDGE_PROGRAM over 8 columns (whose
+    # max_rows passes its newline count), and the edge blocks made from a
+    # lineitem block (edge_blocks: a row longer than a tile and its halo,
+    # no newline, rows so wide that the newline count is under max_rows by
+    # more than a tile's rows)
     from minio_tpu_torch.ops import scan_cuda, scan_torch
     prog, cols = select_program(QUERY_A)
     blocks, max_rows = select_blocks(table["text"], 4 if small else N_OBJECTS,
                                      device)
     edge = torch.from_numpy(edge_block(gen)).to(device)
     check(int((edge == 10).sum()) < 1024, "edge block has too many rows")
+    cases = [(blocks, prog, cols, PIPE, max_rows, ""),
+             (blocks[:16], prog, cols, PIPE, max_rows, ""),
+             (blocks[:1], prog, cols, PIPE, max_rows, ""),
+             (edge, EDGE_PROGRAM, tuple(range(1, 9)), COMMA, 1024, "edge")]
+    for what, blk in edge_blocks(table["text"],
+                                 blocks.shape[1]).items():
+        cases.append((torch.from_numpy(blk[None]).to(device), prog, cols,
+                      PIPE, max_rows, what))
     scan = []
-    for xb, p, c, d, mr in ((blocks, prog, cols, PIPE, max_rows),
-                            (blocks[:1], prog, cols, PIPE, max_rows),
-                            (edge, EDGE_PROGRAM, tuple(range(1, 9)), COMMA,
-                             1024)):
+    for xb, p, c, d, mr, what in cases:
         scan.append(kernel_row(
             "scan_codes", "minio_tpu_torch/csrc/scan.cu",
             "minio_tpu/ops/scan_pallas.py:259",
             f"B={xb.shape[0]} L={xb.shape[1]} max_rows={mr} C={len(c)} "
-            f"ops={len(p)}",
+            f"ops={len(p)}" + (f" {what}" if what else ""),
             lambda xb, p=p, c=c, d=d, mr=mr: scan_cuda.scan_codes(
                 xb, p, c, d, mr),
             lambda xb, p=p, c=c, d=d, mr=mr: scan_torch.scan_blocks(
                 xb, p, c, d, mr), (xb,),
             xb.numel() + 4 * xb.shape[0] * mr, scan_ops(xb, p, c, d, mr),
-            device))
+            device, **scan_geometry(xb),
+            newlines=int((xb == 10).sum())))
     codes = scan_cuda.scan_codes(edge, EDGE_PROGRAM, tuple(range(1, 9)),
                                  COMMA, 1024)
     check(all(bool((codes == v).any()) for v in (0, 1, 2)),
           "the edge block's codes lack a match, a miss or a residual")
     if device.type == "cuda":
-        # device memory of one flush beyond its input blocks
+        # device memory of one flush beyond its input blocks: the codes and
+        # the tiles' status words (at most SCAN_SCRATCH_MAX beyond the codes)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
         scan_cuda.scan_codes(blocks, prog, cols, PIPE, max_rows)
         torch.cuda.synchronize()
-        scan[0]["flush_peak_bytes"] = torch.cuda.max_memory_allocated() - base
-        scan[0]["input_bytes"] = blocks.numel()
+        peak = torch.cuda.max_memory_allocated() - base
+        codes = 4 * blocks.shape[0] * max_rows
+        scan[0].update(flush_peak_bytes=peak, codes_bytes=codes,
+                       input_bytes=blocks.numel())
         emit({"phase": "scan_flush_memory",
-              "peak_bytes_beyond_inputs": scan[0]["flush_peak_bytes"],
+              "peak_bytes_beyond_inputs": peak, "codes_bytes": codes,
               "input_bytes": blocks.numel()})
+        check(peak - codes <= SCAN_SCRATCH_MAX,
+              f"K6's flush takes {peak - codes} bytes beyond its codes")
     rows["scan_codes"] = {**scan[0], "also": scan[1:]}
     if not small:
-        scan[0]["sass"] = sass_mix("scan", "scan_kernel")
-        emit({"phase": "sass", "kernel": "scan_kernel", **scan[0]["sass"]})
+        scan[0]["sass"] = sass_mix("scan", "scan_tiles_kernelILb1E")
+        emit({"phase": "sass", "kernel": "scan_tiles_kernel<true>",
+              **scan[0]["sass"]})
     return rows
 
 
@@ -873,14 +1007,17 @@ def read_launches() -> dict:
 
 
 def read_launch_sizes() -> dict:
-    """K3's and K5's launches since the reset by chunk count: {kernel:
-    {"<=2^k": launches}}, a launch of n chunks under the least power of two
-    at or above n."""
-    from minio_tpu_torch.ops import hh_cuda, mur3_cuda
+    """Launches since the reset by size: K3's and K5's by chunk count and
+    K2's by batch size, {kernel: {"<=2^k": launches}}, a launch of n under
+    the least power of two at or above n; K6's by batch size, {"scan_codes":
+    {"B": launches}}."""
+    from minio_tpu_torch.ops import hh_cuda, mur3_cuda, rs_cuda, scan_cuda
     out = {}
-    for mod in (mur3_cuda, hh_cuda):
+    for mod in (mur3_cuda, hh_cuda, rs_cuda):
         for name, hist in mod.launch_sizes.items():
             out[name] = {f"<={b}": hist[b] for b in sorted(hist)}
+    for name, hist in scan_cuda.launch_sizes.items():
+        out[name] = {str(b): hist[b] for b in sorted(hist)}
     return out
 
 

@@ -1,13 +1,13 @@
-// GF(2^8)/0x11D shard-matrix products on 32-bit packed words, for Hopper.
+// GF(2^8)/0x11D shard-matrix products on 32-bit packed words with
+// coefficients known only at run time, for Hopper.
 //
 // Replaces the Pallas kernels of minio_tpu/ops/rs_pallas.py:
 //   K1 gf_matmul_batched  <- _dyn_batch_kernel / _gf_matmul_batched (and
 //                            _dyn_kernel / gf_matmul_pallas as B = 1):
 //                            per-element coefficient masks, the rebuild of
 //                            heal, degraded GET and the fused verify+rebuild.
-//   K2 gf_encode_batched  <- _make_static_batch_kernel / _static_batch_call
-//                            (and _make_static_kernel / _static_call as
-//                            B = 1): one fixed encode matrix for the batch.
+// (K2, the product by one fixed encode matrix, compiles that matrix into
+// its kernel: csrc/gf_encode.cu.)
 //
 // Algorithm: Horner over the 8 bit planes with the SWAR x2 on the
 // accumulator, as the TPU evaluates it:
@@ -28,25 +28,16 @@
 // thread; W need not be padded.
 //
 // Coefficients are read warp-uniformly: K1 stages its element's [8][o][i]
-// masks in shared memory (a broadcast read); K2 reads them from __constant__
-// memory, registered once per encode matrix (a constant-cache broadcast).
+// masks in shared memory (a broadcast read).
 //
 // Bounds at the main shapes (B = 128, i = 16, W = 16384), with integer ops
 // at the SMs' issue rate, 128 lanes/clk/SM * 132 SMs * 1.98 GHz = 33.5 T/s,
 // and the bitwise logic (LOP3: XOR, AND), which only the ALU pipe runs, at
-// half of that, 16.7 T/s:
-// - K2, the fixed 16+4 encode matrix (o = 4): bytes 4*B*W*(i+o) = 168 MB,
-//   50 us at 3.35 TB/s. A matrix known before launch needs work only for
-//   its set coefficient bits (65 of 128 per parity row): 0.57 G ops with
-//   3-input XORs and the doublings, most of them logic, under 34 us, so it
-//   is bound by bytes. This kernel still reads the masks as data and
-//   spends 8*i LOP3 per row-word: baking the set bits into the code, as
-//   the TPU kernel does, is later work.
-// - K1, masks known only at run time: every coefficient bit costs a LOP3,
-//   and each of the 7 doublings 5 ops, 3 of them logic: B*W*o*(8*i + 21)
-//   logic ops. At o = 2, 151 MB (45 us) against 0.63 G logic ops (37 us):
-//   bound by bytes. At o = 20 (reconstruct_batch), 6.2 G logic ops
-//   (374 us): bound by operations.
+// half of that, 16.7 T/s: every coefficient bit costs a LOP3, and each of
+// the 7 doublings 5 ops, 3 of them logic: B*W*o*(8*i + 21) logic ops. At
+// o = 2, 151 MB (45 us) against 0.63 G logic ops (37 us): bound by bytes.
+// At o = 20 (reconstruct_batch), 6.2 G logic ops (374 us): bound by
+// operations.
 // The design spends no operation on address math inside the bit loop and
 // none on table lookups.
 #include <cuda_runtime.h>
@@ -55,9 +46,6 @@
 namespace {
 
 constexpr int kThreads = 128;
-// 64 KiB of __constant__: one slot range per registered encode matrix
-constexpr int kConstWords = 16384;
-__constant__ uint32_t g_enc_masks[kConstWords];
 
 __device__ __forceinline__ uint32_t gf2x(uint32_t a) {
   const uint32_t hi = a & 0x80808080u;
@@ -88,13 +76,6 @@ __device__ __forceinline__ void store_words(uint32_t* p, const uint32_t (&v)[V])
 struct SmemMasks {
   const uint32_t* p;
   __device__ __forceinline__ uint32_t operator()(int idx) const { return p[idx]; }
-};
-
-struct ConstMasks {
-  int off;
-  __device__ __forceinline__ uint32_t operator()(int idx) const {
-    return g_enc_masks[off + idx];
-  }
 };
 
 // One element: x [i][W] -> out [o][W], masks indexed [b][r][j].
@@ -157,15 +138,6 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 template <int IMAX, int V>
-__global__ void __launch_bounds__(kThreads)
-    gf_encode_batched_kernel(int moff, const uint32_t* __restrict__ x,
-                             uint32_t* __restrict__ out, int o, int i,
-                             long long W) {
-  const long long e = blockIdx.y;
-  gf_rows<IMAX, V>(ConstMasks{moff}, x + e * i * W, out + e * o * W, o, i, W);
-}
-
-template <int IMAX, int V>
 cudaError_t launch_matmul(const uint32_t* masks, const uint32_t* x,
                           uint32_t* out, int B, int o, int i, long long W,
                           cudaStream_t s) {
@@ -179,16 +151,6 @@ cudaError_t launch_matmul(const uint32_t* masks, const uint32_t* x,
   const long long groups = (W + V - 1) / V;
   dim3 grid((unsigned)((groups + kThreads - 1) / kThreads), (unsigned)B);
   kern<<<grid, kThreads, smem, s>>>(masks, x, out, o, i, W);
-  return cudaGetLastError();
-}
-
-template <int IMAX, int V>
-cudaError_t launch_encode(int moff, const uint32_t* x, uint32_t* out, int B,
-                          int o, int i, long long W, cudaStream_t s) {
-  const long long groups = (W + V - 1) / V;
-  dim3 grid((unsigned)((groups + kThreads - 1) / kThreads), (unsigned)B);
-  gf_encode_batched_kernel<IMAX, V><<<grid, kThreads, 0, s>>>(moff, x, out, o,
-                                                              i, W);
   return cudaGetLastError();
 }
 
@@ -215,14 +177,6 @@ struct MatmulCall {
   }
 };
 
-struct EncodeCall {
-  int moff; const uint32_t* x; uint32_t* out;
-  int B, o, i; long long W; cudaStream_t s;
-  template <int IMAX, int V> cudaError_t go() {
-    return launch_encode<IMAX, V>(moff, x, out, B, o, i, W, s);
-  }
-};
-
 bool bad_shape(int B, int o, int i, long long W) {
   return B <= 0 || B > 65535 || o <= 0 || i <= 0 || i > 32 || W <= 0;
 }
@@ -240,29 +194,3 @@ extern "C" int gfk_matmul_batched(const void* masks, const void* x, void* out,
                B, o, i, W, static_cast<cudaStream_t>(stream)};
   return (int)dispatch(i, W, x, out, c);
 }
-
-// K2: x u32 [B][i][W] -> out u32 [B][o][W] with the masks registered at
-// word offset moff of the constant table.
-extern "C" int gfk_encode_batched(int moff, const void* x, void* out, int B,
-                                  int o, int i, long long W, void* stream) {
-  if (bad_shape(B, o, i, W) || moff < 0 || moff + 8LL * o * i > kConstWords)
-    return (int)cudaErrorInvalidValue;
-  EncodeCall c{moff, static_cast<const uint32_t*>(x),
-               static_cast<uint32_t*>(out), B, o, i, W,
-               static_cast<cudaStream_t>(stream)};
-  return (int)dispatch(i, W, x, out, c);
-}
-
-// Copies nwords host mask words to word offset `offset` of the constant
-// table (once per encode matrix).
-extern "C" int gfk_set_encode_masks(const void* host_masks, int offset,
-                                    int nwords) {
-  if (offset < 0 || nwords <= 0 || offset + nwords > kConstWords)
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaMemcpyToSymbol(g_enc_masks, host_masks,
-                                 sizeof(uint32_t) * nwords,
-                                 sizeof(uint32_t) * offset,
-                                 cudaMemcpyHostToDevice);
-}
-
-extern "C" int gfk_const_capacity(void) { return kConstWords; }

@@ -25,7 +25,7 @@ import torch
 
 from . import cuda_build
 from .hh_torch import hash256_device_words as highwayhash256_ref
-from .rs_cuda import _as_i32, _check_cuda
+from .rs_cuda import _as_i32, _check_cuda, count_launch
 
 __all__ = ["LaunchPlan", "count_launch", "highwayhash256_chunks",
            "highwayhash256_ref", "launch_plan", "launch_sizes", "launches",
@@ -116,13 +116,6 @@ def device_plan(n: int, nbytes: int, data32: torch.Tensor) -> LaunchPlan:
     bulk copies take the rows (nbytes % 16 == 0, 16-byte aligned)."""
     bulk = nbytes % 16 == 0 and data32.data_ptr() % 16 == 0
     return launch_plan(n, nbytes, bulk, _sms(data32.device.index or 0))
-
-
-def count_launch(counts: dict, sizes: dict, name: str, n: int) -> None:
-    """One launch of ``name`` over ``n`` chunks."""
-    counts[name] += 1
-    bucket = 1 << (n - 1).bit_length()
-    sizes[name][bucket] = sizes[name].get(bucket, 0) + 1
 
 
 def reset_launches() -> None:

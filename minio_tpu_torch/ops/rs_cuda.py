@@ -1,21 +1,25 @@
-"""Wrappers for the GF(256) Hopper kernels of csrc/gf_matmul.cu — the port of
-ops/rs_pallas.py.
+"""Wrappers for the GF(256) Hopper kernels — the port of ops/rs_pallas.py.
 
-- ``gf_matmul_batched`` (K1): per-element coefficient masks [B, 8, o, i] x
-  words [B, i, W] -> [B, o, W]; replaces rs_pallas._dyn_batch_kernel (and
-  _dyn_kernel as B = 1).
-- ``gf_encode_batched`` (K2): one fixed uint8 matrix [o, i] for the whole
-  batch, its masks held in __constant__ memory once per matrix; replaces
+- ``gf_matmul_batched`` (K1, csrc/gf_matmul.cu): per-element coefficient
+  masks [B, 8, o, i] x words [B, i, W] -> [B, o, W]; replaces
+  rs_pallas._dyn_batch_kernel (and _dyn_kernel as B = 1).
+- ``gf_encode_batched`` (K2, csrc/gf_encode.cu): one fixed uint8 matrix
+  [o, i] for the whole batch, compiled into the kernel: one library per
+  matrix (``prepare_encode``, a few seconds of ``nvcc`` the first time a
+  matrix is seen on a host, then cached in build/); replaces
   rs_pallas._make_static_batch_kernel (and _make_static_kernel as B = 1).
+  A CUDA codec (rs_torch.ReedSolomon) prepares its matrix when it is made,
+  so no encode flush waits on the compiler.
 
 Words are int32 tensors holding uint32 bits (uint32 tensors are accepted and
 viewed as int32). A wrapper given CPU tensors returns its plain version,
 ``gf_matmul_batched_ref``; given CUDA tensors it launches its kernel on the
-current stream or raises. ``launches`` counts kernel launches per wrapper.
+current stream or raises. ``launches`` counts kernel launches per wrapper,
+``launch_sizes`` K2's launches by batch size (powers of two).
 """
 from __future__ import annotations
 
-import threading
+import ctypes
 
 import numpy as np
 import torch
@@ -24,16 +28,26 @@ from . import cuda_build, gf256, rs_torch
 
 #: kernel launches per wrapper (plain-version calls are not counted)
 launches = {"gf_matmul_batched": 0, "gf_encode_batched": 0}
-
-_slot_lock = threading.Lock()
-#: (device index, matrix bytes, shape) -> word offset in the constant table
-_slots: dict[tuple, int] = {}
-_slot_next: dict[int, int] = {}
+#: K2's launches by batch size B, rounded up to a power of two
+launch_sizes: dict[str, dict[int, int]] = {"gf_encode_batched": {}}
+#: K2's largest input count (its kernel keeps the i input words of a
+#: column in registers)
+ENCODE_MAX_INPUTS = 32
 
 
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
+    launch_sizes["gf_encode_batched"] = {}
+
+
+def count_launch(counts: dict, sizes: dict, name: str, n: int) -> None:
+    """One launch of ``name`` over ``n`` items (chunks, batch elements),
+    counted in ``counts`` and in ``sizes`` under the least power of two at
+    or above n."""
+    counts[name] += 1
+    bucket = 1 << (n - 1).bit_length()
+    sizes[name][bucket] = sizes[name].get(bucket, 0) + 1
 
 
 def gf_matmul_batched_ref(masks: torch.Tensor, x: torch.Tensor
@@ -88,29 +102,26 @@ def gf_matmul_batched(masks: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _encode_slot(lib, device: torch.device, mat: np.ndarray) -> int:
-    """Word offset of ``mat``'s masks in the device's constant table,
-    copying them there on first use."""
-    idx = device.index if device.index is not None \
-        else torch.cuda.current_device()
-    key = (idx, mat.tobytes(), mat.shape)
-    off = _slots.get(key)
-    if off is not None:
-        return off
-    with _slot_lock:
-        off = _slots.get(key)
-        if off is None:
-            masks = np.ascontiguousarray(gf256.coeff_masks(mat))
-            off = _slot_next.get(idx, 0)
-            if off + masks.size > lib.gfk_const_capacity():
-                raise RuntimeError("constant table full: too many encode "
-                                   "matrices registered")
-            with torch.cuda.device(idx):
-                cuda_build.check(lib.gfk_set_encode_masks(
-                    masks.ctypes.data, off, masks.size), "set_encode_masks")
-            _slot_next[idx] = off + masks.size
-            _slots[key] = off
-    return off
+def encode_defines(mat: np.ndarray) -> tuple[tuple[str, str], ...]:
+    """The preprocessor values K2 is built with for the uint8 matrix
+    ``mat`` [o, i]: GFK_O, GFK_I and GFK_MAT, the coefficients row-major as
+    one run of hex digits after 0x."""
+    mat = np.ascontiguousarray(mat, dtype=np.uint8)
+    if mat.ndim != 2 or not mat.size:
+        raise ValueError(f"an encode matrix is [o, i], got {mat.shape}")
+    o, i = mat.shape
+    return (("GFK_O", str(o)), ("GFK_I", str(i)),
+            ("GFK_MAT", "0x" + mat.tobytes().hex()))
+
+
+def prepare_encode(mat: np.ndarray) -> ctypes.CDLL:
+    """K2's library for ``mat`` [o, i], built (nvcc, once per matrix and
+    host) and loaded if it is not yet. Raises when the matrix has more
+    inputs than the kernel takes or the build fails."""
+    if np.shape(mat)[-1] > ENCODE_MAX_INPUTS:
+        raise ValueError(f"K2 takes at most {ENCODE_MAX_INPUTS} inputs, "
+                         f"got {np.shape(mat)[-1]}")
+    return cuda_build.library("gf_encode", encode_defines(mat))
 
 
 def gf_encode_batched(mat: np.ndarray, x: torch.Tensor) -> torch.Tensor:
@@ -130,12 +141,10 @@ def gf_encode_batched(mat: np.ndarray, x: torch.Tensor) -> torch.Tensor:
     out = torch.empty((bsz, o, w), dtype=torch.int32, device=x.device)
     if out.numel() == 0:
         return out
-    lib = cuda_build.library("gf_matmul")
-    off = _encode_slot(lib, x.device, mat)
+    lib = prepare_encode(mat)
     with torch.cuda.device(x.device):
-        err = lib.gfk_encode_batched(
-            off, x.data_ptr(), out.data_ptr(), bsz, o, i, w,
-            torch.cuda.current_stream().cuda_stream)
+        err = lib.gfk_encode(x.data_ptr(), out.data_ptr(), bsz, o, i, w,
+                             torch.cuda.current_stream().cuda_stream)
     cuda_build.check(err, "gf_encode_batched")
-    launches["gf_encode_batched"] += 1
+    count_launch(launches, launch_sizes, "gf_encode_batched", bsz)
     return out

@@ -141,6 +141,9 @@ class ReedSolomon:
             raise ValueError("encode matrix must be systematic (k+m, k)")
         self.matrix = matrix
         self.parity_rows = np.ascontiguousarray(matrix[k:])
+        if self.device.type == "cuda":
+            # K2's library for this matrix: built now, never in a flush
+            rs_cuda.prepare_encode(self.parity_rows)
         self._decode_cache: dict[tuple[int, ...], np.ndarray] = {}
         self._mask_cache: dict[tuple, torch.Tensor] = {}
         self._np_mask_cache: dict[tuple, np.ndarray] = {}

@@ -5,16 +5,20 @@ ops/scan_pallas.py.
 of newline-terminated CSV blocks under one compiled WHERE program; it
 replaces scan_pallas._make_scan_kernel / scan_fn_for.run. Given CPU tensors
 it returns the plain version, ``scan_torch.scan_blocks``; given CUDA tensors
-it launches the kernel on the current stream (its newline index, then the
-scan: one launch of K6 in ``launches``), or raises.
+it launches the kernel on the current stream, or raises. ``launches``
+counts its launches, ``launch_sizes`` the same launches by batch size B.
 
-The kernel interprets the program as an op table (``encode_program``),
-built once per program on the host: one build of the kernel serves every
-WHERE clause.
+The kernel reads each block once, in tiles (``tile_plan``): a CTA per tile,
+taken in ticket order, parses the rows that end in its tile and finds
+their ranks by a look-back over the tiles before it in the block (status
+words: the launch's only scratch besides the codes). It interprets the
+program as an op table (``encode_program``), built once per program on the
+host: one build of the kernel serves every WHERE clause.
 """
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -22,15 +26,27 @@ import torch
 from . import cuda_build
 from .scan_torch import as_bytes, check_args, scan_blocks
 
-__all__ = ["scan_codes", "encode_program", "launches", "reset_launches",
-           "MAX_COLS", "MAX_OPS"]
+__all__ = ["scan_codes", "encode_program", "launches", "launch_sizes",
+           "reset_launches", "tile_plan", "TilePlan", "MAX_COLS", "MAX_OPS"]
 
 #: the kernel's limits, the compiler's guardrails (s3select/device.py)
 MAX_COLS = 8
 MAX_OPS = 64
 
+#: the tile plan: tile bytes (a 1 MiB block is 86 tiles), the halo read
+#: before each tile (rows that start in it are parsed from shared memory),
+#: the limits csrc/scan.cu takes (whole 32-byte bitmap words), and the
+#: threads of a CTA
+TILE = 12288
+HALO = 512
+MAX_TILE = 16384
+MAX_HALO = 4096
+THREADS = 128
+
 #: kernel launches (plain-version calls are not counted)
 launches = {"scan_codes": 0}
+#: the same launches by batch size B
+launch_sizes: dict[str, dict[int, int]] = {"scan_codes": {}}
 
 _CMP = ("lt", "le", "gt", "ge", "eq", "ne")
 _BETWEEN, _IN, _AND, _OR, _NOT, _CONST = range(6, 12)
@@ -39,6 +55,47 @@ _I32 = 1 << 31
 
 def reset_launches() -> None:
     launches["scan_codes"] = 0
+    launch_sizes["scan_codes"] = {}
+
+
+class TilePlan(NamedTuple):
+    """K6's launch over B blocks of L bytes: each block cut into ``tiles``
+    tiles of ``tile`` bytes (the last one short), each CTA copying its tile
+    and the ``halo`` bytes before it (0 for a one-tile block) into
+    ``smem_bytes`` of dynamic shared memory; ``grid`` = B * tiles CTAs of
+    ``threads``."""
+    tile: int
+    halo: int
+    tiles: int
+    grid: int
+    smem_bytes: int
+    threads: int
+
+
+def tile_plan(L: int, B: int, tile: int | None = None,
+              halo: int | None = None) -> TilePlan:
+    """The plan for B blocks of L bytes: tiles of ``tile`` bytes (default
+    TILE, or the block rounded up to 32 bytes when it is shorter) and a halo
+    of ``halo`` (default HALO), both multiples of 32 within the kernel's
+    limits."""
+    if L <= 0 or B <= 0:
+        raise ValueError(f"no blocks to plan: L={L}, B={B}")
+    t = min(TILE, -(-L // 32) * 32) if tile is None else tile
+    if t % 32 or not 32 <= t <= MAX_TILE:
+        raise ValueError(f"tile {t} is not a multiple of 32 in "
+                         f"[32, {MAX_TILE}]")
+    tiles = -(-L // t)
+    h = (HALO if halo is None else halo) if tiles > 1 else 0
+    if h % 32 or not 0 <= h <= MAX_HALO:
+        raise ValueError(f"halo {h} is not a multiple of 32 in "
+                         f"[0, {MAX_HALO}]")
+    grid = B * tiles
+    if grid >= 2**31:
+        raise ValueError(f"{grid} tiles are too many for one launch")
+    # the window, its newline bitmap and the slack a row's 36-byte read near
+    # the window's end may touch (csrc/scan.cu smem_bytes)
+    smem = t + h + 4 * ((t + h) // 32) + 64
+    return TilePlan(t, h, tiles, grid, smem, THREADS)
 
 
 def _i32(v) -> int:
@@ -98,10 +155,12 @@ def _program_on(program: tuple, n_cols: int, device: torch.device
 
 
 def scan_codes(blocks: torch.Tensor, program: tuple, cols: tuple,
-               delim: int, max_rows: int) -> torch.Tensor:
+               delim: int, max_rows: int, *, tile: int | None = None,
+               halo: int | None = None) -> torch.Tensor:
     """Row codes of newline-terminated CSV blocks (uint8 [B, L] or 32-bit
     words [B, L//4]) under ``program`` over the CSV columns ``cols`` ->
-    int32 [B, max_rows]."""
+    int32 [B, max_rows]. ``tile`` and ``halo`` override the kernel's tile
+    plan (``tile_plan``); the plain version has none."""
     check_args(cols, delim, max_rows)
     if len(cols) > MAX_COLS:
         raise ValueError(f"at most {MAX_COLS} columns, got {len(cols)}")
@@ -116,15 +175,20 @@ def scan_codes(blocks: torch.Tensor, program: tuple, cols: tuple,
     out = torch.empty((nb, max_rows), dtype=torch.int32, device=x.device)
     if nb == 0 or L == 0:
         return out
-    nl = torch.empty_like(out)          # the kernel's newline index
+    plan = tile_plan(L, nb, tile, halo)
+    # the tiles' status words, then the ticket, zeroed on this stream
+    status = torch.zeros(plan.grid + 1, dtype=torch.int32, device=x.device)
     host_cols = np.asarray(cols, dtype=np.int32)
     lib = cuda_build.library("scan")
     with torch.cuda.device(x.device):
         err = lib.scan_codes(
-            x.data_ptr(), nl.data_ptr(), table.data_ptr(), table.shape[0],
-            opts.data_ptr(), host_cols.ctypes.data, len(cols), delim, nb, L,
-            max_rows, out.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
+            x.data_ptr(), status.data_ptr(), table.data_ptr(),
+            table.shape[0], opts.data_ptr(), opts.numel(),
+            host_cols.ctypes.data,
+            len(cols), delim, nb, L, max_rows, plan.tile, plan.halo,
+            out.data_ptr(), torch.cuda.current_stream().cuda_stream)
     cuda_build.check(err, "scan_codes")
     launches["scan_codes"] += 1
+    sizes = launch_sizes["scan_codes"]
+    sizes[nb] = sizes.get(nb, 0) + 1
     return out

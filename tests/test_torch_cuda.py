@@ -1,12 +1,15 @@
 """The port's hand-written CUDA kernels held to their plain PyTorch versions
 on the card, bit for bit, over shapes the CPU tests cannot reach (ragged
-word counts, every template bound of the GF kernels, more than 32 output
-rows, chunk lengths with and without a HighwayHash remainder at the edges
-of the hash kernels' tiles and at the flush shape, unaligned views), the
-fused launches at both device hashes, plus an erasure round trip and an
-SSE-C round trip on the card; the S3 Select scan kernel (K6) at
-the chip smoke's three shapes, and one select_scan flush and one select
-through the CUDA queue. Marked ``cuda``: they skip on
+word counts, every template bound of K1, K2 built for the codecs' encode
+matrices and for random ones of 1-32 inputs, more than 32 output rows,
+chunk lengths with and without a HighwayHash remainder at the edges of the
+hash kernels' tiles and at the flush shape, unaligned views), the fused
+launches at both device hashes, plus an erasure round trip and an SSE-C
+round trip on the card; the S3 Select scan kernel (K6) on lineitem blocks
+at B = 1, 16 and 128, the edge-case block and the edge blocks of the chip
+smoke (a row longer than a tile and its halo, no newline, wide rows), also
+with tiles forced small so that many rows cross tiles, and one select_scan
+flush and one select through the CUDA queue. Marked ``cuda``: they skip on
 hosts without a CUDA card. On the card:
 
     MINIO_TPU_TEST_ON_DEVICE=1 MINIO_TPU_LOCKRANK=0 \
@@ -23,11 +26,23 @@ from minio_tpu_torch.erasure import (BitrotAlgorithm, Erasure,
 from minio_tpu_torch.erasure.streaming import (BufferSink, BufferSource,
                                                erasure_decode, erasure_encode)
 from minio_tpu_torch.crypto import sse
-from minio_tpu_torch.ops import (chacha_cuda, chacha_torch, fused, gf256,
-                                 hh_cuda, hh_torch, mur3_cuda, rs_cuda,
-                                 scan_cuda, scan_torch)
+from minio_tpu_torch.ops import (chacha_cuda, chacha_torch, cuda_build,
+                                 fused, gf256, hh_cuda, hh_torch, mur3_cuda,
+                                 rs_cuda, scan_cuda, scan_torch)
 
 pytestmark = pytest.mark.cuda
+
+#: K2's matrices: random ones of 1-32 inputs, and the codecs' parity rows
+RANDOM_INPUTS = [1, 4, 5, 8, 12, 16, 17, 32]
+CODECS = [(16, 4), (12, 4), (8, 4), (4, 2)]
+
+
+def random_matrix(i):
+    return np.random.default_rng(i).integers(0, 256, (3, i), dtype=np.uint8)
+
+
+def parity_rows(k, m):
+    return gf256.build_matrix(k, m)[k:]
 
 
 @pytest.fixture
@@ -37,20 +52,67 @@ def dev():
     return torch.device("cuda")
 
 
+@pytest.fixture(scope="module")
+def encoders():
+    """Every K2 library these tests use, built at once (one nvcc each, in
+    parallel) rather than one at a time on first use."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    mats = [random_matrix(i) for i in RANDOM_INPUTS] + \
+        [parity_rows(k, m) for k, m in CODECS]
+    cuda_build.build([("gf_encode", rs_cuda.encode_defines(m))
+                      for m in mats])
+
+
 def words(shape, seed, dev):
     a = np.random.default_rng(seed).integers(-2**31, 2**31, shape,
                                              dtype=np.int64)
     return torch.from_numpy(a.astype(np.int32)).to(dev)
 
 
-@pytest.mark.parametrize("i", [1, 4, 5, 8, 12, 16, 17, 32])
+@pytest.mark.parametrize("i", RANDOM_INPUTS)
 @pytest.mark.parametrize("w", [1, 3, 4, 1000, 1027, 16384])
-def test_encode_kernel_matches_plain(dev, i, w):
-    mat = np.random.default_rng(i).integers(0, 256, (3, i), dtype=np.uint8)
+def test_encode_kernel_matches_plain(dev, encoders, i, w):
+    mat = random_matrix(i)
     x = words((2, i, w), i * w, dev)
     masks = torch.from_numpy(gf256.coeff_masks(mat).view(np.int32)).to(dev)
     got = rs_cuda.gf_encode_batched(mat, x)
     assert torch.equal(got, rs_cuda.gf_matmul_batched_ref(masks, x))
+
+
+@pytest.mark.parametrize("view", ["aligned", "unaligned"])
+@pytest.mark.parametrize("w", [16384, 1027])
+@pytest.mark.parametrize("b", [1, 64])
+@pytest.mark.parametrize("k,m", CODECS)
+def test_encode_kernel_at_codec_matrices(dev, encoders, k, m, b, w, view):
+    """K2 built for each codec's parity rows: the paths' batch sizes, a W
+    that is not a multiple of 4 and a view one word into its storage; each
+    launch counted by its batch size."""
+    par = parity_rows(k, m)
+    if view == "unaligned":
+        x = words((b * k * w + 1,), b + w, dev)[1:].view(b, k, w)
+        assert x.data_ptr() % 16
+    else:
+        x = words((b, k, w), b + w, dev)
+    masks = torch.from_numpy(gf256.coeff_masks(par).view(np.int32)).to(dev)
+    rs_cuda.reset_launches()
+    got = rs_cuda.gf_encode_batched(par, x)
+    assert torch.equal(got, rs_cuda.gf_matmul_batched_ref(masks, x))
+    assert rs_cuda.launches["gf_encode_batched"] == 1
+    assert rs_cuda.launch_sizes["gf_encode_batched"] == {b: 1}
+
+
+def test_codec_on_card_prepares_its_encoder(dev):
+    """A CUDA codec builds (or loads) K2 for its matrix when it is made;
+    its encode then launches that library."""
+    from minio_tpu_torch.ops import rs_torch
+    codec = rs_torch.ReedSolomon(6, 3, device=dev)
+    assert ("gf_encode", rs_cuda.encode_defines(codec.parity_rows)) \
+        in cuda_build._libs
+    data = np.random.default_rng(6).integers(0, 256, (6, 4096),
+                                             dtype=np.uint8)
+    assert np.array_equal(codec.encode(data),
+                          gf256.gf_matmul_ref(codec.parity_rows, data))
 
 
 @pytest.mark.parametrize("o", [1, 2, 20, 40])
@@ -83,7 +145,7 @@ def test_mur3_kernel_matches_plain(dev, nbytes, n):
 
 
 @pytest.mark.parametrize("kernel", ["encode", "matmul"])
-def test_gf_kernels_take_unaligned_views(dev, kernel):
+def test_gf_kernels_take_unaligned_views(dev, encoders, kernel):
     # a contiguous view one word into its storage: not 16-byte aligned,
     # so the kernel must fall back to one word per thread
     i, w = 16, 4096
@@ -268,26 +330,75 @@ def smoke():
     return chip_smoke
 
 
-@pytest.mark.parametrize("shape", ["flush", "one", "edge"])
-def test_scan_kernel_matches_plain(dev, smoke, shape):
-    """K6 at the chip smoke's shapes: Query A over 128 lineitem blocks of
-    1 MiB, over one of them, and the edge-case block under a program with
-    every op kind over 8 columns."""
+@pytest.fixture(scope="module")
+def lineitem_blocks(smoke):
+    """128 lineitem blocks of 1 MiB as the select path cuts them, with
+    their max_rows (on the host; each test moves what it needs)."""
+    table = smoke.lineitem(11, 0.2)
+    x, mr = smoke.select_blocks(table["text"], 128, torch.device("cpu"))
+    return table["text"], x, mr
+
+
+#: K6's tile plans: the default, and tiles forced small (1 KiB tiles, a
+#: 256-byte halo) so that many rows cross tiles, start in the halo or
+#: before it
+TILES = {"default": {}, "small": {"tile": 1024, "halo": 256}}
+
+
+@pytest.mark.parametrize("tiles", list(TILES))
+@pytest.mark.parametrize("shape", ["flush", "sixteen", "one", "edge",
+                                   "long_row", "no_newline", "wide_rows"])
+def test_scan_kernel_matches_plain(dev, smoke, lineitem_blocks, shape,
+                                   tiles):
+    """K6 at the chip smoke's shapes: Query A over 128, 16 and one
+    lineitem blocks of 1 MiB, the edge-case block under a program with
+    every op kind over 8 columns, and the edge blocks (a row longer than a
+    tile and its halo, no newline, rows so wide that the newline count is
+    under max_rows by more than a tile's rows); each launch counted by its
+    batch size."""
+    text, blocks, mr = lineitem_blocks
+    (prog, cols), delim = smoke.select_program(smoke.QUERY_A), smoke.PIPE
     if shape == "edge":
         x = torch.from_numpy(smoke.edge_block(np.random.default_rng(3)))
         x, prog, cols, delim, mr = (x.to(dev), smoke.EDGE_PROGRAM,
                                     tuple(range(1, 9)), smoke.COMMA, 1024)
+    elif shape in ("flush", "sixteen", "one"):
+        x = blocks[:{"flush": 128, "sixteen": 16, "one": 1}[shape]].to(dev)
     else:
-        n = 128 if shape == "flush" else 1
-        table = smoke.lineitem(11, 0.2 if n > 1 else 0.002)
-        x, mr = smoke.select_blocks(table["text"], n, dev)
-        (prog, cols), delim = smoke.select_program(smoke.QUERY_A), smoke.PIPE
-    before = scan_cuda.launches["scan_codes"]
-    got = scan_cuda.scan_codes(x, prog, cols, delim, mr)
-    assert scan_cuda.launches["scan_codes"] == before + 1
+        x = torch.from_numpy(smoke.edge_blocks(text, blocks.shape[1])[
+            shape][None]).to(dev)
+    scan_cuda.reset_launches()
+    got = scan_cuda.scan_codes(x, prog, cols, delim, mr, **TILES[tiles])
+    assert scan_cuda.launches["scan_codes"] == 1
+    assert scan_cuda.launch_sizes["scan_codes"] == {x.shape[0]: 1}
     want = scan_torch.scan_blocks(x, prog, cols, delim, mr)
     assert torch.equal(got, want)
-    assert (want == 1).any() and (want == 2).any()
+    assert (want == 2).any()
+    if shape != "no_newline":
+        assert (want == 1).any()
+
+
+@pytest.mark.parametrize("L,tile,halo", [(4096 + 4, 1024, 256),
+                                         (3000, 512, 96), (1000, 32, 32)])
+def test_scan_kernel_direct_loads(dev, smoke, L, tile, halo):
+    """Blocks bulk copies cannot take (L % 16 != 0, a view one byte into
+    its storage): the direct-load case, several tiles per block, rows
+    crossing tiles and longer than a tile and its halo."""
+    rng = np.random.default_rng(L)
+    alphabet = np.frombuffer(b"0123456789 -+.x\x00" + b"|" * 4 + b"\n" * 3,
+                             np.uint8)
+    rows = rng.choice(alphabet, (3, L)).astype(np.uint8)
+    rows[1, 100:100 + 2 * (tile + halo)] = ord("7")   # a long row
+    flat = torch.from_numpy(np.concatenate([[0], rows.ravel()])
+                            .astype(np.uint8)).to(dev)
+    for x in (flat[1:].view(3, L), flat[1:].view(3, L).clone()):
+        for prog, cols in (((("num", 0, "ge", 0),), (1,)),
+                           ((("num", 0, "ne", 3), ("num", 1, "ge", 1),
+                             ("or",)), (0, 2))):
+            got = scan_cuda.scan_codes(x, prog, cols, smoke.PIPE, 4096,
+                                       tile=tile, halo=halo)
+            want = scan_torch.scan_blocks(x, prog, cols, smoke.PIPE, 4096)
+            assert torch.equal(got, want)
 
 
 def test_scan_kernel_refuses_bad_inputs(dev):
@@ -300,6 +411,9 @@ def test_scan_kernel_refuses_bad_inputs(dev):
     with pytest.raises(TypeError):
         scan_cuda.scan_codes(x.to(torch.int64), (("num", 0, "lt", 1),),
                              (0,), 44, 8)
+    with pytest.raises(ValueError):  # a tile of part of a bitmap word
+        scan_cuda.scan_codes(x, (("num", 0, "lt", 1),), (0,), 44, 8,
+                             tile=48)
 
 
 def test_select_scan_flush_on_card(dev):
