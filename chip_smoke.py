@@ -12,7 +12,12 @@ Phases, each printing one JSON line:
    hash: one library per source, and K2 (csrc/gf_encode.cu) once per
    encode matrix, here the 16+4 and 8+4 codecs' (``build_keys``).
 2. card — the card's name and power limit from nvidia-smi.
-3. kernels — each hand-written kernel (K1-K6) at the shapes the paths give
+3. native — builds the port's host library (libnative.so, g++ on this
+   host) into build/minio_tpu_torch/, holds its HighwayHash-256 and
+   MUR3X256 digests byte for byte to the numpy references at chunk lengths
+   with and without a remainder, and measures the host hash rate over
+   16 KiB chunks at 1, 8 and 32 threads.
+4. kernels — each hand-written kernel (K1-K6) at the shapes the paths give
    it, batched and single-block, held bit-exact against its plain PyTorch
    version on the card, timed as one CUDA-event pair around a run of
    launches on cold inputs (``time_ms``), with the plain version's time,
@@ -29,14 +34,14 @@ Phases, each printing one JSON line:
    tile and its halo, no newline, wide rows), each with its tile plan,
    registers and shared memory per CTA; the flush's device memory beyond
    its inputs is reported and held to the codes plus 64 KiB.
-4. main path (MUR3X256S) — a 16+4 erasure set over 20 disk directories,
+5. main path (MUR3X256S) — a 16+4 erasure set over 20 disk directories,
    1 MiB blocks, MUR3X256S bitrot with 16 KiB chunks: 64 objects of 4 MiB
    PUT from 64 threads through erasure_encode, GET back, two data shards
    of every object removed and a degraded GET of all, one flipped byte
    detected with the GET still exact, and erasure_heal of all 64 objects
    with the healed files byte-identical to the originals. One object's
    first block is also checked against the host reference math.
-5. SSE path (HighwayHash256S, the default bitrot algorithm) — 128 SSE-C
+6. SSE path (HighwayHash256S, the default bitrot algorithm) — 128 SSE-C
    ChaCha20-Poly1305 objects of 4 MiB (every second one 333 bytes short,
    so it ends in a short package), each under its own customer key made
    from --seed, at 16+4 / 1 MiB / 16 KiB chunks: PUT through
@@ -46,7 +51,7 @@ Phases, each printing one JSON line:
    files are byte-identical, and the host Poly1305 seconds are reported.
    Every keystream (full packages, short packages, the key envelope) is
    K4's.
-6. select path — TPC-H lineitem at scale factor 0.5 (3,000,608 rows in
+7. select path — TPC-H lineitem at scale factor 0.5 (3,000,608 rows in
    dbgen's '|' text, made in numpy from --seed) split on row boundaries
    into 64 objects, stored at 16+4 / 1 MiB / HighwayHash256S with 16 KiB
    chunks, every ninth one SSE-C, every fourth with two data shards
@@ -55,6 +60,15 @@ Phases, each printing one JSON line:
    on K6), and the residual-heavy Query B on one object. Every response's
    records are held byte for byte to rows built in numpy from the
    generated columns, and its Stats to the object's sizes.
+
+Each sub-phase of a path reports, beside its wall and GiB/s, the dispatch
+queue's flushes and items by op, each lane's (bulk, interactive) busy
+seconds and share of the wall, the completers' seconds, the interactive
+lane's async completions, the requests' waits on the queue by op, and the
+seconds inside the host hashes by engine (``native``; ``numpy`` must read
+0 calls). A failed flush (a launch or readback that raised: its waiters
+get the error on the card; a CPU queue salvages it on the host) fails the
+run, as does a call of the numpy hashes on a path.
 
 Kernel launch counts are reset just before each path (each SSE sub-phase)
 and read just after; every kernel a path should run must have launched.
@@ -463,6 +477,102 @@ def phase_card(rehearsal: bool) -> str:
     print(out, flush=True)
     emit({"phase": "card", "nvidia_smi": out})
     return out
+
+
+#: the native phase: chunk lengths whose digests are held to the numpy
+#: references (remainders of every kind), and the thread counts of its
+#: host hash rates over 16 KiB chunks
+NATIVE_LENGTHS = (1, 31, 33, 1028, 16384, 16385)
+NATIVE_THREADS = (1, 8, 32)
+
+
+def phase_native(rehearsal: bool) -> dict:
+    """Builds the port's libnative.so with this host's g++, holds its
+    HighwayHash-256 and MUR3X256 digests byte for byte to the numpy
+    references (native/hhpy.py, native/mur3py.py), and measures the host
+    hash rate over 16 KiB chunks at 1, 8 and 32 threads (each thread hashes
+    the same buffer of 64 MiB, 1 MiB per call; the numpy HighwayHash beside
+    it at one thread, on 4 MiB)."""
+    import numpy as np
+    from minio_tpu_torch import native
+    from minio_tpu_torch.erasure.bitrot import HIGHWAY_KEY
+    from minio_tpu_torch.native import hhpy, mur3py
+
+    t0 = time.monotonic()
+    native.load_native()
+    res = {"build_s": time.monotonic() - t0, "flags": native.build_flags,
+           "library": os.path.relpath(native.library_path(), HERE),
+           "cpus": os.cpu_count()}
+    gen = np.random.default_rng(5)
+    for length in NATIVE_LENGTHS:
+        c = gen.integers(0, 256, (8, length), dtype=np.uint8)
+        check(np.array_equal(native.hh256_batch(HIGHWAY_KEY, c),
+                             hhpy.hash256_batch(HIGHWAY_KEY, c)),
+              f"native HighwayHash-256 differs from hhpy at {length} bytes")
+        check(np.array_equal(native.mur3x256_batch(HIGHWAY_KEY, c),
+                             mur3py.hash256_batch(HIGHWAY_KEY, c)),
+              f"native MUR3X256 differs from mur3py at {length} bytes")
+    res["digests_checked"] = {"lengths": list(NATIVE_LENGTHS), "chunks": 8,
+                              "equal": True}
+    mib = 4 if rehearsal else 64
+    buf = gen.integers(0, 256, (mib * (2**20 // CHUNK), CHUNK),
+                       dtype=np.uint8)
+    batches = buf.reshape(-1, 2**20 // CHUNK, CHUNK)  # 1 MiB per call
+    rates = {}
+    for name, fn in (("highwayhash256", native.hh256_batch),
+                     ("mur3x256", native.mur3x256_batch)):
+        rates[name] = {}
+        for n in NATIVE_THREADS:
+            def work(_):
+                for b in batches:
+                    fn(HIGHWAY_KEY, b)
+            t0 = time.monotonic()
+            with ThreadPoolExecutor(max_workers=n) as ex:
+                list(ex.map(work, range(n)))
+            rates[name][str(n)] = n * buf.nbytes / (time.monotonic() - t0) \
+                / 2**30
+    t0 = time.monotonic()
+    for b in batches[:4]:
+        hhpy.hash256_batch(HIGHWAY_KEY, b)
+    rates["highwayhash256_numpy_1_thread"] = \
+        4 * batches[0].nbytes / (time.monotonic() - t0) / 2**30
+    res["host_hash_gib_s"] = rates
+    emit({"phase": "native", **res})
+    return res
+
+
+class _HashClocks:
+    """Seconds inside the host bitrot hashes while installed, by engine:
+    ``native`` (the port's libnative.so entries the paths call) and
+    ``numpy`` (native/hhpy.py and native/mur3py.py, which no path may
+    call)."""
+
+    def __init__(self):
+        from minio_tpu_torch import native
+        from minio_tpu_torch.native import hhpy, mur3py
+        self.clocks = {"native": [_Clock(native, n) for n in (
+            "hh256", "hh256_batch", "hh256_multi", "mur3x256_batch",
+            "mur3x256_many")],
+            "numpy": [_Clock(hhpy, "hash256_batch"),
+                      _Clock(mur3py, "hash256_batch"),
+                      _Clock(mur3py, "digest256_py")]}
+
+    def __enter__(self):
+        for cs in self.clocks.values():
+            for c in cs:
+                c.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        for cs in self.clocks.values():
+            for c in cs:
+                c.__exit__()
+
+    def summary(self) -> dict:
+        return {engine: {"cpu_s": sum(c.cpu_s for c in cs),
+                         "thread_wall_s": sum(c.wall_s for c in cs),
+                         "calls": sum(c.calls for c in cs)}
+                for engine, cs in self.clocks.items()}
 
 
 def _words(gen, shape, device):
@@ -1029,11 +1139,43 @@ def merge_sizes(into: dict, sizes: dict) -> None:
             dst[b] = dst.get(b, 0) + v
 
 
-def _phase_row(q, total: int, wall: float) -> dict:
-    """Wall, GiB/s and the dispatch queue's flush statistics of one
-    sub-phase (the queue's counters were reset just before it)."""
+def _reset(q) -> None:
+    """Zero the queue's and the request waits' counters before a
+    sub-phase."""
+    from minio_tpu_torch.runtime import completion
+    q.reset_stats()
+    completion.reset_stats()
+
+
+def _phase_row(q, total: int, wall: float, hashes: _HashClocks) -> dict:
+    """Wall, GiB/s, the dispatch queue's flush statistics and the host
+    hash seconds by engine of one sub-phase (``_reset`` ran just before
+    it, ``hashes`` was installed around it). Fails on any failed or
+    salvaged flush and on any call of the numpy hashes."""
+    from minio_tpu_torch.runtime import completion
     st = q.stats()
+    host_hash = hashes.summary()
+    check(host_hash["numpy"]["calls"] == 0,
+          f"a path called the numpy hashes: {host_hash['numpy']}")
+    check(st["failed_batches"] == 0,
+          f"{st['failed_batches']} flushes ({st['failed_items']} items) "
+          f"failed")
+    check(st["salvaged_batches"] == 0,
+          f"{st['salvaged_batches']} flushes ({st['salvaged_items']} items) "
+          f"were salvaged on the host")
+    lanes = {name: {**v, "busy_share": v["busy_s"] / wall}
+             for name, v in st["lanes"].items()}
     return {"wall_s": wall, "gib_s": total / wall / 2**30,
+            "lanes": lanes, "completer_s": st["completer_seconds"],
+            "interactive_async_completions":
+                st["lanes"]["interactive"]["async_completions"],
+            "failed": {"batches": st["failed_batches"],
+                       "items": st["failed_items"]},
+            "salvaged": {"batches": st["salvaged_batches"],
+                         "items": st["salvaged_items"]},
+            "staging": st["staging"],
+            "await_by_op": completion.stats(),
+            "host_hash_s": host_hash,
             "flushes": st["batches"], "items": st["items"],
             "items_per_flush": st["avg_batch"],
             "max_items_per_flush": st["max_items"],
@@ -1114,11 +1256,13 @@ def phase_main(device, n_objects: int, obj_bytes: int, seed: int) -> dict:
         return time.monotonic() - t0
 
     def run(fn, label):
-        q.reset_stats()
-        t0 = time.monotonic()
-        with ThreadPoolExecutor(max_workers=n_objects) as ex:
-            res = list(ex.map(fn, range(n_objects)))
-        result[label] = _phase_row(q, total, time.monotonic() - t0)
+        _reset(q)
+        with _HashClocks() as hashes:
+            t0 = time.monotonic()
+            with ThreadPoolExecutor(max_workers=n_objects) as ex:
+                res = list(ex.map(fn, range(n_objects)))
+            wall = time.monotonic() - t0
+        result[label] = _phase_row(q, total, wall, hashes)
         return res
 
     reset_launches()
@@ -1213,6 +1357,7 @@ class _Clock:
         self.module, self.name = module, name
         self.fn = getattr(module, name)
         self.wall_s = self.cpu_s = 0.0
+        self.calls = 0
         self._lock = threading.Lock()
 
         def timed(*a, **kw):
@@ -1224,6 +1369,7 @@ class _Clock:
                 with self._lock:
                     self.wall_s += dt
                     self.cpu_s += dc
+                    self.calls += 1
         self.timed = timed
 
     def __enter__(self):
@@ -1401,15 +1547,15 @@ def phase_sse(device, n_objects: int, plain_bytes: int, seed: int) -> dict:
     launched, sized = {}, {}
 
     def run(fn, label, kernels):
-        q.reset_stats()
+        _reset(q)
         reset_launches()
-        with _Clock(ccp, "poly1305_tags") as poly:
+        with _Clock(ccp, "poly1305_tags") as poly, _HashClocks() as hashes:
             t0, c0 = time.monotonic(), time.process_time()
             with ThreadPoolExecutor(max_workers=n_objects) as ex:
                 res = list(ex.map(fn, range(n_objects)))
             wall = time.monotonic() - t0
             cpu = time.process_time() - c0
-        row = _phase_row(q, total, wall)
+        row = _phase_row(q, total, wall, hashes)
         row["launches"] = read_launches()
         row["launch_sizes"] = read_launch_sizes()
         # host CPU seconds of the whole process, and those inside Poly1305
@@ -1610,7 +1756,7 @@ def phase_select(device, table: dict, n_objects: int, seed: int) -> dict:
         return recs, st, stats[0].decode() if stats else "", lat
 
     def run(fn, jobs, label, kernels, nbytes):
-        q.reset_stats()
+        _reset(q)
         reset_launches()
         if device.type == "cuda":
             torch.cuda.reset_peak_memory_stats()
@@ -1622,7 +1768,7 @@ def phase_select(device, table: dict, n_objects: int, seed: int) -> dict:
         for c in clocks:
             c.__enter__()
         try:
-            with _Sampler() as sampler:
+            with _Sampler() as sampler, _HashClocks() as hashes:
                 t0, c0 = time.monotonic(), time.process_time()
                 with ThreadPoolExecutor(max_workers=len(jobs)) as ex:
                     res = list(ex.map(fn, jobs))
@@ -1630,7 +1776,7 @@ def phase_select(device, table: dict, n_objects: int, seed: int) -> dict:
         finally:
             for c in clocks:
                 c.__exit__()
-        row = _phase_row(q, nbytes, wall)
+        row = _phase_row(q, nbytes, wall, hashes)
         row["host_cpu_s"] = cpu
         row["thread_wall_s"] = {c.name: c.wall_s for c in clocks}
         row["host_frames"] = sampler.top()
@@ -1750,6 +1896,8 @@ def main() -> int:
         phase_build(rehearsal)
         phase = "card"
         card = phase_card(rehearsal)
+        phase = "native"
+        phase_native(rehearsal)
         phase = "lineitem"
         t0 = time.monotonic()
         table = lineitem(args.seed, scale)

@@ -15,8 +15,12 @@ counterpart is easy to find:
   cipher (EncryptReader / DecryptWriter)
 - ``minio_tpu_torch.s3select`` SelectObjectContent over an erasure-coded
   object, the SQL engine, and the CSV scan lane on the card
-- ``minio_tpu_torch.runtime``  the batching dispatch queue
-- ``minio_tpu_torch.native``   host-side HighwayHash-256 and MUR3X256 (numpy)
+- ``minio_tpu_torch.runtime``  the batching dispatch queue (bulk and
+  interactive lanes, completers, pinned staging), buffer
+  pools and the counted waits on it
+- ``minio_tpu_torch.native``   the host engines: ``libnative.so`` built by
+  g++ at first use (HighwayHash-256, MUR3X256, GF(256), the fused block
+  calls), plus numpy HighwayHash-256 and MUR3X256 as the tests' references
 - ``minio_tpu_torch.storage``  shard-file sink and source on a disk directory
 - ``minio_tpu_torch.utils``    errors and device resolution
 

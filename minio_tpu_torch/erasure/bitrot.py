@@ -1,22 +1,30 @@
-"""Bitrot protection — the port of erasure/bitrot.py, for the streaming
-algorithms HIGHWAYHASH256S (the default) and MUR3X256S: each shard file
-interleaves a 32-byte digest before every chunk, ``[H][chunk][H][chunk]...``,
-with a file size of ceil(len/chunk)*32 + len. Reads are chunk-aligned and
-every chunk is verified.
+"""Bitrot protection — the port of erasure/bitrot.py: per-shard checksums
+in the reference's two modes.
 
-The host digests (tail blocks, CPU-verified replacement reads) come from
-numpy (native/hhpy.py, native/mur3py.py); full blocks are digested on the
-device (ops/fused.py). The JAX package's other algorithms (HIGHWAYHASH256,
-SHA256, BLAKE2B512, BLAKE2B256S) are not ported and raise.
+- **streaming** (HIGHWAYHASH256S, the default; MUR3X256S; BLAKE2B256S):
+  each shard file interleaves a 32-byte digest before every chunk,
+  ``[H][chunk][H][chunk]...``, with a file size of ceil(len/chunk)*32 +
+  len. Reads are chunk-aligned and every chunk is verified.
+- **whole-file** (SHA256, BLAKE2B512, HIGHWAYHASH256): one digest over the
+  whole shard, kept by the caller (xl.meta in the reference); the file
+  holds the raw bytes.
+
+HIGHWAYHASH256S and MUR3X256S have device hashes (``native_algo_id``):
+full blocks are digested on the card (ops/fused.py). Every host digest of
+those two (tail blocks, host-verified replacement reads, the streaming
+writer's last chunk) and of HIGHWAYHASH256 comes from the native library
+(native/__init__.py); the BLAKE2b and SHA-256 algorithms are ``hashlib``'s.
 """
 from __future__ import annotations
 
 import enum
+import hashlib
 import os
 
 import numpy as np
 
-from ..native import hhpy, mur3py
+from .. import native
+from ..native import highwayhash
 from ..ops.fused import ALGO_HIGHWAY as ALGO_ID_HIGHWAY
 from ..ops.fused import ALGO_MUR3 as ALGO_ID_MUR3
 from ..ops.fused import chunk_align
@@ -31,13 +39,6 @@ DEFAULT_BITROT_CHUNK = 16384
 #: match across the two packages).
 HIGHWAY_KEY = bytes.fromhex(
     "4be734fa8e238acd263e83e6bb968552040f935da39f441497e09d1322de36a0")
-
-_NOT_PORTED = ("bitrot algorithm {} is not ported: only HIGHWAYHASH256S "
-               "and MUR3X256S are")
-
-#: host batch hashers per native ALGO_* id: uint8 [n, L] -> uint8 [n, 32]
-_HOST_BATCH = {ALGO_ID_HIGHWAY: hhpy.hash256_batch,
-               ALGO_ID_MUR3: mur3py.hash256_batch}
 
 
 def pick_bitrot_chunk(shard_size: int, chunk: int | None = None) -> int:
@@ -57,18 +58,14 @@ def pick_bitrot_chunk(shard_size: int, chunk: int | None = None) -> int:
 
 
 class BitrotAlgorithm(enum.Enum):
-    """The JAX package's algorithm names; HIGHWAYHASH256S and MUR3X256S are
-    ported."""
+    """The reference's bitrot algorithm table (cmd/bitrot.go:33-51) plus
+    the JAX package's MUR3X256S."""
     SHA256 = "sha256"
     BLAKE2B512 = "blake2b"
     HIGHWAYHASH256 = "highwayhash256"
     HIGHWAYHASH256S = "highwayhash256S"
     BLAKE2B256S = "blake2b256S"
     MUR3X256S = "mur3x256S"
-
-    def _check(self) -> None:
-        if native_algo_id(self) is None:
-            raise NotImplementedError(_NOT_PORTED.format(self.value))
 
     @property
     def streaming(self) -> bool:
@@ -78,14 +75,27 @@ class BitrotAlgorithm(enum.Enum):
 
     @property
     def digest_size(self) -> int:
-        self._check()
-        return 32
+        return _DIGEST_SIZE[self]
 
     def new(self):
-        self._check()
-        if self is BitrotAlgorithm.HIGHWAYHASH256S:
-            return hhpy.HighwayHash256(HIGHWAY_KEY)
-        return mur3py.Mur3x256(HIGHWAY_KEY)
+        """A hashlib-shaped hasher of this algorithm."""
+        return _ALGOS[self]()
+
+
+def _highwayhash256():
+    return highwayhash.HighwayHash256(HIGHWAY_KEY)
+
+
+_ALGOS = {
+    BitrotAlgorithm.SHA256: hashlib.sha256,
+    BitrotAlgorithm.BLAKE2B512: lambda: hashlib.blake2b(digest_size=64),
+    BitrotAlgorithm.HIGHWAYHASH256: _highwayhash256,
+    BitrotAlgorithm.HIGHWAYHASH256S: _highwayhash256,
+    BitrotAlgorithm.BLAKE2B256S: lambda: hashlib.blake2b(digest_size=32),
+    BitrotAlgorithm.MUR3X256S: lambda: native.Mur3x256(HIGHWAY_KEY),
+}
+_DIGEST_SIZE = {a: 64 if a is BitrotAlgorithm.BLAKE2B512 else 32
+                for a in BitrotAlgorithm}
 
 
 def native_algo_id(algo: BitrotAlgorithm) -> int | None:
@@ -97,15 +107,15 @@ def native_algo_id(algo: BitrotAlgorithm) -> int | None:
 def default_bitrot_algo() -> BitrotAlgorithm:
     """HIGHWAYHASH256S, the JAX package's default whenever its native
     library builds and the reference's own (cmd/bitrot.go:51). Overridable
-    with MINIO_TPU_BITROT_ALGO, as in the JAX package, by any ported
-    streaming algorithm."""
+    with MINIO_TPU_BITROT_ALGO, as in the JAX package, by any streaming
+    algorithm."""
     env = os.environ.get("MINIO_TPU_BITROT_ALGO", "")
     if env:
         try:
             a = BitrotAlgorithm(env)
         except ValueError:
             a = None
-        if a is not None and a.streaming and native_algo_id(a) is not None:
+        if a is not None and a.streaming:
             return a
     return BitrotAlgorithm.HIGHWAYHASH256S
 
@@ -131,22 +141,27 @@ def device_chunk(shard_len: int, chunk: int, algo_id: int) -> int | None:
 
 def _batch_digests(algo: BitrotAlgorithm, blob, n: int, chunk_size: int
                    ) -> np.ndarray:
-    """Digests of n equal chunks as uint8 [n, 32]."""
-    algo._check()
-    return _HOST_BATCH[native_algo_id(algo)](
-        HIGHWAY_KEY, np.frombuffer(blob, dtype=np.uint8).reshape(
-            n, chunk_size))
+    """Digests of n equal chunks as uint8 [n, digest_size]: one native
+    call for the algorithms with a native engine, a hashlib loop else."""
+    chunks = np.frombuffer(blob, dtype=np.uint8).reshape(n, chunk_size)
+    aid = native_algo_id(algo)
+    if aid is not None:
+        return native.batch_hasher(aid)(HIGHWAY_KEY, chunks)
+    out = np.empty((n, algo.digest_size), dtype=np.uint8)
+    for i in range(n):
+        h = algo.new()
+        h.update(chunks[i])
+        out[i] = np.frombuffer(h.digest(), dtype=np.uint8)
+    return out
 
 
 def shard_chunk_digests(shards: np.ndarray, chunk: int,
                         algo_id: int = ALGO_ID_HIGHWAY) -> np.ndarray:
     """Per-chunk digests of each row of uint8 [k, shard_len] as uint8
-    [k, n_chunks*32]: full ``chunk``-size pieces batched, a short tail piece
-    (shard_len % chunk) digested last — the [digest][chunk] framing order
-    of the shard files."""
-    if algo_id not in _HOST_BATCH:
-        raise NotImplementedError(_NOT_PORTED.format(f"id {algo_id}"))
-    batch = _HOST_BATCH[algo_id]
+    [k, n_chunks*32] on the native engine of ``algo_id``: full
+    ``chunk``-size pieces batched, a short tail piece (shard_len % chunk)
+    digested last — the [digest][chunk] framing order of the shard files."""
+    batch = native.batch_hasher(algo_id)
     shards = np.ascontiguousarray(shards, dtype=np.uint8)
     k, shard_len = shards.shape
     n_full = shard_len // chunk
@@ -213,13 +228,20 @@ def bitrot_logical_size(file_size: int, shard_size: int,
 # --- streaming writer/reader -------------------------------------------------
 
 
+def _check_streaming(algo: BitrotAlgorithm) -> None:
+    # every streaming algorithm's digest is 32 bytes: the framing below
+    # relies on it
+    if not algo.streaming:
+        raise ValueError(f"{algo.value} is a whole-file algorithm")
+
+
 class StreamingBitrotWriter:
     """Writes ``[digest][chunk]`` per ``shard_size``-byte chunk into a byte
     sink (write(bytes), close(), optional abort()). Callers may write()
     arbitrary sizes; digests are emitted every shard_size logical bytes."""
 
     def __init__(self, sink, algo: BitrotAlgorithm, shard_size: int):
-        algo._check()
+        _check_streaming(algo)
         self.sink = sink
         self.algo = algo
         self.shard_size = shard_size
@@ -271,7 +293,7 @@ class StreamingBitrotReader:
 
     def __init__(self, src, till_offset: int, algo: BitrotAlgorithm,
                  shard_size: int):
-        algo._check()
+        _check_streaming(algo)
         self.src = src
         self.algo = algo
         self.shard_size = shard_size
@@ -279,9 +301,11 @@ class StreamingBitrotReader:
 
     @property
     def fusable(self) -> bool:
-        """True when chunk digests can be verified on the device (MUR3X256
-        needs 16-byte packets, HighwayHash 4-byte words)."""
-        return self.shard_size % chunk_align(native_algo_id(self.algo)) == 0
+        """True when chunk digests can be verified on the device: the
+        algorithm has a device hash and the chunk suits it (MUR3X256 needs
+        16-byte packets, HighwayHash 4-byte words)."""
+        aid = native_algo_id(self.algo)
+        return aid is not None and self.shard_size % chunk_align(aid) == 0
 
     def _read_phys_span(self, offset: int, length: int) -> bytes:
         """Aligned physical read covering ceil(length/chunk) digests +
@@ -350,14 +374,68 @@ class StreamingBitrotReader:
         return bytes(out)
 
 
+# --- whole-file writer/reader -------------------------------------------------
+
+
+class WholeBitrotWriter:
+    """Raw passthrough writer accumulating one digest of the whole shard,
+    which the caller stores (xl.meta in the reference;
+    cmd/bitrot-whole.go)."""
+
+    def __init__(self, sink, algo: BitrotAlgorithm):
+        self.sink = sink
+        self.algo = algo
+        self._h = algo.new()
+
+    def write(self, b) -> None:
+        self._h.update(b)
+        self.sink.write(b)
+
+    def digest(self) -> bytes:
+        return self._h.digest()
+
+    def close(self) -> None:
+        self.sink.close()
+
+
+class WholeBitrotReader:
+    """Reads the whole shard once, verifies it against the stored digest,
+    then serves read_at from memory (the reference verifies lazily on the
+    first read, cmd/bitrot-whole.go:55-80)."""
+
+    def __init__(self, src, expected_digest: bytes, algo: BitrotAlgorithm,
+                 file_size: int):
+        self.src = src
+        self.expected = expected_digest
+        self.algo = algo
+        self.file_size = file_size
+        self._data: bytes | None = None
+
+    def read_at(self, offset: int, length: int) -> bytes:
+        if self._data is None:
+            data = self.src.read_at(0, self.file_size)
+            h = self.algo.new()
+            h.update(data)
+            if self.expected and h.digest() != self.expected:
+                raise errors.FileCorrupt("bitrot whole-file hash mismatch")
+            self._data = data
+        if offset + length > len(self._data):
+            raise errors.FileCorrupt("bitrot read past end")
+        return self._data[offset: offset + length]
+
+
 def new_bitrot_writer(sink, algo: BitrotAlgorithm, shard_size: int):
-    if not algo.streaming:
-        raise NotImplementedError(_NOT_PORTED.format(algo.value))
-    return StreamingBitrotWriter(sink, algo, shard_size)
+    if algo.streaming:
+        return StreamingBitrotWriter(sink, algo, shard_size)
+    return WholeBitrotWriter(sink, algo)
 
 
 def new_bitrot_reader(src, algo: BitrotAlgorithm, till_offset: int,
-                      shard_size: int):
-    if not algo.streaming:
-        raise NotImplementedError(_NOT_PORTED.format(algo.value))
-    return StreamingBitrotReader(src, till_offset, algo, shard_size)
+                      shard_size: int, expected_digest: bytes = b"",
+                      file_size: int = 0):
+    """A streaming reader over ``[digest][chunk]`` files, or a whole-file
+    reader checking ``expected_digest`` over the first ``file_size``
+    bytes."""
+    if algo.streaming:
+        return StreamingBitrotReader(src, till_offset, algo, shard_size)
+    return WholeBitrotReader(src, expected_digest, algo, file_size)

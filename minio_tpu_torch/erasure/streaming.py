@@ -18,10 +18,11 @@ which batches concurrent requests' blocks into single device launches:
 - Heal: only the target shards are rebuilt (``fused``, or ``masked`` for
   blocks that are not whole chunks), so heals of many objects coalesce.
 
-The JAX package verifies a healthy GET on the host, in native C++; the
-port has no CPU library, so it uses the device hash there too. Left out
-for later slices: the native-fd paths, hedged reads, spans, stage
-attribution and pooled zero-copy buffers.
+Every wait on the queue goes through ``runtime.completion.await_result``
+(counted per op), and a PUT's framed block comes from the buffer pool. The
+JAX package verifies a healthy GET on the host, in native C++; the port
+keeps the device hash there (the ``verify`` op). Left out for later
+slices: the native-fd paths, hedged reads, spans and stage attribution.
 """
 from __future__ import annotations
 
@@ -35,6 +36,8 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
+from ..runtime.bufpool import global_pool
+from ..runtime.completion import await_result
 from ..utils import errors
 from .codec import Erasure, ceil_div
 
@@ -191,13 +194,13 @@ def erasure_encode(erasure: Erasure, stream, writers: list,
 
     def start_writes(entry):
         kind, fut, shard_len = entry
-        res = fut.result()
+        res = await_result(fut, "encode")
         futs = {}
         if kind == "py":
             for i, ow in enumerate(owriters):
                 if ow is not None and writers[i] is not None:
                     futs[i] = ow.write_async(res[i].tobytes())
-            write_window.append(futs)
+            write_window.append((futs, None))
             return
         from .bitrot import frame_block_shards, shard_chunk_digests
         if kind == "pyh":
@@ -207,17 +210,18 @@ def erasure_encode(erasure: Erasure, stream, writers: list,
             digs = np.concatenate([
                 shard_chunk_digests(data2d, chunk, algo_id),
                 shard_chunk_digests(parity2d, chunk, algo_id)])
-        framed_all = np.empty((len(writers), digs.shape[1] + shard_len),
-                              dtype=np.uint8)
+        shape = (len(writers), digs.shape[1] + shard_len)
+        buf = global_pool().get(shape[0] * shape[1])
+        framed_all = buf.reshape(shape)
         frame_block_shards(data2d, digs[:k], chunk, out=framed_all[:k])
         frame_block_shards(parity2d, digs[k:], chunk, out=framed_all[k:])
         for i, ow in enumerate(owriters):
             if ow is not None and writers[i] is not None:
                 futs[i] = ow.write_framed_async(framed_all[i])
-        write_window.append(futs)
+        write_window.append((futs, buf))
 
     def harvest_writes():
-        futs = write_window.popleft()
+        futs, buf = write_window.popleft()
         errs: list = [None] * len(writers)
         for i in range(len(writers)):
             if writers[i] is None:
@@ -228,6 +232,8 @@ def erasure_encode(erasure: Erasure, stream, writers: list,
             except Exception as e:  # noqa: BLE001 — disk errors are votes
                 errs[i] = _vote(e)
                 writers[i] = None
+        # every write of the block has returned: its framed buffer is free
+        global_pool().put(buf)
         err = errors.reduce_write_quorum_errs(
             errs, errors.BASE_IGNORED_ERRS, write_quorum)
         if err is not None:
@@ -257,7 +263,7 @@ def erasure_encode(erasure: Erasure, stream, writers: list,
     except BaseException:
         # quiesce in-flight writes before propagating: the caller aborts
         # the writers next, and a write racing an abort corrupts them
-        for futs in write_window:
+        for futs, _ in write_window:
             for f in futs.values():
                 try:
                     f.result()
@@ -426,7 +432,7 @@ def erasure_decode(erasure: Erasure, writer, readers: list, offset: int,
                 window.append(e)
                 continue
             try:
-                e[1].result()  # drain the abandoned flush before redoing
+                await_result(e[1], "decode")  # drain the abandoned flush
             except Exception:  # noqa: BLE001 — redone either way
                 pass
             window.append(submit(e[2]))
@@ -434,7 +440,7 @@ def erasure_decode(erasure: Erasure, writer, readers: list, offset: int,
 
     def emit(entry):
         kind, fut, b, block_data_len, boff, blen = entry
-        res = fut.result()
+        res = await_result(fut, "decode")
         if kind == "verified":
             blocks, corrupt = res
             if corrupt:
@@ -502,7 +508,7 @@ def erasure_heal(erasure: Erasure, writers: list, readers: list,
 
     def emit(entry):
         kind, fut, b, hashed = entry
-        res = fut.result()
+        res = await_result(fut, "rebuild")
         frames = None
         if kind == "fused":
             rebuilt, corrupt = res[0], res[1]
@@ -515,10 +521,10 @@ def erasure_heal(erasure: Erasure, writers: list, readers: list,
                 # replacement reads, resubmit the pending fused entries
                 preader.drop_corrupt(corrupt)
                 block_data_len = min(bs, total_length - b * bs)
-                rebuilt = erasure.rebuild_targets_async(
+                rebuilt = await_result(erasure.rebuild_targets_async(
                     preader.read_block(b * erasure.shard_size(),
                                        ceil_div(block_data_len, k)),
-                    targets).result()
+                    targets), "rebuild")
                 pending = list(window)
                 window.clear()
                 for e in pending:

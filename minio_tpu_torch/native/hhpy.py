@@ -1,15 +1,15 @@
 """HighwayHash-256 on the host in numpy ``uint64`` — the bitrot hash of the
 HIGHWAYHASH256S algorithm, the JAX package's default.
 
-The port's version of minio_tpu/native/highwayhash.cpp (the port carries no
-ctypes CPU library): the same state, update, remainder packet, permute and
-modular reduction, vectorised across the 4 lanes of the state and across
-every chunk of a batch, so one numpy call per step serves them all. It takes
-chunks of any byte length (the remainder rules of the C code for lengths
-that are not a multiple of 4 included) and is hashlib-shaped like
-native/mur3py.py. It serves what mur3py serves for MUR3X256: digests of the
-streaming writer's tail chunks and ``close()``, and host-verified
-replacement reads. Full blocks are hashed on the card (ops/hh_cuda.py).
+A numpy transcription of highwayhash.cpp, independent of the C++ code: the
+same state, update, remainder packet, permute and modular reduction,
+vectorised across the 4 lanes of the state and across every chunk of a
+batch, so one numpy call per step serves them all. It takes chunks of any
+byte length (the remainder rules of the C code for lengths that are not a
+multiple of 4 included) and is hashlib-shaped like native/mur3py.py. No
+path of the port calls it: host digests come from the native library
+(native/__init__.py); the tests and ``chip_smoke.py`` hold that library and
+the device hash (ops/hh_cuda.py) to it.
 """
 from __future__ import annotations
 

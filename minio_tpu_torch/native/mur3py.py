@@ -7,7 +7,10 @@ implementation is pinned to) and a numpy batch form (``hash256_batch``)
 that runs the 16-byte packet chain once for all chunks of a batch, so its
 per-packet numpy overhead is shared across the batch. The batch form takes
 any chunk length: the MurmurHash3 tail of a short final chunk is the same
-zero-padded packet mix, applied without the per-packet h rotation.
+zero-padded packet mix, applied without the per-packet h rotation. No path
+of the port calls it: host digests come from the native library
+(native/__init__.py); the tests and ``chip_smoke.py`` hold that library to
+it.
 """
 from __future__ import annotations
 

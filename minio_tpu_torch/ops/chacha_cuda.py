@@ -17,7 +17,7 @@ import torch
 from . import cuda_build
 from .chacha_torch import (check_shapes, check_shared_nonce, key_words,
                            multi_xor)
-from .rs_cuda import _as_i32, _check_cuda
+from .rs_cuda import COUNT_LOCK, _as_i32, _check_cuda
 
 __all__ = ["chacha20_xor", "xor_packages", "launches", "reset_launches"]
 
@@ -53,7 +53,8 @@ def chacha20_xor(keys: torch.Tensor, nonces: torch.Tensor,
             out.data_ptr(), poly.data_ptr(), items, pkgs, words,
             torch.cuda.current_stream().cuda_stream)
     cuda_build.check(err, "chacha20_xor")
-    launches["chacha20_xor"] += 1
+    with COUNT_LOCK:
+        launches["chacha20_xor"] += 1
     return out, poly
 
 

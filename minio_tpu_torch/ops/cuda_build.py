@@ -23,6 +23,8 @@ import subprocess
 import threading
 import time
 
+from ..utils.errors import BuildError
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "minio_tpu_torch")
@@ -76,7 +78,7 @@ _libs: dict[tuple, ctypes.CDLL] = {}
 def nvcc() -> str:
     path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the CUDA kernels build only on "
+        raise BuildError("nvcc not found: the CUDA kernels build only on "
                            "a host with the CUDA toolkit")
     return path
 
@@ -152,7 +154,7 @@ def build(keys=None) -> dict[str, float]:
             with open(lib[:-3] + ".log", "rb") as f:
                 tail = f.read()[-3000:].decode(errors="replace")
             msgs.append(f"{lab}: {tail}")
-        raise RuntimeError("nvcc failed:\n" + "\n".join(msgs))
+        raise BuildError("nvcc failed:\n" + "\n".join(msgs))
     return took
 
 

@@ -21,7 +21,7 @@ from __future__ import annotations
 import torch
 
 from . import hh_cuda, hh_torch, mur3_cuda
-from ..native.mur3py import seeds_from_key
+from .mur3_torch import seeds_from_key
 
 #: the JAX package's native ALGO_* wire ids
 ALGO_HIGHWAY = 0

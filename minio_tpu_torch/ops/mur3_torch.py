@@ -13,15 +13,24 @@ implementations); pinned in tests.
 """
 from __future__ import annotations
 
+import struct
+
 import torch
 
-from ..native.mur3py import seeds_from_key
 from .rs_torch import to_i32, to_u32_i64
 
 _C1, _C2, _C3, _C4 = 0x239B961B, 0xAB0E9789, 0x38B34AE5, 0xA1E38B93
 _A = (0x561CCD1B, 0x0BCAA747, 0x96CD1C35, 0x32AC3B17)
 _F1, _F2 = 0x85EBCA6B, 0xC2B2AE35
 _M = 0xFFFFFFFF
+
+
+def seeds_from_key(key: bytes) -> tuple[int, int]:
+    """seed1 = LE u32 word 0, seed2 = LE u32 word 4 ^ golden ratio (the
+    second instance must differ even under an all-equal-words key)."""
+    s1 = struct.unpack_from("<I", key, 0)[0]
+    s2 = struct.unpack_from("<I", key, 16)[0] ^ 0x9E3779B9
+    return s1, s2
 
 
 def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:

@@ -20,13 +20,17 @@ current stream or raises. ``launches`` counts kernel launches per wrapper,
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import numpy as np
 import torch
 
 from . import cuda_build, gf256, rs_torch
 
-#: kernel launches per wrapper (plain-version calls are not counted)
+#: kernel launches per wrapper (plain-version calls are not counted); the
+#: dispatch queue's two lanes launch from two threads, so every count of
+#: this module and its siblings is taken under COUNT_LOCK
+COUNT_LOCK = threading.Lock()
 launches = {"gf_matmul_batched": 0, "gf_encode_batched": 0}
 #: K2's launches by batch size B, rounded up to a power of two
 launch_sizes: dict[str, dict[int, int]] = {"gf_encode_batched": {}}
@@ -45,9 +49,10 @@ def count_launch(counts: dict, sizes: dict, name: str, n: int) -> None:
     """One launch of ``name`` over ``n`` items (chunks, batch elements),
     counted in ``counts`` and in ``sizes`` under the least power of two at
     or above n."""
-    counts[name] += 1
     bucket = 1 << (n - 1).bit_length()
-    sizes[name][bucket] = sizes[name].get(bucket, 0) + 1
+    with COUNT_LOCK:
+        counts[name] += 1
+        sizes[name][bucket] = sizes[name].get(bucket, 0) + 1
 
 
 def gf_matmul_batched_ref(masks: torch.Tensor, x: torch.Tensor
@@ -98,7 +103,8 @@ def gf_matmul_batched(masks: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
             masks.data_ptr(), x.data_ptr(), out.data_ptr(), bsz, o, i, w,
             torch.cuda.current_stream().cuda_stream)
     cuda_build.check(err, "gf_matmul_batched")
-    launches["gf_matmul_batched"] += 1
+    with COUNT_LOCK:
+        launches["gf_matmul_batched"] += 1
     return out
 
 

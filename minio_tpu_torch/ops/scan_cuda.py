@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from . import cuda_build
+from .rs_cuda import COUNT_LOCK
 from .scan_torch import as_bytes, check_args, scan_blocks
 
 __all__ = ["scan_codes", "encode_program", "launches", "launch_sizes",
@@ -188,7 +189,8 @@ def scan_codes(blocks: torch.Tensor, program: tuple, cols: tuple,
             len(cols), delim, nb, L, max_rows, plan.tile, plan.halo,
             out.data_ptr(), torch.cuda.current_stream().cuda_stream)
     cuda_build.check(err, "scan_codes")
-    launches["scan_codes"] += 1
-    sizes = launch_sizes["scan_codes"]
-    sizes[nb] = sizes.get(nb, 0) + 1
+    with COUNT_LOCK:
+        launches["scan_codes"] += 1
+        sizes = launch_sizes["scan_codes"]
+        sizes[nb] = sizes.get(nb, 0) + 1
     return out

@@ -4,10 +4,36 @@ single device launches; the port of runtime/dispatch.py.
 Mechanics (as in the JAX package):
 - a submit returns a ``concurrent.futures.Future``; items bucket by
   (op, geometry, shard words, hash key, chunk, algo);
-- a dispatcher thread flushes a bucket when it holds ``max_batch`` items
-  (128 by default) or its oldest item has waited ``max_delay`` (1 ms), as
-  ONE launch over the stacked [B, ...] batch;
-- batches and items are counted per op (``stats()``).
+- two lanes, each a dispatcher thread with its own buckets and (on the
+  card) its own CUDA stream:
+  - the **bulk lane** flushes a bucket when it holds ``max_batch`` items
+    (128 by default) or its oldest item has waited ``max_delay`` (1 ms), as
+    ONE launch over the stacked [B, ...] batch;
+  - the **interactive lane** takes ``_INTERACTIVE_LANE_OPS`` (``masked``,
+    ``fused``: heal rebuilds and degraded-GET reconstruct) in small batches
+    (``INTERACTIVE_BATCH``, 8) after a short window
+    (``INTERACTIVE_DELAY_S``, 200 us), so a rebuild never queues behind a
+    bulk flush's staging and launches. ``MINIO_TPU_DISPATCH_INTERACTIVE_LANE
+    =0`` sends every op down the bulk lane;
+- a flush stacks its items' inputs into pinned staging buffers
+  (``bufpool.StagingPool``), copies them with ``non_blocking=True`` on the
+  lane's stream, launches, enqueues the copy of the outputs into pinned
+  host buffers and records a CUDA event. The dispatcher never waits on the
+  card: a bulk flush's readback (the event's synchronize and
+  ``set_result``) runs on a pool of ``COMPLETERS`` threads; the interactive
+  lane's on one poller thread (``_AsyncCompleter``) that checks
+  ``Event.query()`` and completes flushes head-first per bucket, so
+  results arrive in submission order;
+- a flush whose launch or readback raises on a queue on the card fails its
+  futures with that exception: work never moves from the card to the host.
+  On a CPU queue it is **salvaged**: its items are recomputed on the host —
+  the GF(256) math and the bitrot hashes on the native library (native/),
+  ``sse_xor`` and ``select_scan`` on the plain PyTorch versions — with the
+  same bytes. Both are counted (``stats()["failed_batches"]``/
+  ``["failed_items"]``, ``["salvaged_batches"]``/``["salvaged_items"]``)
+  and logged with the op and the exception. A library that fails to build
+  (``BuildError``) fails the futures on either queue;
+- flushes, items and busy seconds are counted per op and per lane.
 
 Ops, with the meaning of the JAX ``_flush_device`` branches:
 ``encode`` (parity of [k, W] words), ``encode_hashed`` (parity + per-chunk
@@ -21,32 +47,62 @@ blocks under one compiled WHERE program: K6 on a CUDA queue, its plain
 version on a CPU queue; concurrent selects with the same SQL share a
 flush).
 
-Left out for later slices: the QoS planner and spill-to-CPU (a failed
-launch fails its futures; no flush is salvaged on the host), the
-interactive lane, the device mesh and per-lane placement, input donation,
-and batch padding (it bounded XLA recompiles; PyTorch runs eagerly).
+A CPU queue (``device="cpu"``) runs the same lanes on the plain versions,
+with no staging and no events. Left out for later slices: the QoS planner,
+``LinkProfile`` and spill-to-CPU (they come with ``qos/``), the device mesh
+and per-lane placement, input donation, and batch padding (it bounded XLA
+recompiles; PyTorch runs eagerly).
 """
 from __future__ import annotations
 
+import logging
+import os
 import threading
 import time
-from concurrent.futures import Future
+from collections import deque
+from concurrent.futures import Future, ThreadPoolExecutor
 from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
+from .. import native
 from ..ops import chacha_cuda, rs_cuda, scan_cuda
 from ..ops import fused as _fused
 from ..ops.chacha_torch import check_shared_nonce
 from ..ops.rs_torch import words_to_device
 from ..utils.device import resolve_device
+from ..utils.errors import BuildError
+from .bufpool import StagingPool
+
+log = logging.getLogger("minio_tpu_torch.dispatch")
 
 MAX_BATCH = 128
 MAX_DELAY_S = 1e-3
+#: readback threads of the bulk lane (and of failed flushes), sized to the
+#: host
+COMPLETERS = max(4, os.cpu_count() or 4)
+#: items per interactive-lane flush at most
+INTERACTIVE_BATCH = 8
+#: the interactive lane's coalescing window: it trades batch fill for
+#: latency
+INTERACTIVE_DELAY_S = 200e-6
+#: the interval at which the interactive lane's completer polls its events
+INTERACTIVE_POLL_S = 100e-6
 
 OPS = ("encode", "encode_hashed", "masked", "fused", "verify", "sse_xor",
        "select_scan")
+
+#: ops that ride the interactive lane: heal-shard rebuilds and degraded-GET
+#: reconstruct, plus their fused verify+rebuild twin
+_INTERACTIVE_LANE_OPS = frozenset({"masked", "fused"})
+
+
+def interactive_lane_enabled() -> bool:
+    """MINIO_TPU_DISPATCH_INTERACTIVE_LANE=0 sends every op down the bulk
+    lane."""
+    return os.environ.get("MINIO_TPU_DISPATCH_INTERACTIVE_LANE", "1").strip() \
+        not in ("0", "0.0")
 
 
 @dataclass
@@ -70,32 +126,210 @@ class _Bucket:
     hash_out: bool = False
     params: tuple = ()                  # select_scan: program, cols, ...
     items: list = field(default_factory=list)
+    key: tuple = ()
 
 
-def _stack(arrays: list[np.ndarray], device) -> torch.Tensor:
-    return words_to_device(np.stack(arrays), device)
+class _Lane:
+    """One dispatcher thread: its buckets (under its own condition), its
+    flush parameters, its CUDA stream and its counters."""
+
+    def __init__(self, name: str, max_batch: int, max_delay: float, device):
+        self.name = name
+        self.max_batch = max_batch
+        self.max_delay = max_delay
+        self.cv = threading.Condition(threading.Lock())
+        self.buckets: dict[tuple, _Bucket] = {}
+        self.stream = torch.cuda.Stream(device=device) \
+            if device.type == "cuda" else None
+        self.flushes = 0
+        self.items = 0
+        #: seconds this lane's thread spent inside flushes (staging,
+        #: launches, enqueueing the readback): its busy share of a run
+        self.busy_s = 0.0
+        self.thread: threading.Thread | None = None
+
+
+@dataclass
+class _Flight:
+    """A launched flush awaiting its readback."""
+    b: _Bucket
+    items: list
+    hosts: list                          # host outputs (pinned on the card)
+    event: object = None                 # torch.cuda.Event, None when ready
+
+    def ready(self) -> bool:
+        if self.event is None:
+            return True
+        try:
+            return self.event.query()
+        except RuntimeError:  # a sticky device error: fail its waiters
+            return True
+
+
+def _stack(arrays: list[np.ndarray], device, staging: StagingPool | None
+           = None, role: str = "") -> tuple[torch.Tensor, torch.Tensor | None]:
+    """The items' uint32 arrays stacked as one int32 tensor on ``device``:
+    on the card through a pinned buffer of ``staging`` and one
+    ``non_blocking`` copy on the current stream. Returns (tensor, the
+    staging buffer to release after the copy, or None)."""
+    if staging is None or device.type != "cuda":
+        return words_to_device(np.stack(arrays), device), None
+    buf = staging.get(role, (len(arrays),) + arrays[0].shape, torch.int32)
+    # one call, not one per item: under many request threads every
+    # release of the interpreter lock costs the dispatcher a wait
+    np.stack(arrays, out=buf.numpy().view(np.uint32), casting="unsafe")
+    return buf.to(device, non_blocking=True), buf
+
+
+def _rows_from_masks(masks: np.ndarray) -> np.ndarray:
+    """uint32 [8, o, k] bit-plane masks -> uint8 [o, k] coefficients
+    (masks[b] is all-ones where bit b of the coefficient is set)."""
+    return ((masks & 1).astype(np.uint8)
+            << np.arange(8, dtype=np.uint8)[:, None, None]).sum(
+                axis=0, dtype=np.uint8)
+
+
+def _host_result(b: _Bucket, p: _Pending):
+    """One item's result computed on the host, with the bytes of the
+    kernels: the GF(256) product and the bitrot hashes on the native
+    library, ``sse_xor`` and ``select_scan`` on the plain versions."""
+    if b.op == "select_scan":
+        x = torch.from_numpy(np.array(p.words, np.uint32).view(
+            np.int32).reshape(1, -1))
+        return scan_cuda.scan_codes(x, *b.params)[0].numpy()
+    if b.op == "sse_xor":
+        key = torch.from_numpy(np.frombuffer(p.cipher_key, "<u4").astype(
+            np.uint32).view(np.int32))
+        out, pk = chacha_cuda.chacha20_xor(
+            key[None], torch.from_numpy(p.nonces.astype(np.uint32).view(
+                np.int32))[None],
+            torch.from_numpy(np.array(p.words, np.uint32).view(
+                np.int32))[None])
+        return out[0].numpy().view(np.uint32), pk[0].numpy().view(np.uint32)
+    u8 = np.ascontiguousarray(p.words, np.uint32).view(np.uint8)
+    k = u8.shape[0]
+    if b.op == "verify":
+        out = None
+    else:
+        rows = b.codec.parity_rows if b.op in ("encode", "encode_hashed") \
+            else _rows_from_masks(p.masks)
+        out = native.cpu_encode(rows, u8, rows.shape[0])
+    if b.op in ("encode", "masked"):
+        return out.view(np.uint32)
+    hash_fn = native.batch_hasher(b.hash_algo)
+    if b.op == "encode_hashed":
+        both = np.concatenate([u8, out])
+        digs = hash_fn(b.hash_key, both.reshape(-1, b.chunk_size))
+        return out.view(np.uint32), \
+            digs.reshape(both.shape[0], -1).view(np.uint32)
+    digs = hash_fn(b.hash_key, u8.reshape(-1, b.chunk_size)).reshape(k, -1)
+    want = np.ascontiguousarray(p.digests, np.uint32).view(np.uint8)
+    valid = np.all(digs == want.reshape(k, -1), axis=1)
+    if b.op == "verify":
+        return valid
+    if not b.hash_out:
+        return out.view(np.uint32), valid
+    odigs = hash_fn(b.hash_key, out.reshape(-1, b.chunk_size))
+    return out.view(np.uint32), valid, \
+        odigs.reshape(out.shape[0], -1).view(np.uint32)
+
+
+class _AsyncCompleter(threading.Thread):
+    """The interactive lane's completer: launched flushes register here,
+    and ONE thread polls their events, completing a flush only once its
+    readback has landed — no thread parks inside a device wait. Flushes are
+    kept in per-bucket FIFOs and completed head-first, so flush k+1's
+    futures never resolve before flush k's (the heal writer window relies
+    on block order)."""
+
+    def __init__(self, q: "DispatchQueue"):
+        super().__init__(name="minio-tpu-torch-ia-complete", daemon=True)
+        self.q = q
+        self.poll_s = INTERACTIVE_POLL_S
+        self._cv = threading.Condition()
+        self._pending: dict[tuple, deque] = {}
+        self._stopping = False
+
+    def submit(self, f: _Flight) -> None:
+        with self._cv:
+            self._pending.setdefault(f.b.key, deque()).append(f)
+            self._cv.notify()
+
+    def stop(self) -> None:
+        """Complete everything still pending (blocking readbacks are fine at
+        shutdown) and join."""
+        with self._cv:
+            self._stopping = True
+            self._cv.notify()
+        self.join(timeout=30)
+
+    def run(self):
+        while True:
+            ready: list[_Flight] = []
+            with self._cv:
+                while not self._stopping and not self._pending:
+                    self._cv.wait()
+                if self._stopping and not self._pending:
+                    return
+                for key in list(self._pending):
+                    dq = self._pending[key]
+                    while dq and (self._stopping or dq[0].ready()):
+                        ready.append(dq.popleft())
+                    if not dq:
+                        del self._pending[key]
+                poll = bool(self._pending) and not ready
+            for f in ready:
+                self.q.ia_async_completions += 1
+                self.q._complete(f)
+            if poll:
+                time.sleep(self.poll_s)
 
 
 class DispatchQueue:
     def __init__(self, device=None, max_batch: int = MAX_BATCH,
-                 max_delay: float = MAX_DELAY_S):
+                 max_delay: float = MAX_DELAY_S, completers: int = COMPLETERS,
+                 interactive_batch: int = INTERACTIVE_BATCH):
         self.device = resolve_device(device)
         self.max_batch = max_batch
         self.max_delay = max_delay
-        self._cv = threading.Condition(threading.Lock())
-        self._buckets: dict[tuple, _Bucket] = {}
         self._stop = False
+        self._stats_lock = threading.Lock()
         self.batches = {op: 0 for op in OPS}
         self.items = {op: 0 for op in OPS}
-        #: wall seconds inside flushes, per op
+        #: dispatcher seconds inside flushes, per op
         self.seconds = {op: 0.0 for op in OPS}
         self.max_items = 0
-        #: wall seconds the dispatcher spent inside flushes (stack, host->
-        #: device copy, launches, readback): its busy share of a run
+        #: seconds the dispatcher threads spent inside flushes, both lanes
         self.flush_seconds = 0.0
-        self._thread = threading.Thread(
-            target=self._loop, name="minio-tpu-torch-dispatch", daemon=True)
-        self._thread.start()
+        #: seconds completers spent reading flushes back (event waits,
+        #: results handed out, their callbacks)
+        self.completer_seconds = 0.0
+        self.ia_async_completions = 0
+        self.failed_batches = 0
+        self.failed_items = 0
+        self.salvaged_batches = 0
+        self.salvaged_items = 0
+        #: a failed flush is recomputed on the host only on a CPU queue
+        self.host_salvage = self.device.type != "cuda"
+        self.staging = StagingPool() if self.device.type == "cuda" else None
+        self._completers = ThreadPoolExecutor(
+            max_workers=completers,
+            thread_name_prefix="minio-tpu-torch-complete")
+        self._bulk = _Lane("bulk", max_batch, max_delay, self.device)
+        self._ia = _Lane("interactive", interactive_batch,
+                         INTERACTIVE_DELAY_S, self.device) \
+            if interactive_lane_enabled() else None
+        self._ia_completer = _AsyncCompleter(self) if self._ia else None
+        if self._ia_completer is not None:
+            self._ia_completer.start()
+        for lane in self._lanes():
+            lane.thread = threading.Thread(
+                target=self._loop, args=(lane,), daemon=True,
+                name=f"minio-tpu-torch-dispatch-{lane.name}")
+            lane.thread.start()
+
+    def _lanes(self) -> list[_Lane]:
+        return [self._bulk] + ([self._ia] if self._ia else [])
 
     # --- submission ---------------------------------------------------------
 
@@ -179,135 +413,260 @@ class DispatchQueue:
             _Pending(words))
 
     def _submit(self, key: tuple, new_bucket: _Bucket, p: _Pending) -> Future:
-        with self._cv:
+        lane = self._ia if self._ia is not None and \
+            new_bucket.op in _INTERACTIVE_LANE_OPS else self._bulk
+        new_bucket.key = key
+        with lane.cv:
             if self._stop:
                 raise RuntimeError("dispatch queue stopped")
-            b = self._buckets.setdefault(key, new_bucket)
+            b = lane.buckets.setdefault(key, new_bucket)
             b.items.append(p)
-            self._cv.notify()
+            lane.cv.notify()
         return p.future
 
-    # --- dispatcher ---------------------------------------------------------
+    # --- dispatchers --------------------------------------------------------
 
-    def _loop(self):
+    def _loop(self, lane: _Lane):
         while True:
             to_flush: list[tuple[_Bucket, list[_Pending]]] = []
-            with self._cv:
+            with lane.cv:
                 while not self._stop:
                     now = time.monotonic()
                     deadline = None
-                    for key in list(self._buckets):
-                        b = self._buckets[key]
+                    for key in list(lane.buckets):
+                        b = lane.buckets[key]
                         if not b.items:
-                            del self._buckets[key]
+                            del lane.buckets[key]
                             continue
                         age = now - b.items[0].t
-                        if len(b.items) >= self.max_batch or \
-                                age >= self.max_delay:
-                            items = b.items[:self.max_batch]
-                            b.items = b.items[self.max_batch:]
+                        if len(b.items) >= lane.max_batch or \
+                                age >= lane.max_delay:
+                            items = b.items[:lane.max_batch]
+                            b.items = b.items[lane.max_batch:]
                             to_flush.append((b, items))
                         else:
-                            d = b.items[0].t + self.max_delay
+                            d = b.items[0].t + lane.max_delay
                             deadline = d if deadline is None \
                                 else min(deadline, d)
                     if to_flush:
                         break
-                    self._cv.wait(timeout=None if deadline is None
-                                  else max(0.0, deadline - time.monotonic()))
+                    lane.cv.wait(timeout=None if deadline is None
+                                 else max(0.0, deadline - time.monotonic()))
                 stopping = self._stop
                 if stopping:
                     # drain everything still queued so no waiter hangs
-                    for b in self._buckets.values():
+                    for b in lane.buckets.values():
                         while b.items:
-                            items = b.items[:self.max_batch]
-                            b.items = b.items[self.max_batch:]
+                            items = b.items[:lane.max_batch]
+                            b.items = b.items[lane.max_batch:]
                             to_flush.append((b, items))
-                    self._buckets.clear()
+                    lane.buckets.clear()
             for b, items in to_flush:
-                t0 = time.monotonic()
-                try:
-                    self._flush(b, items)
-                except Exception as e:  # noqa: BLE001 — fail the batch
-                    for p in items:
-                        if not p.future.done():
-                            p.future.set_exception(e)
-                dt = time.monotonic() - t0
-                self.flush_seconds += dt
-                self.seconds[b.op] += dt
+                self._run_flush(lane, b, items)
             if stopping:
                 return
 
-    def _flush(self, b: _Bucket, items: list[_Pending]):
+    def _run_flush(self, lane: _Lane, b: _Bucket, items: list[_Pending]):
+        t0 = time.monotonic()
+        flight = failed = None
+        try:
+            flight = self._flush(lane, b, items)
+        except Exception as e:  # noqa: BLE001 — handed on below
+            failed = e
+        # counted before any item completes, so a waiter sees its flush
+        dt = time.monotonic() - t0
+        n = len(items)
+        with self._stats_lock:
+            lane.flushes += 1
+            lane.items += n
+            lane.busy_s += dt
+            self.flush_seconds += dt
+            self.seconds[b.op] += dt
+            self.batches[b.op] += 1
+            self.items[b.op] += n
+            self.max_items = max(self.max_items, n)
+        if failed is not None:
+            self._completers.submit(self._failed, b, items, failed, "launch")
+        elif lane is self._ia:
+            self._ia_completer.submit(flight)
+        else:
+            self._completers.submit(self._complete, flight)
+
+    def _flush(self, lane: _Lane, b: _Bucket, items: list[_Pending]
+               ) -> _Flight:
+        """Stage, launch and enqueue the readback of one flush."""
+        dev = self.device
+        if dev.type != "cuda":
+            outs = self._launch(b, items, [])
+            return _Flight(b, items, [o.numpy() for o in outs])
+        staged: list = []
+        with torch.cuda.stream(lane.stream):
+            outs = self._launch(b, items, staged)
+            hosts = []
+            for o in outs:
+                h = torch.empty(o.shape, dtype=o.dtype, pin_memory=True)
+                h.copy_(o, non_blocking=True)
+                hosts.append(h)
+            event = torch.cuda.Event(blocking=True)
+            event.record(lane.stream)
+        for role, buf in staged:
+            self.staging.release(role, buf, event)
+        return _Flight(b, items, hosts, event)
+
+    def _launch(self, b: _Bucket, items: list[_Pending], staged: list
+                ) -> tuple[torch.Tensor, ...]:
         dev = self.device
         n = len(items)
-        words = _stack([p.words for p in items], dev)
+
+        def stack(role: str, arrays: list) -> torch.Tensor:
+            t, buf = _stack(arrays, dev, self.staging, f"{b.op}.{role}")
+            if buf is not None:
+                staged.append((f"{b.op}.{role}", buf))
+            return t
+
+        words = stack("words", [p.words for p in items])
         shard_nbytes = int(words.shape[-1]) * 4
         if b.op == "select_scan":
-            outs = (scan_cuda.scan_codes(words.reshape(n, -1), *b.params),)
-        elif b.op == "sse_xor":
-            keys = np.stack([np.frombuffer(p.cipher_key, "<u4")
-                             for p in items])
-            outs = chacha_cuda.chacha20_xor(
-                words_to_device(keys, dev),
-                _stack([p.nonces for p in items], dev), words)
-        elif b.op == "encode":
-            outs = (b.codec.encode_words_batch(words),)
-        elif b.op == "encode_hashed":
-            outs = _fused.encode_hashed_fn_for(
+            return (scan_cuda.scan_codes(words.reshape(n, -1), *b.params),)
+        if b.op == "sse_xor":
+            keys = [np.frombuffer(p.cipher_key, "<u4") for p in items]
+            return chacha_cuda.chacha20_xor(
+                stack("keys", keys), stack("nonces", [p.nonces for p in items]),
+                words)
+        if b.op == "encode":
+            return (b.codec.encode_words_batch(words),)
+        if b.op == "encode_hashed":
+            return _fused.encode_hashed_fn_for(
                 b.hash_key, shard_nbytes, b.codec.encode_words_batch,
                 b.chunk_size, b.hash_algo)(words)
-        elif b.op == "masked":
-            outs = (rs_cuda.gf_matmul_batched(
-                _stack([p.masks for p in items], dev), words),)
-        elif b.op == "fused":
-            outs = _fused.fused_fn_for(
+        if b.op == "masked":
+            return (rs_cuda.gf_matmul_batched(
+                stack("masks", [p.masks for p in items]), words),)
+        if b.op == "fused":
+            return _fused.fused_fn_for(
                 b.hash_key, shard_nbytes, rs_cuda.gf_matmul_batched,
                 b.chunk_size, b.hash_algo, b.hash_out)(
-                    _stack([p.masks for p in items], dev), words,
-                    _stack([p.digests for p in items], dev))
-        else:  # verify
-            outs = (_fused.verify_fn_for(
-                b.hash_key, shard_nbytes, b.chunk_size, b.hash_algo)(
-                    words, _stack([p.digests for p in items], dev)),)
-        host = [o.cpu().numpy() for o in outs]
-        if b.op != "select_scan":   # words travel as int32 holding uint32
-            host = [h.view(np.uint32) if h.dtype == np.int32 else h
-                    for h in host]
-        self.batches[b.op] += 1
-        self.items[b.op] += n
-        self.max_items = max(self.max_items, n)
-        for i, p in enumerate(items):
-            # sse_xor results are whole payloads: each item gets a copy, so
-            # one slow consumer's slice does not pin the flush's batch
-            res = tuple(h[i].copy() if b.op == "sse_xor" else h[i]
-                        for h in host)
-            p.future.set_result(res if len(res) > 1 else res[0])
+                    stack("masks", [p.masks for p in items]), words,
+                    stack("digests", [p.digests for p in items]))
+        return (_fused.verify_fn_for(  # verify
+            b.hash_key, shard_nbytes, b.chunk_size, b.hash_algo)(
+                words, stack("digests", [p.digests for p in items])),)
+
+    # --- completion ---------------------------------------------------------
+
+    def _complete(self, f: _Flight) -> None:
+        """Wait for a flush's readback and hand each item its result; a
+        readback that raises goes to ``_failed``."""
+        t0 = time.monotonic()
+        try:
+            if f.event is not None:
+                f.event.synchronize()
+            host = [h.numpy() if isinstance(h, torch.Tensor) else h
+                    for h in f.hosts]
+            if f.b.op != "select_scan":  # words travel as int32 bits
+                host = [h.view(np.uint32) if h.dtype == np.int32 else h
+                        for h in host]
+            for i, p in enumerate(f.items):
+                # sse_xor results are whole payloads: each item gets a
+                # copy, so one slow consumer does not pin the flush's batch
+                res = tuple(h[i].copy() if f.b.op == "sse_xor" else h[i]
+                            for h in host)
+                p.future.set_result(res if len(res) > 1 else res[0])
+        except Exception as e:  # noqa: BLE001 — handed on to the waiters
+            self._failed(f.b, f.items, e, "readback")
+        finally:
+            with self._stats_lock:
+                self.completer_seconds += time.monotonic() - t0
+
+    def _failed(self, b: _Bucket, items: list[_Pending], exc: Exception,
+                where: str) -> None:
+        """A flush whose launch or readback raised: on a CPU queue its items
+        are recomputed on the host (``_host_result``); on the card, or when
+        a library failed to build, its waiters get the exception. Counted
+        and logged either way."""
+        items = [p for p in items if not p.future.done()]
+        if not items:
+            return
+        salvage = self.host_salvage and not isinstance(exc, BuildError)
+        with self._stats_lock:
+            if salvage:
+                self.salvaged_batches += 1
+                self.salvaged_items += len(items)
+            else:
+                self.failed_batches += 1
+                self.failed_items += len(items)
+        log.warning("dispatch %s flush of %d items failed at its %s (%s: "
+                    "%s); %s", b.op, len(items), where, type(exc).__name__,
+                    exc, "salvaged on the host" if salvage
+                    else "its waiters get the error")
+        for p in items:
+            if not salvage:
+                p.future.set_exception(exc)
+                continue
+            try:
+                p.future.set_result(_host_result(b, p))
+            except Exception as e:  # noqa: BLE001 — the waiter gets it
+                p.future.set_exception(e)
+
+    # --- lifecycle and counters ---------------------------------------------
 
     def stop(self):
-        with self._cv:
-            self._stop = True
-            self._cv.notify_all()
-        self._thread.join(timeout=30)
+        """Drain both lanes, complete every flush in flight, join."""
+        for lane in self._lanes():
+            with lane.cv:
+                self._stop = True
+                lane.cv.notify_all()
+        for lane in self._lanes():
+            lane.thread.join(timeout=30)
+        if self._ia_completer is not None:
+            self._ia_completer.stop()
+        self._completers.shutdown(wait=True)
 
     def reset_stats(self) -> None:
-        for op in OPS:
-            self.batches[op] = 0
-            self.items[op] = 0
-            self.seconds[op] = 0.0
-        self.max_items = 0
-        self.flush_seconds = 0.0
+        with self._stats_lock:
+            for op in OPS:
+                self.batches[op] = 0
+                self.items[op] = 0
+                self.seconds[op] = 0.0
+            self.max_items = 0
+            self.flush_seconds = 0.0
+            self.completer_seconds = 0.0
+            self.ia_async_completions = 0
+            self.failed_batches = self.failed_items = 0
+            self.salvaged_batches = self.salvaged_items = 0
+            for lane in self._lanes():
+                lane.flushes = lane.items = 0
+                lane.busy_s = 0.0
 
     def stats(self) -> dict:
-        batches = sum(self.batches.values())
-        items = sum(self.items.values())
-        return {"batches": batches, "items": items,
-                "ops": {op: {"batches": self.batches[op],
-                             "items": self.items[op]} for op in OPS},
-                "seconds_by_op": dict(self.seconds),
-                "max_items": self.max_items,
-                "flush_seconds": self.flush_seconds,
-                "avg_batch": items / batches if batches else 0.0}
+        with self._stats_lock:
+            batches = sum(self.batches.values())
+            items = sum(self.items.values())
+            lanes = {lane.name: {"flushes": lane.flushes,
+                                 "items": lane.items,
+                                 "busy_s": lane.busy_s}
+                     for lane in self._lanes()}
+            lanes.setdefault("interactive", {"flushes": 0, "items": 0,
+                                             "busy_s": 0.0})
+            lanes["interactive"].update(
+                enabled=self._ia is not None,
+                batch_cap=self._ia.max_batch if self._ia else 0,
+                async_completions=self.ia_async_completions)
+            return {"batches": batches, "items": items,
+                    "ops": {op: {"batches": self.batches[op],
+                                 "items": self.items[op]} for op in OPS},
+                    "seconds_by_op": dict(self.seconds),
+                    "max_items": self.max_items,
+                    "flush_seconds": self.flush_seconds,
+                    "avg_batch": items / batches if batches else 0.0,
+                    "lanes": lanes,
+                    "completer_seconds": self.completer_seconds,
+                    "failed_batches": self.failed_batches,
+                    "failed_items": self.failed_items,
+                    "salvaged_batches": self.salvaged_batches,
+                    "salvaged_items": self.salvaged_items,
+                    "staging": self.staging.stats() if self.staging
+                    else None}
 
 
 _queues: dict[str, DispatchQueue] = {}

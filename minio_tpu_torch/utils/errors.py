@@ -15,6 +15,11 @@ raises; the other types come over with the slice that first raises them.
 from __future__ import annotations
 
 
+class BuildError(RuntimeError):
+    """A kernel library (nvcc) or the host native library (g++) did not
+    build. Never salvaged on another route: the program is at fault."""
+
+
 class StorageError(Exception):
     """Base class for disk/storage errors. Instances of the same class with
     the same args compare equal for quorum counting."""

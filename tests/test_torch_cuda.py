@@ -473,3 +473,119 @@ def test_select_object_content_on_card(dev):
     run_select(req, data, want, device="cpu")
     assert out.getvalue() == want.getvalue()
     assert st["processed"] == len(data)
+
+
+def _encode_hashed_case(codec, seed: int, chunk: int = 4096):
+    """(words, parity, digests) of one encode_hashed item, the expected
+    values from the host's native library."""
+    from minio_tpu_torch import native
+    from minio_tpu_torch.erasure.bitrot import HIGHWAY_KEY
+    from minio_tpu_torch.ops.rs_torch import pack_shards
+    data = np.random.default_rng(seed).integers(0, 256, (codec.k, 4 * chunk),
+                                                dtype=np.uint8)
+    parity = native.cpu_encode(codec.parity_rows, data, codec.m)
+    both = np.concatenate([data, parity])
+    digs = native.hh256_batch(HIGHWAY_KEY, both.reshape(-1, chunk))
+    return pack_shards(data), parity, digs.reshape(len(both), -1)
+
+
+def test_queue_overlapping_flushes_reuse_staging_exactly(dev):
+    """Eight threads keep the bulk lane's flushes of one shape overlapping,
+    so pinned staging buffers are reused while earlier copies may be in
+    flight; every result equals the host's."""
+    import threading
+    from minio_tpu_torch.erasure.bitrot import HIGHWAY_KEY
+    from minio_tpu_torch.ops.rs_torch import get_codec, unpack_shards
+    from minio_tpu_torch.runtime.dispatch import DispatchQueue
+    codec = get_codec(4, 2, device=dev)
+    cases = [_encode_hashed_case(codec, s) for s in range(64)]
+    q = DispatchQueue(dev, max_batch=4, max_delay=0.0005)
+    bad = []
+
+    def work(t):
+        for j in range(t, 64 * 6, 8):
+            words, parity, digs = cases[j % 64]
+            par, d = q.encode_hashed(codec, words, HIGHWAY_KEY, 4096,
+                                     0).result(timeout=120)
+            if not (np.array_equal(unpack_shards(par), parity) and
+                    np.array_equal(d.view(np.uint8).reshape(6, -1), digs)):
+                bad.append(j)
+    try:
+        ths = [threading.Thread(target=work, args=(t,)) for t in range(8)]
+        for t in ths:
+            t.start()
+        for t in ths:
+            t.join(timeout=300)
+        assert not any(t.is_alive() for t in ths)
+        st = q.stats()
+    finally:
+        q.stop()
+    assert not bad, bad[:5]
+    assert st["ops"]["encode_hashed"]["items"] == 64 * 6
+    assert st["staging"]["hits"] > 0 and st["salvaged_batches"] == 0
+    assert st["failed_batches"] == 0
+    assert st["completer_seconds"] > 0
+
+
+def test_queue_fails_a_failed_launch_on_card(dev):
+    """A launch that raises on the card is not moved to the host: every
+    waiter gets the exception, the failure is counted, nothing salvaged;
+    the same items on an unfailed queue come back right."""
+    from minio_tpu_torch.erasure.bitrot import HIGHWAY_KEY
+    from minio_tpu_torch.ops.rs_torch import get_codec, unpack_shards
+    from minio_tpu_torch.runtime.dispatch import DispatchQueue
+    codec = get_codec(4, 2, device=dev)
+    cases = [_encode_hashed_case(codec, 100 + s) for s in range(6)]
+    for fail in (False, True):
+        q = DispatchQueue(dev, max_delay=0.05)
+        if fail:
+            def boom(*a, **kw):
+                raise RuntimeError("injected launch failure")
+            q._launch = boom
+        try:
+            futs = [q.encode_hashed(codec, w, HIGHWAY_KEY, 4096, 0)
+                    for w, _, _ in cases]
+            for f, (_, parity, digs) in zip(futs, cases):
+                if fail:
+                    with pytest.raises(RuntimeError, match="injected"):
+                        f.result(timeout=120)
+                    continue
+                par, d = f.result(timeout=120)
+                assert np.array_equal(unpack_shards(par), parity)
+                assert np.array_equal(d.view(np.uint8).reshape(6, -1), digs)
+            st = q.stats()
+        finally:
+            q.stop()
+        assert st["failed_items"] == (6 if fail else 0)
+        assert st["salvaged_items"] == 0
+
+
+def test_interactive_lane_on_card_completes_in_order(dev):
+    """Rebuilds on the card ride the interactive lane's own stream and
+    complete through the event-polling completer, in submission order."""
+    from minio_tpu_torch import native
+    from minio_tpu_torch.ops.rs_torch import get_codec, pack_shards, \
+        unpack_shards
+    from minio_tpu_torch.runtime.dispatch import DispatchQueue
+    codec = get_codec(4, 2, device=dev)
+    q = DispatchQueue(dev, max_delay=0.005, interactive_batch=2)
+    order, futs = [], []
+    try:
+        for i in range(10):
+            data = np.random.default_rng(200 + i).integers(
+                0, 256, (4, 8192), dtype=np.uint8)
+            full = np.concatenate([data, native.cpu_encode(
+                codec.parity_rows, data, 2)])
+            present = (0, 2, 3, 4)
+            masks = codec.target_masks_np(present, (1,))
+            f = q.masked(codec, pack_shards(full[list(present)]), masks)
+            f.add_done_callback(lambda _f, i=i: order.append(i))
+            futs.append((f, full[1]))
+        for f, want in futs:
+            assert np.array_equal(unpack_shards(f.result(timeout=60))[0],
+                                  want)
+        st = q.stats()["lanes"]["interactive"]
+    finally:
+        q.stop()
+    assert order == sorted(order)
+    assert st["items"] == 10 and st["async_completions"] == st["flushes"]

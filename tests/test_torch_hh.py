@@ -81,15 +81,17 @@ def test_batch_shapes_and_guards():
 
 def test_bitrot_default_and_host_digests(monkeypatch):
     """HIGHWAYHASH256S is the default (MINIO_TPU_BITROT_ALGO overrides it
-    with a ported streaming algorithm); shard_chunk_digests frames a short
+    with a streaming algorithm, not with the whole-file HIGHWAYHASH256,
+    whose hasher is the native one); shard_chunk_digests frames a short
     tail chunk last, as the native hash of each piece."""
     assert DEFAULT_BITROT_ALGO is BitrotAlgorithm.HIGHWAYHASH256S
     monkeypatch.setenv("MINIO_TPU_BITROT_ALGO", "mur3x256S")
     assert default_bitrot_algo() is BitrotAlgorithm.MUR3X256S
     monkeypatch.setenv("MINIO_TPU_BITROT_ALGO", "highwayhash256")
     assert default_bitrot_algo() is BitrotAlgorithm.HIGHWAYHASH256S
-    with pytest.raises(NotImplementedError):
-        BitrotAlgorithm.HIGHWAYHASH256.new()
+    whole = BitrotAlgorithm.HIGHWAYHASH256.new()
+    whole.update(b"whole-file shard")
+    assert whole.digest() == jhh.hash256(HIGHWAY_KEY, b"whole-file shard")
     shards = chunks(3, 1000 + 64, 4)
     digs = shard_chunk_digests(shards, 1000, 0)
     assert np.array_equal(digs[:, :32],

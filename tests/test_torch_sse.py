@@ -338,4 +338,4 @@ def test_sse_xor_op_batches_objects_under_their_own_keys():
             q.sse_xor(items[0][2], items[0][0], bad)
     finally:
         q.stop()
-    assert not q._thread.is_alive()
+    assert not any(lane.thread.is_alive() for lane in q._lanes())
