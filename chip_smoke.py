@@ -60,6 +60,24 @@ Phases, each printing one JSON line:
    on K6), and the residual-heavy Query B on one object. Every response's
    records are held byte for byte to rows built in numpy from the
    generated columns, and its Stats to the object's sizes.
+8. object layer path — the users' calls over the same data path:
+   ServerPools over one pool of two 16+4 erasure sets (40 disk
+   directories, ErasureSets placing each name by SipHash under a
+   deployment id made from --seed), 1 MiB blocks, HighwayHash256S with
+   16 KiB chunks. PUT of 128 objects of 4 MiB from 64 threads (each fused
+   ETag equal to pipeline_etag_reference of the body, every xl.meta
+   naming its set's geometry), 64 objects of 100 KiB (MD5 ETags) and one
+   multipart object of 8 MiB + 8 MiB + 5 MiB and 333 bytes (the -3 ETag of
+   etag_from_parts); list_objects of all 193 in order with sizes and
+   ETags; GET of all, byte-exact, and ranged GETs across a block and a
+   part boundary; two drives of each set replaced by empty ones (their
+   files kept aside) and heal_bucket; degraded GET of the 128 big objects,
+   counting those that needed a rebuild; heal_object of all 193 from 128
+   threads, per-object p50/p99, every healed xl.meta and part.* equal to
+   the kept files; one flipped byte in a data shard: the GET stays exact,
+   on_partial reports a deep scan, and a deep heal restores the shard.
+   K1, K2 and K5 must launch. Cut: one process over local directories,
+   not 32 drives over a network.
 
 Each sub-phase of a path reports, beside its wall and GiB/s, the dispatch
 queue's flushes and items by op, each lane's (bulk, interactive) busy
@@ -103,8 +121,10 @@ ISSUE_OPS_S = 128 * 132 * 1.98e9
 LOGIC_OPS_S = 64 * 132 * 1.98e9
 
 K, M = 16, 4
-#: K2's libraries built in the build phase: the paths' 16+4 and the 8+4 row
-ENCODE_GEOMETRIES = ((K, M), (8, 4))
+#: K2's libraries built in the build phase: the paths' 16+4, the 8+4 row
+#: and the object layer's REDUCED_REDUNDANCY codec of a 20-drive set
+#: (18+2), which ErasureObjects prepares at start-up
+ENCODE_GEOMETRIES = ((K, M), (8, 4), (K + M - 2, 2))
 BLOCK = 1 << 20
 CHUNK = 16384
 N_OBJECTS = 128
@@ -135,6 +155,17 @@ QUERY_A = ("SELECT s._1, s._2, s._5 FROM s3object s "
 QUERY_B = "SELECT s._1 FROM s3object s WHERE s._6 < 1000.5"
 SSE_EVERY = 9
 DEGRADED_EVERY = 4
+#: the object layer path: one pool of OL_SETS 16+4 sets; 128 objects of
+#: 4 MiB PUT and GET from 64 threads, OL_SMALL of 100 KiB, one multipart
+#: object of OL_PARTS; two drives of each set (OL_LOST) replaced by empty
+#: ones; every object healed from 128 threads
+OL_SETS = 2
+OL_SMALL = 64
+OL_SMALL_BYTES = 100 << 10
+OL_PARTS = (8 << 20, 8 << 20, (5 << 20) + 333)
+OL_LOST = (0, 1)
+OL_PUT_THREADS = 64
+OL_HEAL_THREADS = 128
 PIPE, COMMA = 124, 44
 #: K6's flush scratch beyond its codes at most (the tiles' status words)
 SCAN_SCRATCH_MAX = 64 << 10
@@ -1856,6 +1887,283 @@ def phase_select(device, table: dict, n_objects: int, seed: int) -> dict:
     return result
 
 
+def _files(root: str) -> dict:
+    """Every file under root, relative path -> bytes."""
+    out = {}
+    for d, _dirs, names in os.walk(root):
+        for n in names:
+            p = os.path.join(d, n)
+            with open(p, "rb") as f:
+                out[os.path.relpath(p, root)] = f.read()
+    return out
+
+
+def phase_objectlayer(device, n_big: int, big_bytes: int, n_small: int,
+                      small_bytes: int, part_sizes: tuple,
+                      seed: int) -> dict:
+    """The object layer over the device data path: one pool of two 16+4
+    erasure sets (40 disk directories, 1 MiB blocks, HighwayHash256S with
+    16 KiB chunks, placement by SipHash of the name under a deployment id
+    made from --seed), driven through ServerPools as a user's calls reach
+    it (see the module docstring, step 8). Launch counts are reset once
+    before the path and read after it; each step reports its own."""
+    import hashlib
+    import uuid
+    import numpy as np
+    from minio_tpu_torch.erasure.bitrot import DEFAULT_BITROT_ALGO
+    from minio_tpu_torch.erasure.streaming import PreallocSink
+    from minio_tpu_torch.objectlayer import (ErasureSets, ObjectOptions,
+                                             ServerPools)
+    from minio_tpu_torch.objectlayer.datatypes import CompletePart
+    from minio_tpu_torch.objectlayer.metadata import hash_order
+    from minio_tpu_torch.runtime.dispatch import global_queue
+    from minio_tpu_torch.storage.xlmeta import XLMeta
+    from minio_tpu_torch.storage.xlstorage import XLStorage
+    from minio_tpu_torch.utils.hashreader import (etag_from_parts,
+                                                  pipeline_etag_reference)
+
+    n_disks = OL_SETS * (K + M)
+    root = _disk_root("objectlayer")
+    disk_dirs = [os.path.join(root, f"d{i:02d}") for i in range(n_disks)]
+    gen = np.random.default_rng(seed + 2)
+    dep = str(uuid.UUID(bytes=gen.bytes(16)))
+    bucket = "bucket"
+    q = global_queue(device)
+    t0 = time.monotonic()
+    sets = ErasureSets([XLStorage(d) for d in disk_dirs], OL_SETS, K + M,
+                       dep, default_parity=M, block_size=BLOCK,
+                       device=device)
+    pool = ServerPools([sets])
+    result = {"deployment": f"1 pool x {OL_SETS} sets x {K + M} drives",
+              "disks": n_disks, "geometry": f"{K}+{M}", "block": BLOCK,
+              "chunk": CHUNK, "algo": sets.sets[0].bitrot_algo.value,
+              "placement": sets.distribution_algo, "deployment_id": dep,
+              "setup_s": time.monotonic() - t0, "disk_root": root,
+              "cut": "one process over local disk directories, not 32 "
+                     "drives over a network (dist/ is not ported)"}
+    check(sets.sets[0].bitrot_algo is DEFAULT_BITROT_ALGO,
+          f"bitrot algorithm {sets.sets[0].bitrot_algo}")
+    pool.make_bucket(bucket)
+    big = {f"big/{j:04d}": gen.bytes(big_bytes) for j in range(n_big)}
+    small = {f"small/{j:04d}": gen.bytes(small_bytes)
+             for j in range(n_small)}
+    parts = [gen.bytes(n) for n in part_sizes]
+    mp_name = "multipart/object"
+    bodies = {**big, **small, mp_name: b"".join(parts)}
+    etags: dict = {}
+
+    def put(name):
+        data = bodies[name]
+        return name, pool.put_object(bucket, name, io.BytesIO(data),
+                                     len(data)).etag
+
+    def get(name, offset=0, length=-1):
+        sink = PreallocSink()
+        pool.get_object(bucket, name, sink, offset, length)
+        return sink.getbuffer()
+
+    def set_of(name):
+        s = sets.get_hashed_set_index(name)
+        return s, sets.sets[s]
+
+    def run(label, fn, jobs, threads, nbytes, kernels=()):
+        _reset(q)
+        before = read_launches()
+        with _HashClocks() as hashes:
+            t0 = time.monotonic()
+            with ThreadPoolExecutor(max_workers=threads) as ex:
+                res = list(ex.map(fn, jobs))
+            wall = time.monotonic() - t0
+        row = _phase_row(q, nbytes, wall, hashes)
+        after = read_launches()
+        row["launches"] = {k: after[k] - before.get(k, 0) for k in after}
+        row["threads"] = threads
+        row["objects"] = len(jobs)
+        result[label] = row
+        if device.type == "cuda":
+            for name in kernels:
+                check(row["launches"][name] > 0,
+                      f"kernel {name} never launched in {label}")
+        return res
+
+    reset_launches()
+    # 1. PUT of the big objects: fused ETags, journals naming the geometry
+    names = sorted(big)
+    etags.update(run("put_big", put, names, OL_PUT_THREADS,
+                     n_big * big_bytes,
+                     ("gf_encode_batched", "highwayhash256_chunks")))
+    with ThreadPoolExecutor(max_workers=8) as ex:
+        want = dict(zip(names, ex.map(lambda n: pipeline_etag_reference(
+            big[n], K, BLOCK, CHUNK, 0), names)))
+    bad = [n for n in names if etags[n] != want[n]]
+    check(not bad, f"fused ETag differs from the reference on {bad[:3]}")
+    for name in names:
+        s, es = set_of(name)
+        dist = hash_order(f"{bucket}/{name}", K + M)
+        for i, d in enumerate(es.disks):
+            fi = XLMeta.load(d.read_all(bucket, f"{name}/xl.meta")) \
+                .to_fileinfo(bucket, name)
+            ec = fi.erasure
+            check((ec.data_blocks, ec.parity_blocks, ec.block_size,
+                   ec.index, ec.distribution) == (K, M, BLOCK, dist[i],
+                                                 dist),
+                  f"xl.meta of {name} on set {s} disk {i} names "
+                  f"{ec.data_blocks}+{ec.parity_blocks}/{ec.block_size} "
+                  f"index {ec.index}")
+    result["put_big"]["etags_equal_reference"] = len(names)
+    result["put_big"]["xl_meta_checked"] = len(names) * (K + M)
+
+    # 2. small objects (MD5 ETags) and one multipart object
+    snames = sorted(small)
+    etags.update(run("put_small", put, snames, OL_PUT_THREADS,
+                     n_small * small_bytes, ("gf_encode_batched",)))
+    bad = [n for n in snames
+           if etags[n] != hashlib.md5(small[n]).hexdigest()]
+    check(not bad, f"small-object ETag is not the MD5 on {bad[:3]}")
+
+    def multipart(_):
+        uid = pool.new_multipart_upload(bucket, mp_name)
+        pe = [pool.put_object_part(bucket, mp_name, uid, i + 1,
+                                   io.BytesIO(p), len(p)).etag
+              for i, p in enumerate(parts)]
+        oi = pool.complete_multipart_upload(
+            bucket, mp_name, uid,
+            [CompletePart(i + 1, e) for i, e in enumerate(pe)])
+        return pe, oi.etag
+
+    (part_etags, mp_etag), = run("multipart", multipart, [0], 1,
+                                 sum(part_sizes), ("gf_encode_batched",))
+    for p, e in zip(parts, part_etags):
+        want_e = pipeline_etag_reference(p, K, BLOCK, CHUNK, 0) \
+            if len(p) >= 1 << 20 else hashlib.md5(p).hexdigest()
+        check(e == want_e, "a multipart part's ETag is not the reference")
+    check(mp_etag == etag_from_parts(part_etags)
+          and mp_etag.endswith(f"-{len(parts)}"),
+          f"multipart ETag {mp_etag}")
+    etags[mp_name] = mp_etag
+    result["multipart"].update(parts=list(part_sizes), etag=mp_etag)
+
+    # 3. listing: every name in order, with its size and ETag
+    t0 = time.monotonic()
+    listed = pool.list_objects(bucket, max_keys=1000)
+    want_list = [(n, len(bodies[n]), etags[n]) for n in sorted(bodies)]
+    got_list = [(o.name, o.size, o.etag) for o in listed.objects]
+    check(got_list == want_list and not listed.is_truncated,
+          f"list_objects: {len(got_list)} entries, want {len(want_list)}")
+    result["list"] = {"wall_s": time.monotonic() - t0,
+                      "objects": len(got_list)}
+
+    # 4. GET of everything, and ranged GETs across a block and a part
+    every = sorted(bodies)
+    total = sum(len(b) for b in bodies.values())
+    got = run("get", get, every, OL_PUT_THREADS, total,
+              ("highwayhash256_chunks",))
+    bad = [n for n, g in zip(every, got) if g != bodies[n]]
+    check(not bad, f"GET mismatch on {bad[:3]}")
+    del got
+    mp_off = part_sizes[0] - 777
+    ranges = [(names[0], BLOCK - 500, 1000),
+              (mp_name, mp_off, min(5000, len(bodies[mp_name]) - mp_off))]
+    for name, off, ln in ranges:
+        check(get(name, off, ln) == bodies[name][off:off + ln],
+              f"ranged GET of {name} at {off} is not exact")
+    result["get"]["ranged"] = [list(r) for r in ranges]
+
+    # 5. drive loss: two drives of each set replaced by empty ones
+    lost = [(s, i) for s in range(OL_SETS) for i in OL_LOST]
+    backup = os.path.join(root, "backup")
+    for s, i in lost:
+        path = disk_dirs[s * (K + M) + i]
+        shutil.copytree(os.path.join(path, bucket),
+                        os.path.join(backup, f"s{s}d{i}"))
+        shutil.rmtree(path)
+        sets.sets[s]._disks[i] = XLStorage(path)
+    t0 = time.monotonic()
+    hb = pool.heal_bucket(bucket)
+    check(hb.after_state.count("ok") == n_disks, f"heal_bucket: {hb}")
+    result["heal_bucket"] = {"wall_s": time.monotonic() - t0,
+                             "missing_before": hb.before_state.count(
+                                 "missing")}
+
+    # 6. degraded GET of the big objects
+    rebuild = 0
+    for name in names:
+        dist = hash_order(f"{bucket}/{name}", K + M)
+        rebuild += min(dist[i] for i in OL_LOST) <= K
+    got = run("degraded_get", get, names, OL_PUT_THREADS,
+              n_big * big_bytes, ("highwayhash256_chunks",
+                                  "gf_matmul_batched"))
+    bad = [n for n, g in zip(names, got) if g != bodies[n]]
+    check(not bad, f"degraded GET mismatch on {bad[:3]}")
+    del got
+    result["degraded_get"].update(objects_rebuilt=rebuild,
+                                  objects_verified_only=n_big - rebuild)
+
+    # 7. heal of every object from 128 threads
+    def heal(name):
+        t0 = time.monotonic()
+        r = pool.heal_object(bucket, name)
+        return time.monotonic() - t0, r.before_state.count("missing")
+
+    res = run("heal", heal, every, OL_HEAL_THREADS, total,
+              ("highwayhash256_chunks", "gf_matmul_batched"))
+    lat = [w for w, _ in res]
+    check(all(m == len(OL_LOST) for _, m in res),
+          "a heal did not find its two missing drives")
+    result["heal"].update(p50_ms=_percentile(lat, 0.50) * 1e3,
+                          p99_ms=_percentile(lat, 0.99) * 1e3,
+                          objects_healed=len(res))
+    for s, i in lost:
+        healed = _files(os.path.join(disk_dirs[s * (K + M) + i], bucket))
+        want_files = _files(os.path.join(backup, f"s{s}d{i}"))
+        check(healed == want_files,
+              f"healed drive {i} of set {s}: {len(healed)} files, "
+              f"{sum(healed.get(p) != v for p, v in want_files.items())} "
+              f"differ from the backup")
+    result["heal"]["byte_identical_files"] = sum(
+        len(_files(os.path.join(backup, f"s{s}d{i}"))) for s, i in lost)
+
+    # 8. bitrot: one flipped byte in a data shard
+    name = names[0]
+    s, es = set_of(name)
+    dist = hash_order(f"{bucket}/{name}", K + M)
+    i1 = dist.index(1)
+    obj_dir = os.path.join(disk_dirs[s * (K + M) + i1], bucket, name)
+    ddir = next(e for e in os.listdir(obj_dir) if e != "xl.meta")
+    shard = os.path.join(obj_dir, ddir, "part.1")
+    with open(shard, "rb") as f:
+        pristine = f.read()
+    with open(shard, "r+b") as f:
+        f.seek(32 + 1000)
+        f.write(bytes([pristine[32 + 1000] ^ 0x5A]))
+    partial = []
+    for e in sets.sets:
+        e.on_partial = lambda b, o, v, scan_mode="normal": \
+            partial.append((o, scan_mode))
+    check(get(name) == bodies[name], "GET of the corrupted object")
+    check((name, "deep") in partial, f"on_partial saw {partial}")
+    r = pool.heal_object(bucket, name, scan_mode="deep")
+    with open(shard, "rb") as f:
+        check(f.read() == pristine, "deep heal did not restore the shard")
+    result["bitrot"] = {"object": name, "set": s, "disk": i1,
+                        "on_partial": [list(p) for p in partial],
+                        "before": r.before_state.count("corrupt"),
+                        "restored": True}
+    for e in sets.sets:
+        e.on_partial = None
+
+    launches = read_launches()
+    result["launches"] = launches
+    result["launch_sizes"] = read_launch_sizes()
+    if device.type == "cuda":
+        for kname in ("gf_matmul_batched", "gf_encode_batched",
+                      "highwayhash256_chunks"):
+            check(launches[kname] > 0,
+                  f"kernel {kname} never launched on the object layer path")
+    shutil.rmtree(root, ignore_errors=True)
+    return result
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--cpu-rehearsal", action="store_true",
@@ -1891,6 +2199,12 @@ def main() -> int:
     # bytes short, in a short package)
     n_obj, obj_bytes, sse_bytes = (4, int(2.1 * 2**20), 1 << 20) \
         if rehearsal else (N_OBJECTS, OBJECT_BYTES, OBJECT_BYTES)
+    # the object layer path: big objects, their bytes, small objects,
+    # their bytes, the multipart object's parts (S3's 5 MiB floor holds
+    # for every part but the last)
+    ol_sizes = (4, int(2.1 * 2**20), 4, OL_SMALL_BYTES,
+                (5 << 20, 333)) if rehearsal else \
+        (N_OBJECTS, OBJECT_BYTES, OL_SMALL, OL_SMALL_BYTES, OL_PARTS)
     phase = "build"
     try:
         phase_build(rehearsal)
@@ -1923,17 +2237,22 @@ def main() -> int:
         if rehearsal:
             selres["cut"] = f"{table['rows']} rows in {n_sel} objects"
         emit({"phase": "select_path", "card": card, **selres})
+        phase = "objectlayer_path"
+        olres = phase_objectlayer(device, *ol_sizes, args.seed)
+        if rehearsal:
+            olres["cut"] += (f"; {ol_sizes[0]} objects of {ol_sizes[1]} "
+                             f"bytes, {ol_sizes[2]} small")
+        emit({"phase": "objectlayer_path", "card": card, **olres})
+        paths = {"mur3x256s_path": res, "sse_hh256s_path": sres,
+                 "select_path": selres, "objectlayer_path": olres}
         for name, row in rows.items():
-            by_path = {"mur3x256s_path": res["launches"][name],
-                       "sse_hh256s_path": sres["launches"][name],
-                       "select_path": selres["launches"][name]}
+            by_path = {p: r["launches"][name] for p, r in paths.items()}
             row["launches"] = sum(by_path.values())
             row["launches_by_path"] = by_path
             if name in res["launch_sizes"]:
                 row["launch_sizes_by_path"] = {
-                    "mur3x256s_path": res["launch_sizes"].get(name, {}),
-                    "sse_hh256s_path": sres["launch_sizes"].get(name, {}),
-                    "select_path": selres["launch_sizes"].get(name, {})}
+                    p: r["launch_sizes"].get(name, {})
+                    for p, r in paths.items()}
         emit({"phase": "launch_sizes", **{
             name: row["launch_sizes_by_path"] for name, row in rows.items()
             if "launch_sizes_by_path" in row}})

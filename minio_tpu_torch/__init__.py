@@ -21,8 +21,13 @@ counterpart is easy to find:
 - ``minio_tpu_torch.native``   the host engines: ``libnative.so`` built by
   g++ at first use (HighwayHash-256, MUR3X256, GF(256), the fused block
   calls), plus numpy HighwayHash-256 and MUR3X256 as the tests' references
-- ``minio_tpu_torch.storage``  shard-file sink and source on a disk directory
-- ``minio_tpu_torch.utils``    errors and device resolution
+- ``minio_tpu_torch.storage``  the disk backend: volumes, shard files, the
+  xl.meta version journal and its fsync policy
+- ``minio_tpu_torch.objectlayer`` PUT/GET/delete/list/heal/multipart over
+  one erasure set (``ErasureObjects``), sets (``ErasureSets``) and pools
+  (``ServerPools``), with the listing cache
+- ``minio_tpu_torch.utils``    errors, device resolution, the MessagePack
+  subset the journals use, the ETag readers, SipHash set placement
 
 Entry points run on the CUDA card unless the caller passes ``device="cpu"``;
 on a CPU tensor every kernel wrapper takes its plain PyTorch version. The

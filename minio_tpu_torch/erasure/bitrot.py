@@ -30,6 +30,10 @@ from ..ops.fused import ALGO_MUR3 as ALGO_ID_MUR3
 from ..ops.fused import chunk_align
 from ..utils import errors
 
+#: xl.meta key recording the streaming-bitrot chunk size an object was
+#: written with (readers must use the same chunking to find the digests).
+BITROT_CHUNK_KEY = "x-minio-internal-bitrot-chunk"
+
 #: Default streaming chunk: 16 KiB, so the device hash (parallel across
 #: chunks, sequential within one) gets many chunks per block. Override with
 #: MINIO_TPU_BITROT_CHUNK.

@@ -25,6 +25,22 @@ def ceil_div(a: int, b: int) -> int:
     return -(-a // b)
 
 
+def shard_file_size(total_length: int, block_size: int,
+                    data_blocks: int) -> int:
+    """Final erasure-shard file size for an object of ``total_length``
+    bytes in blocks of ``block_size`` over ``data_blocks`` shards (-1 for
+    an unknown length) — the geometry math alone, with no codec."""
+    if total_length == 0:
+        return 0
+    if total_length < 0:
+        return -1
+    full, last = divmod(total_length, block_size)
+    size = full * ceil_div(block_size, data_blocks)
+    if last:
+        size += ceil_div(last, data_blocks)
+    return size
+
+
 def _chain(fut: Future, fn) -> Future:
     out = Future()
 
@@ -80,15 +96,8 @@ class Erasure:
     def shard_file_size(self, total_length: int) -> int:
         """Final erasure-shard file size for an object of ``total_length``
         bytes."""
-        if total_length == 0:
-            return 0
-        if total_length < 0:
-            return -1
-        full, last = divmod(total_length, self.block_size)
-        size = full * self.shard_size()
-        if last:
-            size += ceil_div(last, self.data_blocks)
-        return size
+        return shard_file_size(total_length, self.block_size,
+                               self.data_blocks)
 
     def shard_file_offset(self, start_offset: int, length: int,
                           total_length: int) -> int:

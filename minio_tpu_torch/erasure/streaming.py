@@ -159,14 +159,22 @@ def _vote(e: Exception) -> errors.StorageError:
 
 
 def erasure_encode(erasure: Erasure, stream, writers: list,
-                   write_quorum: int) -> int:
+                   write_quorum: int, etag=None) -> int:
     """Read the stream block by block, erasure-encode on the device, fan
     shards out to ``writers`` (bitrot writers, None for offline disks).
     Returns the bytes consumed (reference Erasure.Encode).
 
     Up to ENCODE_WINDOW blocks are in flight through the dispatch queue,
     and shard writes ride per-disk ordered chains; write-quorum errors are
-    harvested per block as its writes drain."""
+    harvested per block as its writes drain.
+
+    ``etag``, when given, is a utils.hashreader.PipelineETag collector:
+    every block's data-shard chunk digests are folded into it in stream
+    order (blocks are started in submission order, whatever order their
+    flushes complete in), whether the device flush or the host hash made
+    them, so the fused ETag is the JAX package's on every route. Callers
+    arm it only for framed writers whose chunk divides the shard (the
+    object layer's gate)."""
     from .bitrot import device_chunk
     total = 0
     owriters = [None if w is None else _OrderedWriter(w) for w in writers]
@@ -197,6 +205,11 @@ def erasure_encode(erasure: Erasure, stream, writers: list,
         res = await_result(fut, "encode")
         futs = {}
         if kind == "py":
+            if etag is not None and shard_len and chunk:
+                # framed writers without a device route for this block
+                from .bitrot import shard_chunk_digests
+                etag.add_digests(shard_chunk_digests(
+                    np.stack(res[:k]), chunk, algo_id).data)
             for i, ow in enumerate(owriters):
                 if ow is not None and writers[i] is not None:
                     futs[i] = ow.write_async(res[i].tobytes())
@@ -210,6 +223,8 @@ def erasure_encode(erasure: Erasure, stream, writers: list,
             digs = np.concatenate([
                 shard_chunk_digests(data2d, chunk, algo_id),
                 shard_chunk_digests(parity2d, chunk, algo_id)])
+        if etag is not None:
+            etag.add_digests(np.ascontiguousarray(digs[:k]).data)
         shape = (len(writers), digs.shape[1] + shard_len)
         buf = global_pool().get(shape[0] * shape[1])
         framed_all = buf.reshape(shape)
@@ -588,6 +603,58 @@ class BufferSink:
 
     def getvalue(self) -> bytes:
         return self.buf.getvalue()
+
+
+class PreallocSink:
+    """In-memory sink over one buffer allocated up front: ``get_object``
+    calls ``hint_total(n)`` once the object's length is known, so the
+    blocks land in place without the growing copies of a BytesIO and
+    ``getbuffer()`` hands the bytes out without a final copy. Without the
+    hint the buffer doubles as needed."""
+
+    def __init__(self, nbytes: int | None = None):
+        self.arr = np.empty(nbytes, np.uint8) if nbytes is not None \
+            else None
+        self.pos = 0
+        self.closed = False
+
+    def hint_total(self, n: int) -> None:
+        """Called by the read path once the object size is known."""
+        if self.arr is None:
+            self.arr = np.empty(n, np.uint8)
+
+    def _ensure(self, n: int) -> None:
+        if self.arr is not None and self.pos + n <= self.arr.nbytes:
+            return
+        if self.arr is None:
+            self.arr = np.empty(max(n, 64 << 10), np.uint8)
+        else:
+            grown = np.empty(max(self.arr.nbytes * 2, self.pos + n),
+                             np.uint8)
+            grown[:self.pos] = self.arr[:self.pos]
+            self.arr = grown
+
+    def write(self, b) -> None:
+        n = len(b)
+        if n == 0:
+            return
+        self._ensure(n)
+        self.arr[self.pos: self.pos + n] = np.frombuffer(b, dtype=np.uint8)
+        self.pos += n
+
+    def close(self):
+        self.closed = True
+
+    def getvalue(self) -> bytes:
+        if self.arr is None:
+            return b""
+        return self.arr[: self.pos].tobytes()
+
+    def getbuffer(self) -> memoryview:
+        """Zero-copy view of the filled buffer."""
+        if self.arr is None:
+            return memoryview(b"")
+        return memoryview(self.arr)[: self.pos]
 
 
 class BufferSource:

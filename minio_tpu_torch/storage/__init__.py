@@ -1,1 +1,10 @@
-"""Storage: shard files on a local disk directory."""
+"""Storage layer, the port of minio_tpu.storage (reference L2 — SURVEY.md
+§1): the StorageAPI disk abstraction, the xl.meta on-disk version journal,
+the fsync policy and the local posix backend."""
+from .datatypes import (DiskInfo, ErasureInfo, FileInfo, ObjectPartInfo,
+                        VolInfo)
+from .interface import StorageAPI
+from .xlstorage import XLStorage
+
+__all__ = ["StorageAPI", "XLStorage", "FileInfo", "ErasureInfo",
+           "ObjectPartInfo", "DiskInfo", "VolInfo"]

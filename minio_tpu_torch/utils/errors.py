@@ -7,10 +7,10 @@ Python equivalent: a small exception hierarchy with value-equality by class,
 plus the same reduction algorithm: count identical errors, return the one
 meeting quorum, else an ErasureQuorumError.
 
-A copy of the part of minio_tpu/utils/errors.py that the erasure path
-raises or reduces (the port imports nothing of the JAX package), and of the
-object API errors of minio_tpu/objectlayer/datatypes.py that the SSE-C path
-raises; the other types come over with the slice that first raises them.
+A copy of minio_tpu/utils/errors.py (the port imports nothing of the JAX
+package), and of the base of the object API errors of
+minio_tpu/objectlayer/datatypes.py with the ones the SSE-C path raises;
+objectlayer/datatypes.py holds the rest of that taxonomy.
 """
 from __future__ import annotations
 
@@ -36,12 +36,44 @@ class FaultyDisk(StorageError):
     """Disk returned an unexpected I/O error (errFaultyDisk)."""
 
 
+class DiskFull(StorageError):
+    """Disk has no space (errDiskFull)."""
+
+
 class DiskAccessDenied(StorageError):
     """Disk path exists but is not usable (errDiskAccessDenied)."""
 
 
+class UnformattedDisk(StorageError):
+    """Disk has no format.json yet (errUnformattedDisk)."""
+
+
+class CorruptedFormat(StorageError):
+    """format.json exists but is unparseable (errCorruptedFormat)."""
+
+
+class VolumeNotFound(StorageError):
+    """Bucket/volume does not exist (errVolumeNotFound)."""
+
+
+class VolumeExists(StorageError):
+    """Volume already exists (errVolumeExists)."""
+
+
+class VolumeNotEmpty(StorageError):
+    """Volume not empty on delete (errVolumeNotEmpty)."""
+
+
 class FileNotFound(StorageError):
     """Object/file does not exist (errFileNotFound)."""
+
+
+class FileVersionNotFound(StorageError):
+    """Requested version does not exist (errFileVersionNotFound)."""
+
+
+class FileNameTooLong(StorageError):
+    """Path component too long (errFileNameTooLong)."""
 
 
 class FileAccessDenied(StorageError):
@@ -56,12 +88,29 @@ class IsNotRegular(StorageError):
     """Path is a directory where a file was expected (errIsNotRegular)."""
 
 
+class MethodNotSupported(StorageError):
+    """Operation unsupported by this backend."""
+
+
 class ErasureReadQuorum(StorageError):
     """Cannot satisfy read quorum (errErasureReadQuorum)."""
 
 
 class ErasureWriteQuorum(StorageError):
     """Cannot satisfy write quorum (errErasureWriteQuorum)."""
+
+
+class LessData(StorageError):
+    """Stream ended before the declared size (errLessData)."""
+
+
+class MoreData(StorageError):
+    """Stream carried more bytes than declared (errMoreData)."""
+
+
+class LockTimeout(StorageError):
+    """A distributed lock could not be acquired within the deadline
+    (reference OperationTimedOut)."""
 
 
 class RPCError(StorageError):

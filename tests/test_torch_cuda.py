@@ -589,3 +589,91 @@ def test_interactive_lane_on_card_completes_in_order(dev):
         q.stop()
     assert order == sorted(order)
     assert st["items"] == 10 and st["async_completions"] == st["flushes"]
+
+
+def _pin_object_ids(monkeypatch):
+    """The port's persisted ids and times on counters, so two runs of the
+    same calls write the same files."""
+    import itertools
+    import types
+    import uuid
+    from minio_tpu_torch.objectlayer import erasure_objects, multipart
+    from minio_tpu_torch.storage.datatypes import FileInfo
+    ids, times = itertools.count(1), itertools.count(1)
+
+    def new_uuid():
+        return uuid.UUID(int=next(ids))
+
+    fake = types.SimpleNamespace(uuid4=new_uuid, UUID=uuid.UUID)
+    for mod in (erasure_objects, multipart):
+        monkeypatch.setattr(mod, "uuid", fake)
+    monkeypatch.setattr(FileInfo, "now",
+                        staticmethod(lambda: 1.7e9 + next(times) / 8))
+    monkeypatch.setattr(FileInfo, "new_version_id",
+                        staticmethod(lambda: str(new_uuid())))
+
+
+def _object_layer_run(root, device) -> tuple:
+    """PUT, drive loss, heal and GET through one 16+4 / 1 MiB set on
+    ``device`` (None = the card); returns the ETags, the GET bytes and
+    every file of the set."""
+    import os
+    import shutil
+    from minio_tpu_torch.objectlayer import ErasureObjects
+    from minio_tpu_torch.storage.xlstorage import XLStorage
+    dirs = [os.path.join(str(root), f"d{i:02d}") for i in range(20)]
+    ol = ErasureObjects([XLStorage(d) for d in dirs], default_parity=4,
+                        block_size=1 << 20, device=device)
+    ol.make_bucket("b")
+    etags, got = {}, {}
+    for name, data in OL_BODIES.items():
+        etags[name] = ol.put_object("b", name, io.BytesIO(data),
+                                    len(data)).etag
+    for i in (0, 7):
+        shutil.rmtree(os.path.join(dirs[i], "b"))
+    ol.heal_bucket("b")
+    for name in OL_BODIES:
+        ol.heal_object("b", name)
+    for i in (1, 2):  # two more drives gone: the GETs rebuild
+        shutil.rmtree(os.path.join(dirs[i], "b"))
+    for name in OL_BODIES:
+        got[name] = ol.get_object_bytes("b", name)
+    files = {}
+    for d, _sub, names in os.walk(str(root)):
+        if ".minio.sys" in d:
+            continue
+        for n in names:
+            with open(os.path.join(d, n), "rb") as f:
+                files[os.path.relpath(os.path.join(d, n), str(root))] = \
+                    f.read()
+    return etags, got, files
+
+
+OL_BODIES = {f"o{n}": np.random.default_rng(n).bytes(n)
+             for n in (100_000, (1 << 20) + 7, (4 << 20) + 333)}
+
+
+def test_objectlayer_on_card_matches_cpu(dev, tmp_path, monkeypatch):
+    """The object layer on the card (device=None: K2 prepared at start-up,
+    PUT digests on K5, rebuilds on K1) writes, heals and reads back the
+    same bytes as on the CPU, with the reference ETags."""
+    import hashlib
+    from minio_tpu_torch.ops import hh_cuda, rs_cuda
+    from minio_tpu_torch.utils.hashreader import pipeline_etag_reference
+    _pin_object_ids(monkeypatch)
+    rs_cuda.reset_launches()
+    hh_cuda.reset_launches()
+    card = _object_layer_run(tmp_path / "card", None)
+    launched = {**rs_cuda.launches, **hh_cuda.launches}
+    _pin_object_ids(monkeypatch)
+    host = _object_layer_run(tmp_path / "cpu", "cpu")
+    assert card[0] == host[0]
+    for name, data in OL_BODIES.items():
+        want = hashlib.md5(data).hexdigest() if len(data) < 1 << 20 else \
+            pipeline_etag_reference(data, 16, 1 << 20, 16384, 0)
+        assert card[0][name] == want, name
+        assert card[1][name] == data and host[1][name] == data
+    assert card[2] == host[2]
+    for name in ("gf_encode_batched", "gf_matmul_batched",
+                 "highwayhash256_chunks"):
+        assert launched[name] > 0, name

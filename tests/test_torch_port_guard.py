@@ -1,6 +1,8 @@
 """Guards of the port's boundaries: minio_tpu_torch and chip_smoke.py import
-neither JAX nor anything of the JAX package (minio_tpu), and the port's
-entry points run on the CUDA card unless the caller asks for the CPU."""
+neither JAX nor anything of the JAX package (minio_tpu), nor the
+``msgpack`` and ``cryptography`` wheels the card's machine lacks, and the
+port's entry points run on the CUDA card unless the caller asks for the
+CPU."""
 import ast
 import os
 import pathlib
@@ -16,15 +18,23 @@ PKG = REPO / "minio_tpu_torch"
 SOURCES = sorted(str(p.relative_to(REPO)) for p in PKG.rglob("*.py")) + \
     ["chip_smoke.py"]
 
+#: top-level packages the port must not import: JAX, the JAX package, and
+#: the wheels the card's machine does not have
+FORBIDDEN = ("jax", "jaxlib", "minio_tpu", "msgpack", "cryptography")
+#: the port's module count (walk_packages), raised as slices land
+MODULES = 59
+
 # imports every port module and chip_smoke.py with jax unimportable and a
-# finder that refuses minio_tpu and minio_tpu.* (but not minio_tpu_torch)
+# finder that refuses minio_tpu, msgpack and cryptography and their
+# submodules (but not minio_tpu_torch)
 _PROBE = r"""
 import importlib, importlib.util, pkgutil, sys
 sys.modules["jax"] = None
+REFUSED = ("minio_tpu", "msgpack", "cryptography")
 
 class Refuse:
     def find_spec(self, name, path=None, target=None):
-        if name == "minio_tpu" or name.startswith("minio_tpu."):
+        if name.split(".")[0] in REFUSED:
             raise ImportError(f"the port imported {name}")
         return None
 
@@ -38,7 +48,7 @@ spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = sorted(m for m in sys.modules
              if m == "jax" and sys.modules[m] is not None
-             or m == "minio_tpu" or m.startswith("minio_tpu."))
+             or m.split(".")[0] in REFUSED)
 assert not bad, bad
 print(len(names))
 """
@@ -49,7 +59,7 @@ def test_port_imports_without_jax_or_minio_tpu():
     r = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO, env=env,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr[-3000:]
-    assert int(r.stdout.split()[-1]) >= 15  # every module was imported
+    assert int(r.stdout.split()[-1]) >= MODULES  # every module imported
 
 
 def _imported(path: pathlib.Path) -> set[str]:
@@ -67,8 +77,7 @@ def test_no_forbidden_import_statement(src):
     """Also catches imports inside functions, which importing the module
     does not run."""
     for name in _imported(REPO / src):
-        root = name.split(".")[0]
-        assert root not in ("jax", "jaxlib", "minio_tpu"), (src, name)
+        assert name.split(".")[0] not in FORBIDDEN, (src, name)
 
 
 def test_entry_points_need_cuda_unless_cpu_is_asked():
