@@ -78,6 +78,29 @@ Phases, each printing one JSON line:
    on_partial reports a deep scan, and a deep heal restores the shard.
    K1, K2 and K5 must launch. Cut: one process over local directories,
    not 32 drives over a network.
+9. S3 server path — the port's S3Server (server/s3api.py) on 127.0.0.1
+   over the object layer path's deployment (one pool of two 16+4 sets, 40
+   disk directories, 1 MiB blocks, HighwayHash256S), driven through
+   http.client by 32 client threads signing with the port's
+   server/auth.py. PUT of 64 objects of 4 MiB (every eighth as a
+   STREAMING-AWS4-HMAC-SHA256-PAYLOAD body in 64 KiB chunks; each fused
+   ETag equal to pipeline_etag_reference), the same 64 bodies PUT and GET
+   through ServerPools in-process (the HTTP cost: wall over HTTP against
+   in-process), a 3-part multipart upload (the -3 ETag of
+   etag_from_parts), a CopyObject, 32 SSE-C objects of 4 MiB each under
+   its own key and 8 lineitem CSV objects (the select path's first cuts).
+   GET of every object, byte-exact with its ETag; ranged GETs across a
+   block, a part and an SSE package; HEAD of each; a presigned GET;
+   ListObjectsV2 in pages of 25; SelectObjectContent (Query A) on the CSV
+   objects, the records held to the rows built from the generated
+   columns. Then two drives of each set replaced by empty ones and
+   heal_bucket; a degraded GET of every object, each of which must reach
+   the MRF through on_partial; the MRF drained, its per-object heal wall
+   p50/p99 reported, every file on the new drives equal to the kept ones;
+   one flipped byte in a data shard: the GET stays exact, on_partial is
+   deep and the MRF restores the byte. Teardown by DeleteObjects. K1, K2,
+   K4, K5 and K6 must launch. Each step reports the clients' request
+   p50/p99.
 
 Each sub-phase of a path reports, beside its wall and GiB/s, the dispatch
 queue's flushes and items by op, each lane's (bulk, interactive) busy
@@ -105,6 +128,7 @@ import os
 import shutil
 import subprocess
 import sys
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -166,6 +190,23 @@ OL_PARTS = (8 << 20, 8 << 20, (5 << 20) + 333)
 OL_LOST = (0, 1)
 OL_PUT_THREADS = 64
 OL_HEAL_THREADS = 128
+#: the S3 server path: signed requests from S3_THREADS client threads;
+#: S3_BIG plain objects of OBJECT_BYTES (every S3_CHUNKED_EVERY-th as an
+#: aws-chunked stream of S3_STREAM_CHUNK chunks), S3_SSE SSE-C objects
+#: each under its own key, S3_CSV lineitem objects (the select path's first
+#: cuts) and one multipart object of S3_PARTS; ListObjectsV2 pages of
+#: S3_LIST_PAGE keys
+S3_THREADS = 32
+S3_BIG = 64
+S3_CHUNKED_EVERY = 8
+S3_STREAM_CHUNK = 64 << 10
+S3_SSE = 32
+S3_CSV = 8
+S3_PARTS = (5 << 20, 5 << 20, (1 << 20) + 333)
+S3_LIST_PAGE = 25
+S3_REGION = "us-east-1"
+S3_ACCESS_KEY = "smoke-admin"
+S3_SECRET_KEY = "smoke-admin-secret-key"
 PIPE, COMMA = 124, 44
 #: K6's flush scratch beyond its codes at most (the tiles' status words)
 SCAN_SCRATCH_MAX = 64 << 10
@@ -2164,6 +2205,576 @@ def phase_objectlayer(device, n_big: int, big_bytes: int, n_small: int,
     return result
 
 
+class _S3Client:
+    """A signing S3 client over http.client, as a user's SDK drives the
+    server: SigV4 from the port's server/auth.py, one keep-alive connection
+    per thread, the latency of every request kept for the step's p50/p99."""
+
+    def __init__(self, port: int):
+        from minio_tpu_torch.server.auth import SigV4Verifier
+        self.port = port
+        self.host = f"127.0.0.1:{port}"
+        self.signer = SigV4Verifier(lambda ak: None, S3_REGION)
+        self._local = threading.local()
+        self._conns: list = []
+        self.latencies: list = []
+
+    def _conn(self):
+        import http.client
+        c = getattr(self._local, "conn", None)
+        if c is None:
+            c = http.client.HTTPConnection("127.0.0.1", self.port,
+                                           timeout=600)
+            self._local.conn = c
+            self._conns.append(c)
+        return c
+
+    def _drop(self):
+        c = getattr(self._local, "conn", None)
+        if c is not None:
+            c.close()
+            self._local.conn = None
+
+    def send(self, method: str, url: str, body: bytes, headers: dict,
+             close: bool = False) -> tuple:
+        """One request on this thread's connection: (status, headers,
+        body). ``close`` drops the connection after it (the server closes
+        one after an aws-chunked body)."""
+        t0 = time.monotonic()
+        c = self._conn()
+        c.request(method, url, body=body, headers=headers)
+        r = c.getresponse()
+        data = r.read()
+        self.latencies.append(time.monotonic() - t0)
+        if close or r.will_close:
+            self._drop()
+        return r.status, {k.lower(): v for k, v in r.getheaders()}, data
+
+    def request(self, method: str, path: str, query: dict | None = None,
+                body: bytes = b"", headers: dict | None = None) -> tuple:
+        import urllib.parse
+        from minio_tpu_torch.server.auth import UNSIGNED_PAYLOAD
+        query = {k: [v] for k, v in (query or {}).items()}
+        h = {"host": self.host, **(headers or {})}
+        h["authorization"] = self.signer.sign_request(
+            S3_ACCESS_KEY, S3_SECRET_KEY, method, path, query, h,
+            UNSIGNED_PAYLOAD)
+        qs = urllib.parse.urlencode([(k, v[0]) for k, v in query.items()])
+        url = urllib.parse.quote(path) + (f"?{qs}" if qs else "")
+        return self.send(method, url, body, h)
+
+    def chunked_put(self, path: str, payload: bytes) -> tuple:
+        """A STREAMING-AWS4-HMAC-SHA256-PAYLOAD upload in 64 KiB chunks,
+        each signed on the chain of the previous one, as mc and the AWS
+        SDKs send it."""
+        import datetime
+        import hashlib
+        import hmac
+        import urllib.parse
+        from minio_tpu_torch.server import auth
+        ts = datetime.datetime.now(datetime.timezone.utc).strftime(
+            "%Y%m%dT%H%M%SZ")
+        scope = f"{ts[:8]}/{S3_REGION}/s3/aws4_request"
+        h = {"host": self.host, "x-amz-date": ts,
+             "x-amz-content-sha256": auth.STREAMING_PAYLOAD,
+             "x-amz-decoded-content-length": str(len(payload))}
+        signed = sorted(h)
+        creq = auth.canonical_request("PUT", path, {}, h, signed,
+                                      auth.STREAMING_PAYLOAD)
+        key = auth.signing_key(S3_SECRET_KEY, ts[:8], S3_REGION)
+        prev = hmac.new(key, auth.string_to_sign(ts, scope, creq).encode(),
+                        hashlib.sha256).hexdigest()
+        h["authorization"] = (
+            f"{auth.SIGN_V4_ALGO} Credential={S3_ACCESS_KEY}/{scope}, "
+            f"SignedHeaders={';'.join(signed)}, Signature={prev}")
+        out = []
+        view = memoryview(payload)
+        chunks = [view[i:i + S3_STREAM_CHUNK]
+                  for i in range(0, len(payload), S3_STREAM_CHUNK)]
+        for chunk in chunks + [b""]:
+            sts = "\n".join(["AWS4-HMAC-SHA256-PAYLOAD", ts, scope, prev,
+                             auth.EMPTY_SHA256,
+                             hashlib.sha256(chunk).hexdigest()])
+            prev = hmac.new(key, sts.encode(), hashlib.sha256).hexdigest()
+            out += [f"{len(chunk):x};chunk-signature={prev}\r\n".encode(),
+                    chunk, b"\r\n"]
+        return self.send("PUT", urllib.parse.quote(path), b"".join(out), h,
+                         close=True)
+
+    def close(self):
+        for c in self._conns:
+            c.close()
+
+
+class _TimedHeals:
+    """The object layer as the MRF worker sees it, timing each
+    heal_object call (the per-object MRF heal wall)."""
+
+    def __init__(self, layer):
+        self._layer = layer
+        self.walls: dict = {}
+        self.done: dict = {}
+
+    def heal_object(self, bucket, object, *a, **kw):
+        t0 = time.monotonic()
+        try:
+            return self._layer.heal_object(bucket, object, *a, **kw)
+        finally:
+            t1 = time.monotonic()
+            self.walls[object] = t1 - t0
+            self.done[object] = t1
+
+    def __getattr__(self, name):
+        return getattr(self._layer, name)
+
+
+def phase_s3server(device, table: dict, sizes: dict, seed: int) -> dict:
+    """The S3 front end over the object layer path's deployment (one pool
+    of two 16+4 sets, 40 disk directories, 1 MiB blocks, HighwayHash256S
+    with 16 KiB chunks), driven over HTTP by signed requests from a pool of
+    client threads (see the module docstring, step 9). Launch counts are
+    reset once before the path and read after it; each step reports its
+    own, the clients' request p50/p99 and the dispatcher's busy share."""
+    import base64
+    import hashlib
+    import re
+    import urllib.parse
+    import uuid
+    import numpy as np
+    from minio_tpu_torch.erasure.streaming import PreallocSink
+    from minio_tpu_torch.objectlayer import ErasureSets, ServerPools
+    from minio_tpu_torch.objectlayer.metadata import hash_order
+    from minio_tpu_torch.runtime.dispatch import global_queue
+    from minio_tpu_torch.s3select.message import decode_messages
+    from minio_tpu_torch.server import S3Server
+    from minio_tpu_torch.server.auth import presign_v4
+    from minio_tpu_torch.storage.xlstorage import XLStorage
+    from minio_tpu_torch.utils.hashreader import (etag_from_parts,
+                                                  pipeline_etag_reference)
+
+    n_big, big_bytes = sizes["big"]
+    n_sse, sse_bytes = sizes["sse"]
+    n_csv = sizes["csv"]
+    part_sizes = sizes["parts"]
+    n_disks = OL_SETS * (K + M)
+    root = _disk_root("s3server")
+    disk_dirs = [os.path.join(root, f"d{i:02d}") for i in range(n_disks)]
+    gen = np.random.default_rng(seed + 3)
+    dep = str(uuid.UUID(bytes=gen.bytes(16)))
+    bucket = "bucket"
+    q = global_queue(device)
+    t0 = time.monotonic()
+    sets = ErasureSets([XLStorage(d) for d in disk_dirs], OL_SETS, K + M,
+                       dep, default_parity=M, block_size=BLOCK,
+                       device=device)
+    pool = ServerPools([sets])
+    srv = S3Server(pool, "127.0.0.1", 0, access_key=S3_ACCESS_KEY,
+                   secret_key=S3_SECRET_KEY, region=S3_REGION, device=device)
+    srv.start_background()
+    srv.start_background_services()
+    mrf = srv.mrf
+    heals = _TimedHeals(pool)
+    mrf.obj = heals
+    partial: dict = {}
+    queued_at: dict = {}
+    for layer in srv._erasure_layers():
+        add = layer.on_partial
+        check(add == mrf.add_partial, "on_partial does not feed the MRF")
+
+        def record(b, o, v="", scan_mode="normal", _add=add):
+            partial.setdefault(o, []).append(scan_mode)
+            queued_at.setdefault(o, time.monotonic())
+            _add(b, o, v, scan_mode=scan_mode)
+
+        layer.on_partial = record
+    client = _S3Client(srv.port)
+    result = {"deployment": f"1 pool x {OL_SETS} sets x {K + M} drives",
+              "disks": n_disks, "geometry": f"{K}+{M}", "block": BLOCK,
+              "chunk": CHUNK, "deployment_id": dep,
+              "endpoint": srv.endpoint(), "client_threads": S3_THREADS,
+              "setup_s": time.monotonic() - t0, "disk_root": root,
+              "cut": "one process over local disk directories, clients "
+                     "over the loopback interface"}
+
+    def sse_headers(j):
+        key = hashlib.sha256(b"s3server-key-%d-%d" % (seed, j)).digest()
+        return {"x-amz-server-side-encryption-customer-algorithm": "AES256",
+                "x-amz-server-side-encryption-customer-key":
+                    base64.b64encode(key).decode(),
+                "x-amz-server-side-encryption-customer-key-md5":
+                    base64.b64encode(hashlib.md5(key).digest()).decode()}
+
+    big = {f"big/{j:04d}": gen.bytes(big_bytes) for j in range(n_big)}
+    chunked = set(sorted(big)[::S3_CHUNKED_EVERY])
+    sse_objs = {f"sse/{j:04d}": gen.bytes(sse_bytes) for j in range(n_sse)}
+    sse_hdr = {name: sse_headers(j)
+               for j, name in enumerate(sorted(sse_objs))}
+    text, offs = table["text"], table["offsets"]
+    cuts = np.searchsorted(offs, np.arange(SELECT_OBJECTS + 1) *
+                           (len(text) / SELECT_OBJECTS))
+    cuts[0], cuts[-1] = 0, table["rows"]
+    csv_rows = {f"csv/part-{j:05d}.tbl": (int(cuts[j]), int(cuts[j + 1]))
+                for j in range(n_csv)}
+    csv = {n: text[offs[a]:offs[b]] for n, (a, b) in csv_rows.items()}
+    parts = [gen.bytes(n) for n in part_sizes]
+    mp_name, copy_name = "multipart/object", "copy/object"
+    bodies = {**big, **sse_objs, **csv, mp_name: b"".join(parts)}
+    etags: dict = {}
+
+    def run(label, fn, jobs, nbytes, kernels=(), threads=S3_THREADS):
+        _reset(q)
+        client.latencies.clear()
+        before = read_launches()
+        with _HashClocks() as hashes:
+            t0 = time.monotonic()
+            with ThreadPoolExecutor(max_workers=threads) as ex:
+                res = list(ex.map(fn, jobs))
+            wall = time.monotonic() - t0
+        row = _phase_row(q, nbytes, wall, hashes)
+        after = read_launches()
+        row["launches"] = {k: after[k] - before.get(k, 0) for k in after}
+        lat = list(client.latencies)
+        row.update(requests=len(lat), objects=len(jobs), threads=threads)
+        if lat:
+            row.update(request_p50_ms=_percentile(lat, 0.50) * 1e3,
+                       request_p99_ms=_percentile(lat, 0.99) * 1e3)
+        result[label] = row
+        if device.type == "cuda":
+            for name in kernels:
+                check(row["launches"][name] > 0,
+                      f"kernel {name} never launched in s3server {label}")
+        return res
+
+    def ok(status, want, what):
+        check(status == want, f"{what}: HTTP {status}, want {want}")
+
+    reset_launches()
+    ok(client.request("PUT", f"/{bucket}")[0], 200, "PUT bucket")
+
+    # 1. PUT of the plain objects, some as aws-chunked streams
+    def put_big(name):
+        if name in chunked:
+            st, h, data = client.chunked_put(f"/{bucket}/{name}", big[name])
+        else:
+            st, h, data = client.request("PUT", f"/{bucket}/{name}",
+                                         body=big[name])
+        ok(st, 200, f"PUT {name}: {data[:200]!r}")
+        return name, h["etag"].strip('"')
+
+    names = sorted(big)
+    etags.update(run("put_plain", put_big, names, n_big * big_bytes,
+                     ("gf_encode_batched", "highwayhash256_chunks")))
+    with ThreadPoolExecutor(max_workers=8) as ex:
+        want = dict(zip(names, ex.map(lambda n: pipeline_etag_reference(
+            big[n], K, BLOCK, CHUNK, 0), names)))
+    bad = [n for n in names if etags[n] != want[n]]
+    check(not bad, f"fused ETag differs from the reference on {bad[:3]}")
+    result["put_plain"].update(etags_equal_reference=len(names),
+                               aws_chunked=len(chunked))
+
+    # 2. the HTTP cost: the same bodies through ServerPools in-process
+    ok(client.request("PUT", "/inprocess")[0], 200, "PUT bucket")
+
+    def put_inproc(name):
+        return pool.put_object("inprocess", name, io.BytesIO(big[name]),
+                               len(big[name])).etag
+
+    got = run("put_inprocess", put_inproc, names, n_big * big_bytes,
+              ("gf_encode_batched",))
+    check(got == [etags[n] for n in names],
+          "in-process ETags differ from the HTTP PUT's")
+
+    # 3. a 3-part multipart upload, a CopyObject, SSE-C and CSV objects
+    def multipart(_):
+        st, _h, data = client.request("POST", f"/{bucket}/{mp_name}",
+                                      query={"uploads": ""})
+        ok(st, 200, "CreateMultipartUpload")
+        uid = re.search(rb"<UploadId>([^<]+)</UploadId>", data).group(1)
+        uid = uid.decode()
+        pe = []
+        for i, p in enumerate(parts):
+            st, h, _ = client.request(
+                "PUT", f"/{bucket}/{mp_name}",
+                query={"partNumber": str(i + 1), "uploadId": uid}, body=p)
+            ok(st, 200, f"UploadPart {i + 1}")
+            pe.append(h["etag"].strip('"'))
+        xml = "".join(f"<Part><PartNumber>{i + 1}</PartNumber><ETag>"
+                      f"\"{e}\"</ETag></Part>" for i, e in enumerate(pe))
+        st, _h, data = client.request(
+            "POST", f"/{bucket}/{mp_name}", query={"uploadId": uid},
+            body=f"<CompleteMultipartUpload>{xml}"
+                 f"</CompleteMultipartUpload>".encode())
+        ok(st, 200, f"CompleteMultipartUpload {data[:200]!r}")
+        return pe, re.search(rb'<ETag>"([^"<]+)"</ETag>', data).group(1)
+
+    (part_etags, mp_etag), = run("multipart", multipart, [0],
+                                 sum(part_sizes), ("gf_encode_batched",),
+                                 threads=1)
+    mp_etag = mp_etag.decode()
+    check(mp_etag == etag_from_parts(part_etags)
+          and mp_etag.endswith(f"-{len(parts)}"), f"multipart ETag {mp_etag}")
+    etags[mp_name] = mp_etag
+    result["multipart"].update(parts=list(part_sizes), etag=mp_etag)
+    st, _h, data = client.request(
+        "PUT", f"/{bucket}/{copy_name}",
+        headers={"x-amz-copy-source": f"/{bucket}/{names[0]}"})
+    ok(st, 200, f"CopyObject {data[:200]!r}")
+    bodies[copy_name] = big[names[0]]
+    etags[copy_name] = re.search(rb'<ETag>"([^"<]+)"</ETag>',
+                                 data).group(1).decode()
+    result["copy"] = {"source": names[0], "etag": etags[copy_name]}
+
+    def put_sse(name):
+        st, h, data = client.request("PUT", f"/{bucket}/{name}",
+                                     body=sse_objs[name],
+                                     headers=sse_hdr[name])
+        ok(st, 200, f"SSE-C PUT {name}: {data[:200]!r}")
+        check(h.get("x-amz-server-side-encryption-customer-key-md5") ==
+              sse_hdr[name]["x-amz-server-side-encryption-customer-key-md5"],
+              "SSE-C PUT does not echo the key MD5")
+        return name, h["etag"].strip('"')
+
+    etags.update(run("put_sse", put_sse, sorted(sse_objs),
+                     n_sse * sse_bytes,
+                     ("gf_encode_batched", "highwayhash256_chunks",
+                      "chacha20_xor")))
+
+    def put_csv(name):
+        st, h, _ = client.request("PUT", f"/{bucket}/{name}",
+                                  body=csv[name])
+        ok(st, 200, f"PUT {name}")
+        return name, h["etag"].strip('"')
+
+    etags.update(run("put_csv", put_csv, sorted(csv),
+                     sum(map(len, csv.values())), ("gf_encode_batched",)))
+
+    # 4. GET of everything, HEAD, ranged GETs, a presigned GET, listing
+    def get(name, extra=None):
+        h = dict(sse_hdr.get(name, {}), **(extra or {}))
+        return client.request("GET", f"/{bucket}/{name}", headers=h)
+
+    def get_exact(name):
+        st, h, data = get(name)
+        ok(st, 200, f"GET {name}")
+        check(data == bodies[name], f"GET {name} is not exact")
+        check(h["etag"].strip('"') == etags[name], f"GET {name} ETag")
+        return len(data)
+
+    run("get_plain", get_exact, names, n_big * big_bytes,
+        ("highwayhash256_chunks",))
+
+    def get_inproc(name):
+        sink = PreallocSink()
+        pool.get_object("inprocess", name, sink)
+        return sink.getbuffer() == big[name]
+
+    check(all(run("get_inprocess", get_inproc, names, n_big * big_bytes,
+                  ("highwayhash256_chunks",))),
+          "in-process GET is not exact")
+    rest = sorted(set(bodies) - set(names))
+    run("get_rest", get_exact, rest, sum(len(bodies[n]) for n in rest),
+        ("highwayhash256_chunks", "chacha20_xor"))
+    http_cost = {}
+    for what in ("put", "get"):
+        h, p = result[f"{what}_plain"], result[f"{what}_inprocess"]
+        http_cost[what] = {"http_wall_s": h["wall_s"],
+                           "inprocess_wall_s": p["wall_s"],
+                           "http_over_inprocess": h["wall_s"] / p["wall_s"],
+                           "http_gib_s": h["gib_s"],
+                           "inprocess_gib_s": p["gib_s"]}
+    result["http_cost"] = http_cost
+    objs = [{"Key": n} for n in names]
+    st, _h, data = client.request(
+        "POST", "/inprocess", query={"delete": ""},
+        body=("<Delete><Quiet>true</Quiet>" + "".join(
+            f"<Object><Key>{o['Key']}</Key></Object>" for o in objs) +
+            "</Delete>").encode())
+    ok(st, 200, "DeleteObjects of the in-process objects")
+    check(b"<Error>" not in data, f"DeleteObjects: {data[:300]!r}")
+    ok(client.request("DELETE", "/inprocess")[0], 204, "DELETE bucket")
+
+    t0 = time.monotonic()
+    ranges = [(names[0], BLOCK - 500, 1000),
+              (mp_name, part_sizes[0] - 777, 5000),
+              (sorted(sse_objs)[0], BLOCK - 40_000, 80_000)]
+    ranges = [(n, off, min(ln, len(bodies[n]) - off))
+              for n, off, ln in ranges]
+    for name, off, ln in ranges:
+        st, h, data = get(name, {"range": f"bytes={off}-{off + ln - 1}"})
+        ok(st, 206, f"ranged GET {name}")
+        check(data == bodies[name][off:off + ln]
+              and h["content-range"] ==
+              f"bytes {off}-{off + ln - 1}/{len(bodies[name])}",
+              f"ranged GET of {name} at {off} is not exact")
+    for name in sorted(bodies):
+        st, h, _ = client.request("HEAD", f"/{bucket}/{name}",
+                                  headers=sse_hdr.get(name, {}))
+        ok(st, 200, f"HEAD {name}")
+        check(int(h["content-length"]) == len(bodies[name]),
+              f"HEAD {name} Content-Length")
+    url = presign_v4("GET", "http", client.host, f"/{bucket}/{names[1]}",
+                     S3_ACCESS_KEY, S3_SECRET_KEY, S3_REGION, 600)
+    split = urllib.parse.urlsplit(url)
+    st, _h, data = client.send("GET", f"{split.path}?{split.query}", b"",
+                               {"host": client.host})
+    ok(st, 200, "presigned GET")
+    check(data == big[names[1]], "presigned GET is not exact")
+    listed, token, pages = [], "", 0
+    while True:
+        query = {"list-type": "2", "max-keys": str(S3_LIST_PAGE)}
+        if token:
+            query["continuation-token"] = token
+        st, _h, data = client.request("GET", f"/{bucket}", query=query)
+        ok(st, 200, "ListObjectsV2")
+        pages += 1
+        listed += [(k.decode(), int(s)) for k, s in re.findall(
+            rb"<Key>([^<]+)</Key>.*?<Size>(\d+)</Size>", data)]
+        m = re.search(rb"<NextContinuationToken>([^<]+)<", data)
+        if b"<IsTruncated>true" not in data:
+            break
+        token = m.group(1).decode()
+    check(listed == [(n, len(bodies[n])) for n in sorted(bodies)],
+          f"ListObjectsV2 listed {len(listed)} objects, want {len(bodies)}")
+    result["read_checks"] = {"wall_s": time.monotonic() - t0,
+                             "ranged": [list(r) for r in ranges],
+                             "heads": len(bodies), "list_pages": pages,
+                             "listed": len(listed), "presigned": True}
+
+    # 5. SelectObjectContent (Query A) on the CSV objects
+    def select(name):
+        st, _h, data = client.request(
+            "POST", f"/{bucket}/{name}",
+            query={"select": "", "select-type": "2"}, body=_request(QUERY_A))
+        ok(st, 200, f"SelectObjectContent {name}")
+        msgs = decode_messages(data)
+        recs = b"".join(p for h, p in msgs
+                        if h.get(":event-type") == "Records")
+        a, b = csv_rows[name]
+        check(recs == _expected_rows(table, a, b, "A"),
+              f"Query A records of {name} differ from the expected rows")
+        return recs.count(b"\n")
+
+    matched = run("select", select, sorted(csv),
+                  sum(map(len, csv.values())),
+                  ("scan_codes", "highwayhash256_chunks"))
+    result["select"]["rows_matched"] = sum(matched)
+
+    # 6. drive loss: two drives of each set replaced by empty ones; the
+    # degraded GETs feed the MRF, which heals in the background
+    lost = [(s, i) for s in range(OL_SETS) for i in OL_LOST]
+    backup = os.path.join(root, "backup")
+    for s, i in lost:
+        path = disk_dirs[s * (K + M) + i]
+        shutil.copytree(os.path.join(path, bucket),
+                        os.path.join(backup, f"s{s}d{i}"))
+        shutil.rmtree(path)
+        sets.sets[s]._disks[i] = XLStorage(path)
+    t0 = time.monotonic()
+    hb = pool.heal_bucket(bucket)
+    check(hb.after_state.count("ok") == n_disks, f"heal_bucket: {hb}")
+    result["heal_bucket"] = {"wall_s": time.monotonic() - t0}
+    every = sorted(bodies)
+    run("degraded_get", get_exact, every,
+        sum(len(bodies[n]) for n in every),
+        ("highwayhash256_chunks", "gf_matmul_batched", "chacha20_xor"))
+    deadline = time.monotonic() + 60
+    while set(every) - set(partial) and time.monotonic() < deadline:
+        time.sleep(0.01)
+    missing = sorted(set(every) - set(partial))
+    check(not missing, f"no on_partial for {len(missing)} degraded GETs: "
+          f"{missing[:3]}")
+
+    def drain(_):
+        deadline = time.monotonic() + 600
+        while not (mrf.dq.q.empty() and set(heals.done) >= set(partial)):
+            check(time.monotonic() < deadline, "the MRF did not drain")
+            time.sleep(0.01)
+        return True
+
+    run("mrf_drain", drain, [0], 0, threads=1)
+    st = mrf.stats()
+    check(st["failed"] == 0 and st["dropped"] == 0,
+          f"MRF stats {st}")
+    walls = [heals.walls[o] for o in partial]
+    waits = [heals.done[o] - queued_at[o] for o in partial]
+    result["mrf"] = {
+        "on_partial": len(partial),
+        "modes": sorted({m for ms in partial.values() for m in ms}),
+        "healed": st["healed"], "failed": st["failed"],
+        "heal_p50_ms": _percentile(walls, 0.50) * 1e3,
+        "heal_p99_ms": _percentile(walls, 0.99) * 1e3,
+        "queued_to_healed_p50_ms": _percentile(waits, 0.50) * 1e3,
+        "queued_to_healed_p99_ms": _percentile(waits, 0.99) * 1e3}
+    for s, i in lost:
+        healed = _files(os.path.join(disk_dirs[s * (K + M) + i], bucket))
+        want_files = _files(os.path.join(backup, f"s{s}d{i}"))
+        check(healed == want_files,
+              f"MRF-healed drive {i} of set {s}: {len(healed)} files, "
+              f"{sum(healed.get(p) != v for p, v in want_files.items())} "
+              f"differ from the backup")
+    result["mrf"]["byte_identical_files"] = sum(
+        len(_files(os.path.join(backup, f"s{s}d{i}"))) for s, i in lost)
+
+    # 7. bitrot: one flipped byte in a data shard; the GET stays exact, the
+    # MRF heals the byte (deep)
+    name = names[2]
+    s = sets.get_hashed_set_index(name)
+    dist = hash_order(f"{bucket}/{name}", K + M)
+    i1 = dist.index(1)
+    obj_dir = os.path.join(disk_dirs[s * (K + M) + i1], bucket, name)
+    ddir = next(e for e in os.listdir(obj_dir) if e != "xl.meta")
+    shard = os.path.join(obj_dir, ddir, "part.1")
+    with open(shard, "rb") as f:
+        pristine = f.read()
+    with open(shard, "r+b") as f:
+        f.seek(32 + 1000)
+        f.write(bytes([pristine[32 + 1000] ^ 0x5A]))
+    partial.clear()
+    heals.done.clear()
+    get_exact(name)
+    # the read signals once its last byte is out, after the response
+    deadline = time.monotonic() + 60
+    while not partial and time.monotonic() < deadline:
+        time.sleep(0.01)
+    check(partial.get(name) == ["deep"], f"on_partial saw {partial}")
+    drain(0)
+    with open(shard, "rb") as f:
+        check(f.read() == pristine, "the MRF did not restore the shard")
+    result["bitrot"] = {"object": name, "set": s, "disk": i1,
+                        "on_partial": partial[name], "restored": True}
+
+    # 8. teardown: DeleteObjects on everything, then the bucket
+    t0 = time.monotonic()
+    st, _h, data = client.request(
+        "POST", f"/{bucket}", query={"delete": ""},
+        body=("<Delete>" + "".join(f"<Object><Key>{n}</Key></Object>"
+                                   for n in every) + "</Delete>").encode())
+    ok(st, 200, "DeleteObjects")
+    deleted = data.count(b"<Deleted>")
+    check(deleted == len(every) and b"<Error>" not in data,
+          f"DeleteObjects deleted {deleted} of {len(every)}")
+    st, _h, data = client.request("GET", f"/{bucket}",
+                                  query={"list-type": "2"})
+    check(b"<Key>" not in data, "objects left after DeleteObjects")
+    ok(client.request("DELETE", f"/{bucket}")[0], 204, "DELETE bucket")
+    result["teardown"] = {"wall_s": time.monotonic() - t0,
+                          "deleted": deleted}
+    client.close()
+    srv.shutdown()
+
+    launches = read_launches()
+    result["launches"] = launches
+    result["launch_sizes"] = read_launch_sizes()
+    if device.type == "cuda":
+        for kname in ("gf_matmul_batched", "gf_encode_batched",
+                      "chacha20_xor", "highwayhash256_chunks",
+                      "scan_codes"):
+            check(launches[kname] > 0,
+                  f"kernel {kname} never launched on the S3 server path")
+    shutil.rmtree(root, ignore_errors=True)
+    return result
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--cpu-rehearsal", action="store_true",
@@ -2205,6 +2816,12 @@ def main() -> int:
     ol_sizes = (4, int(2.1 * 2**20), 4, OL_SMALL_BYTES,
                 (5 << 20, 333)) if rehearsal else \
         (N_OBJECTS, OBJECT_BYTES, OL_SMALL, OL_SMALL_BYTES, OL_PARTS)
+    # the S3 server path: plain and SSE-C objects (count, bytes), CSV
+    # objects, the multipart object's parts
+    s3_sizes = {"big": (4, int(2.1 * 2**20)), "sse": (2, 1 << 20),
+                "csv": 2, "parts": (5 << 20, 333)} if rehearsal else \
+        {"big": (S3_BIG, OBJECT_BYTES), "sse": (S3_SSE, OBJECT_BYTES),
+         "csv": S3_CSV, "parts": S3_PARTS}
     phase = "build"
     try:
         phase_build(rehearsal)
@@ -2243,8 +2860,14 @@ def main() -> int:
             olres["cut"] += (f"; {ol_sizes[0]} objects of {ol_sizes[1]} "
                              f"bytes, {ol_sizes[2]} small")
         emit({"phase": "objectlayer_path", "card": card, **olres})
+        phase = "s3server_path"
+        s3res = phase_s3server(device, table, s3_sizes, args.seed)
+        if rehearsal:
+            s3res["cut"] += f"; {s3_sizes}"
+        emit({"phase": "s3server_path", "card": card, **s3res})
         paths = {"mur3x256s_path": res, "sse_hh256s_path": sres,
-                 "select_path": selres, "objectlayer_path": olres}
+                 "select_path": selres, "objectlayer_path": olres,
+                 "s3server_path": s3res}
         for name, row in rows.items():
             by_path = {p: r["launches"][name] for p, r in paths.items()}
             row["launches"] = sum(by_path.values())

@@ -1,0 +1,1179 @@
+"""S3-compatible HTTP API server, the port of minio_tpu/server/s3api.py
+(reference cmd/api-router.go:82 + cmd/object-handlers.go /
+cmd/bucket-handlers.go): path-style routing over an ObjectLayer, SigV4
+auth, XML responses.
+
+Threaded stdlib HTTP server: request concurrency maps to the dispatch
+queue's batching, so the blocks of many in-flight PUTs and GETs coalesce
+into single kernel launches on the card (K2 encode and K5 hashes on PUT,
+K5 verify and K1 rebuild on GET and heal, K4 for SSE-C, K6 for
+SelectObjectContent).
+
+What came over: the bucket handlers (list buckets, put/head/delete
+bucket, location, ListObjects V1/V2, list versions, versioning, bucket
+tagging, DeleteObjects, the hard quota check), the object handlers (PUT,
+GET, ranged GET, HEAD, conditional requests, delete, copy, object
+tagging, the six multipart handlers, SSE-C, SelectObjectContent), the
+health endpoints and the MRF heal queue that degraded reads feed.
+
+Every API whose plane is not ported answers S3's ``501 NotImplemented``
+in the reference's error XML: STS, federation and internal RPC, the
+admin, metrics and console planes, POST policy uploads, notifications,
+bucket policies, lifecycle, replication, object lock (retention, legal
+hold, lock-enabled buckets), restore and transitioned objects, SSE-S3 and
+SSE-KMS, and compressed objects (the port never compresses; an object the
+JAX package stored compressed is refused, never served as raw deflate).
+Admission control, spans, metrics, the trace stream, the audit log and
+the profiler belong to ``qos/`` and ``obs/``, not ported yet: a request
+here is routed, its errors mapped and its request id stamped."""
+from __future__ import annotations
+
+import base64
+import binascii
+import hashlib
+import json
+import os
+import socket
+import threading
+import urllib.parse
+import uuid
+import xml.etree.ElementTree as ET
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+from ..bucket import metadata as bucket_metadata
+from ..objectlayer import ObjectOptions
+from ..objectlayer import datatypes as dt
+from ..utils import errors
+from ..utils.device import resolve_device
+from ..utils.hashreader import (BadDigestError, HashReader,
+                                SHA256MismatchError)
+from . import xmlutil as xu
+from .auth import (STREAMING_PAYLOAD, UNSIGNED_PAYLOAD, AuthError,
+                   ChunkedSigV4Reader, SigV4Verifier, parse_auth_header,
+                   signing_key)
+
+MAX_PUT_SIZE = 5 << 30          # single PUT cap 5 GiB
+
+#: internal metadata of a compressed object (minio_tpu/utils/compress.py)
+META_COMPRESSION = "x-minio-internal-compression"
+META_ACTUAL_SIZE = "x-minio-internal-actual-size"
+#: internal metadata of an object transitioned to a tier
+#: (minio_tpu/bucket/transition.py)
+META_TIER = "x-minio-internal-transition-tier"
+#: the data-usage snapshot the scanner writes (minio_tpu/scanner/usage.py)
+USAGE_PATH = "data-usage/usage.json"
+
+_HOST_ID = ""
+
+
+def host_id() -> str:
+    """Stable per-host opaque id stamped as ``x-amz-id-2`` / error-XML
+    ``HostId`` (the JAX package's derivation)."""
+    global _HOST_ID
+    if not _HOST_ID:
+        _HOST_ID = base64.b64encode(hashlib.sha256(
+            socket.gethostname().encode()).digest()).decode()[:44]
+    return _HOST_ID
+
+
+class S3Server:
+    """Owns the ObjectLayer, auth and bucket metadata; builds the HTTP
+    server. ``device`` is where the handlers' own device work runs (the
+    SSE-C keystreams, the Select scan): the CUDA card unless the caller
+    passes ``device="cpu"``; give the object layer the same device."""
+
+    def __init__(self, objlayer, address: str = "0.0.0.0", port: int = 9000,
+                 region: str = "us-east-1", access_key: str = "",
+                 secret_key: str = "", device=None):
+        self.obj = objlayer
+        self.region = region
+        self.device = resolve_device(device)
+        self.access_key = access_key or os.environ.get(
+            "MINIO_ROOT_USER", "minioadmin")
+        self.secret_key = secret_key or os.environ.get(
+            "MINIO_ROOT_PASSWORD", "minioadmin")
+        self.bucket_meta = bucket_metadata.BucketMetadataSys(objlayer)
+        self.verifier = SigV4Verifier(self.lookup_secret, region)
+        self.address = address
+        self.port = port
+        self._httpd: ThreadingHTTPServer | None = None
+        self.mrf = None
+
+    def lookup_secret(self, access_key: str) -> str | None:
+        """The secret of an access key: root credentials only (IAM users
+        wait for the port of iam/)."""
+        return self.secret_key if access_key == self.access_key else None
+
+    def create_bucket(self, bucket: str, object_lock: bool = False):
+        """Bucket creation: the object layer's bucket plus its metadata
+        record. An object-lock bucket is refused: the lock plane that
+        would enforce its retention is not ported."""
+        if object_lock:
+            raise dt.NotImplemented(bucket, "")
+        self.obj.make_bucket(bucket)
+        self.bucket_meta.set(bucket,
+                             bucket_metadata.BucketMetadata(name=bucket))
+
+    def remove_bucket(self, bucket: str, force: bool = False):
+        if force and self.bucket_meta.get(bucket).object_lock_enabled:
+            # force delete would bypass WORM retention (the reference
+            # refuses force-delete on lock buckets the same way)
+            raise dt.InvalidRequest(
+                bucket, "",
+                "force delete not allowed on object-lock buckets")
+        self.obj.get_bucket_info(bucket)
+        self.obj.delete_bucket(bucket, force=force)
+        self.bucket_meta.remove(bucket)
+
+    # --- server lifecycle ---------------------------------------------------
+
+    def build(self) -> ThreadingHTTPServer:
+        server = self
+
+        class Handler(_S3Handler):
+            s3 = server
+
+        class TunedServer(ThreadingHTTPServer):
+            """Listener tuning (reference cmd/http/server.go +
+            listener.go): deep accept backlog for bursty S3 clients,
+            TCP_NODELAY + keepalive on every accepted connection, and an
+            idle read timeout so quiet keep-alive connections release
+            their handler thread."""
+            request_queue_size = 1024
+            daemon_threads = True
+            idle_timeout_s = float(os.environ.get(
+                "MINIO_TPU_HTTP_IDLE_TIMEOUT_S", "120"))
+
+            def process_request(self, request, client_address):
+                try:
+                    request.setsockopt(socket.IPPROTO_TCP,
+                                       socket.TCP_NODELAY, 1)
+                    request.setsockopt(socket.SOL_SOCKET,
+                                       socket.SO_KEEPALIVE, 1)
+                    if self.idle_timeout_s > 0:
+                        request.settimeout(self.idle_timeout_s)
+                except OSError:
+                    pass
+                super().process_request(request, client_address)
+
+            def handle_error(self, request, client_address):
+                # a client severing the socket mid-response is normal
+                # churn, not a server error
+                import sys as _sys
+                et = _sys.exc_info()[0]
+                if et is not None and issubclass(
+                        et, (BrokenPipeError, ConnectionResetError,
+                             TimeoutError, socket.timeout)):
+                    return
+                super().handle_error(request, client_address)
+
+        httpd = TunedServer((self.address, self.port), Handler)
+        self._httpd = httpd
+        self.port = httpd.server_address[1]
+        return httpd
+
+    def serve_forever(self):
+        self.build().serve_forever()
+
+    def start_background(self) -> threading.Thread:
+        httpd = self.build()
+        t = threading.Thread(target=httpd.serve_forever,
+                             name="minio-tpu-http", daemon=True)
+        t.start()
+        return t
+
+    def start_background_services(self):
+        """The background plane as far as it is ported: the MRF heal
+        queue, persisted to ``.minio.sys/mrf.json`` on the first disk, fed
+        by every erasure set's ``on_partial`` (a degraded or bitrot-hit
+        read queues a heal). The data scanner, auto-heal monitor and
+        lifecycle of the JAX package wait for their slice. Idempotent."""
+        if self.mrf is not None:
+            return
+        from ..scanner.mrf import MRFHealer
+        from ..storage.xlstorage import META_BUCKET
+        self.mrf = MRFHealer(self.obj)
+        layers = self._erasure_layers()
+        disk = next((d for layer in layers for d in layer.disks
+                     if d is not None), None)
+        if disk is not None:
+            self.mrf.attach_persistence(
+                os.path.join(disk.root, META_BUCKET, "mrf.json"))
+        self.mrf.start()
+        for layer in layers:
+            layer.on_partial = self.mrf.add_partial
+
+    def _erasure_layers(self) -> list:
+        """Every ErasureObjects under any ObjectLayer shape (one set, a
+        sets layer, or server pools)."""
+        obj = self.obj
+        if hasattr(obj, "pools"):
+            out = []
+            for p in obj.pools:
+                out.extend(p.sets if hasattr(p, "sets") else [p])
+            return out
+        if hasattr(obj, "sets"):
+            return list(obj.sets)
+        return [obj] if hasattr(obj, "on_partial") else []
+
+    def shutdown(self):
+        if self.mrf is not None:
+            self.mrf.stop()
+        if self._httpd is not None:
+            self._httpd.shutdown()
+            self._httpd.server_close()
+
+    def endpoint(self) -> str:
+        return f"http://127.0.0.1:{self.port}"
+
+
+class _ChunkedWriter:
+    """HTTP/1.1 chunked transfer encoding over a raw socket file — lets
+    event-stream responses (S3 Select) stream frames without knowing the
+    total length up front."""
+
+    def __init__(self, wfile):
+        self.wfile = wfile
+
+    def write(self, b: bytes) -> int:
+        if b:
+            self.wfile.write(f"{len(b):x}\r\n".encode() + b + b"\r\n")
+        return len(b)
+
+    def close(self):
+        self.wfile.write(b"0\r\n\r\n")
+
+
+class _S3Handler(BaseHTTPRequestHandler):
+    protocol_version = "HTTP/1.1"
+    s3: S3Server = None  # set by subclass factory
+
+    def log_message(self, fmt, *args):  # noqa: A003
+        pass
+
+    # --- plumbing -----------------------------------------------------------
+
+    def _parse(self):
+        split = urllib.parse.urlsplit(self.path)
+        self.raw_query = split.query
+        self.url_path = urllib.parse.unquote(split.path)
+        self.query = urllib.parse.parse_qs(split.query,
+                                           keep_blank_values=True)
+        parts = self.url_path.lstrip("/").split("/", 1)
+        self.bucket = parts[0]
+        self.key = parts[1] if len(parts) > 1 else ""
+        self.hdr = {k.lower(): v for k, v in self.headers.items()}
+        self._consumed = 0  # request-body bytes read (keep-alive hygiene)
+
+    def q(self, key: str, default: str = "") -> str:
+        v = self.query.get(key)
+        return v[0] if v else default
+
+    def has_q(self, key: str) -> bool:
+        return key in self.query
+
+    def _api_name(self) -> str:
+        """S3 API name of the request (the reference's api="getobject"
+        labels, cmd/metrics-v2.go:147-154); it names the API in a 501."""
+        m, b, k = self.command, self.bucket, self.key
+        if not b:
+            return "listbuckets" if m == "GET" else "sts"
+        if k:
+            if m == "GET":
+                if self.has_q("uploadId"):
+                    return "listobjectparts"
+                for sub in ("tagging", "retention", "legal-hold", "acl"):
+                    if self.has_q(sub):
+                        return f"getobject{sub.replace('-', '')}"
+                return "getobject"
+            if m == "HEAD":
+                return "headobject"
+            if m == "PUT":
+                if self.has_q("partNumber"):
+                    return "putobjectpart"
+                if "x-amz-copy-source" in self.hdr:
+                    return "copyobject"
+                for sub in ("tagging", "retention", "legal-hold", "acl"):
+                    if self.has_q(sub):
+                        return f"putobject{sub.replace('-', '')}"
+                return "putobject"
+            if m == "POST":
+                if self.has_q("uploads"):
+                    return "newmultipartupload"
+                if self.has_q("uploadId"):
+                    return "completemultipartupload"
+                if self.has_q("select") or self.q("select-type"):
+                    return "selectobjectcontent"
+                if self.has_q("restore"):
+                    return "restoreobject"
+                return "postobject"
+            if m == "DELETE":
+                if self.has_q("uploadId"):
+                    return "abortmultipartupload"
+                if self.has_q("tagging"):
+                    return "deleteobjecttagging"
+                return "deleteobject"
+            return m.lower()
+        subs = ("policy", "lifecycle", "versioning", "notification",
+                "tagging", "object-lock", "replication", "encryption",
+                "quota", "versions", "uploads", "location")
+        sub = next((s for s in subs if self.has_q(s)), "")
+        if m == "GET":
+            if sub == "versions":
+                return "listobjectversions"
+            if sub == "uploads":
+                return "listmultipartuploads"
+            if sub:
+                return f"getbucket{sub.replace('-', '')}"
+            return "listobjectsv2" if self.q("list-type") == "2" \
+                else "listobjectsv1"
+        if m == "HEAD":
+            return "headbucket"
+        if m == "PUT":
+            return f"putbucket{sub.replace('-', '')}" if sub \
+                else "putbucket"
+        if m == "DELETE":
+            return f"deletebucket{sub.replace('-', '')}" if sub \
+                else "deletebucket"
+        if m == "POST":
+            if self.has_q("delete"):
+                return "deletemultipleobjects"
+            return "postpolicybucket"
+        return m.lower()
+
+    def _send(self, status: int, body: bytes = b"",
+              content_type: str = "application/xml",
+              headers: dict | None = None):
+        if self._last_status:
+            # a response already started: an error surfacing MID-BODY must
+            # not append an error document to the keep-alive framing; cut
+            # the connection so the client sees EOF
+            self.close_connection = True
+            return
+        self.send_response(status)
+        for k, v in (headers or {}).items():
+            if v is not None and v != "":
+                self.send_header(k, v)
+        if body or status not in (204, 304):
+            self.send_header("Content-Type", content_type)
+            self.send_header("Content-Length", str(len(body)))
+        else:
+            self.send_header("Content-Length", "0")
+        self.end_headers()
+        if body and self.command != "HEAD":
+            self.wfile.write(body)
+
+    def _error(self, code: str, message: str, status: int):
+        if status in (204, 304):  # bodiless statuses per RFC 9110
+            return self._send(status)
+        self._send(status, xu.error_xml(
+            code, message, getattr(self, "url_path", self.path),
+            request_id=self._request_id, host_id=host_id()))
+
+    def _api_error(self, e: dt.ObjectAPIError):
+        self._error(e.code, str(e), e.http_status)
+
+    def _not_implemented(self, why: str = ""):
+        """S3's 501 for an API whose plane the port does not have."""
+        self._error("NotImplemented",
+                    why or f"{self._api_name()} is not implemented", 501)
+
+    def _read_body(self) -> bytes:
+        n = int(self.hdr.get("content-length", "0") or "0")
+        data = self.rfile.read(n) if n else b""
+        self._consumed += len(data)
+        return data
+
+    def _drain_body(self):
+        """Discard any unread request body so the next request on this
+        keep-alive connection parses cleanly; large remainders close the
+        connection instead of burning bandwidth."""
+        try:
+            n = int(self.hdr.get("content-length", "0") or "0")
+        except (AttributeError, ValueError):
+            return
+        remaining = n - getattr(self, "_consumed", 0)
+        if remaining <= 0:
+            return
+        if remaining > (1 << 20):
+            self.close_connection = True
+            return
+        while remaining > 0:
+            chunk = self.rfile.read(min(65536, remaining))
+            if not chunk:
+                break
+            remaining -= len(chunk)
+
+    # --- auth ---------------------------------------------------------------
+
+    def _authenticate(self) -> str:
+        headers = dict(self.hdr)
+        headers.setdefault("host", self.headers.get("Host", ""))
+        return self.s3.verifier.verify(
+            self.command, self.url_path, self.query, headers)
+
+    def _authorize(self, access_key: str):
+        # root credentials only: IAM users and policies wait for iam/
+        if access_key == "":
+            raise AuthError("AccessDenied", "anonymous access denied")
+
+    def _body_stream(self, size: int):
+        """Request-body reader honoring aws-chunked streaming signatures:
+        either way the object layer reads exactly the signed payload."""
+        sha = self.hdr.get("x-amz-content-sha256", "")
+        if sha == STREAMING_PAYLOAD:
+            auth = parse_auth_header(self.hdr.get("authorization", ""))
+            secret = self.s3.lookup_secret(auth.access_key)
+            key = signing_key(secret, auth.scope_date, auth.region,
+                              auth.service)
+            scope = (f"{auth.scope_date}/{auth.region}/{auth.service}/"
+                     "aws4_request")
+            # chunked framing makes residual length unknowable: if the
+            # handler errors mid-stream, close rather than drain
+            self._consumed = 1 << 62
+            self.close_connection = True
+            return ChunkedSigV4Reader(
+                self.rfile, auth.signature, key,
+                self.hdr.get("x-amz-date", ""), scope)
+        return _CappedReader(self.rfile, size, self)
+
+    # --- routing ------------------------------------------------------------
+
+    def _route(self):
+        self._parse()
+        # unauthenticated health endpoints (cmd/healthcheck-handler.go):
+        # liveness = this process serves HTTP; readiness = storage online
+        if self.url_path.startswith("/minio/health/"):
+            if self.url_path.rstrip("/").endswith("/live"):
+                return self._send(200, b"", "text/plain; charset=utf-8")
+            ok = self.s3.obj is not None and self.s3.obj.is_ready()
+            return self._send(200 if ok else 503, b"",
+                              "text/plain; charset=utf-8")
+        if self.url_path.rstrip("/") == "/minio" or \
+                self.url_path.startswith("/minio/"):
+            # metrics, admin, console, web RPC and internal RPC planes
+            return self._not_implemented(
+                f"{self.url_path} is not implemented")
+        if self.s3.obj is None:
+            return self._error("ServerNotInitialized",
+                               "server still starting", 503)
+        if self.command == "POST" and self.url_path == "/":
+            return self._not_implemented("STS is not implemented")
+        if self.command == "POST" and self.key == "" and \
+                self.bucket and self.hdr.get("content-type", "").startswith(
+                    "multipart/form-data"):
+            return self._not_implemented("POST policy uploads are not "
+                                         "implemented")
+        try:
+            access_key = self._authenticate()
+        except AuthError as e:
+            return self._error(e.code, e.message, e.status)
+        try:
+            self._dispatch(access_key)
+        except dt.ObjectAPIError as e:
+            self._api_error(e)
+        except AuthError as e:
+            self._error(e.code, e.message, e.status)
+        except (BadDigestError, SHA256MismatchError) as e:
+            self._error("BadDigest", str(e), 400)
+        except NotImplementedError as e:
+            # SSE-S3/KMS, the AES-GCM package cipher, compressed objects
+            self._not_implemented(str(e))
+        except BrokenPipeError:
+            # client went away mid-response; the half-written reply makes
+            # this connection unusable for keep-alive
+            self.close_connection = True
+        except Exception as e:  # noqa: BLE001
+            import traceback
+            traceback.print_exc()
+            self._error("InternalError", str(e), 500)
+
+    def _dispatch(self, access_key: str):
+        m = self.command
+        if not self.bucket:
+            if m == "GET":
+                return self.list_buckets(access_key)
+            return self._error("MethodNotAllowed", "bad service op", 405)
+        if not self.key:
+            return self._bucket_op(m, access_key)
+        return self._object_op(m, access_key)
+
+    #: bucket sub-resources whose planes are not ported (policy needs
+    #: iam/, the rest bucket/'s lifecycle, events, replication, lock)
+    _BUCKET_501 = ("policy", "notification", "lifecycle", "replication",
+                   "object-lock", "encryption", "events")
+
+    def _bucket_op(self, m: str, ak: str):
+        s = self
+        if any(s.has_q(sub) for sub in self._BUCKET_501):
+            return s._not_implemented()
+        if m == "PUT":
+            if s.has_q("versioning"):
+                return s.put_versioning(ak)
+            if s.has_q("tagging"):
+                return s.put_bucket_tagging(ak)
+            return s.put_bucket(ak)
+        if m in ("GET", "HEAD"):
+            if s.has_q("location"):
+                return s._send(200, xu.location_xml(s.s3.region))
+            if s.has_q("versioning"):
+                return s.get_versioning(ak)
+            if s.has_q("tagging"):
+                return s.get_bucket_tagging(ak)
+            if s.has_q("uploads"):
+                return s.list_uploads(ak)
+            if s.has_q("versions"):
+                return s.list_versions(ak)
+            if m == "HEAD":
+                return s.head_bucket(ak)
+            return s.list_objects(ak)
+        if m == "DELETE":
+            if s.has_q("tagging"):
+                return s.delete_bucket_tagging(ak)
+            return s.delete_bucket(ak)
+        if m == "POST":
+            if s.has_q("delete"):
+                return s.delete_multiple(ak)
+        return s._error("MethodNotAllowed", f"bad bucket op {m}", 405)
+
+    def _object_op(self, m: str, ak: str):
+        s = self
+        if s.has_q("retention") or s.has_q("legal-hold") or \
+                (m == "POST" and s.has_q("restore")):
+            return s._not_implemented()
+        if m == "PUT":
+            if s.has_q("partNumber") and s.has_q("uploadId"):
+                return s.put_part(ak)
+            if s.has_q("tagging"):
+                return s.put_object_tagging(ak)
+            if "x-amz-copy-source" in s.hdr:
+                return s.copy_object(ak)
+            return s.put_object(ak)
+        if m == "GET":
+            if s.has_q("uploadId"):
+                return s.list_parts(ak)
+            if s.has_q("tagging"):
+                return s.get_object_tagging(ak)
+            return s.get_object(ak)
+        if m == "HEAD":
+            return s.head_object(ak)
+        if m == "DELETE":
+            if s.has_q("uploadId"):
+                return s.abort_upload(ak)
+            if s.has_q("tagging"):
+                return s.delete_object_tagging(ak)
+            return s.delete_object(ak)
+        if m == "POST":
+            if s.has_q("uploads"):
+                return s.initiate_upload(ak)
+            if s.has_q("uploadId"):
+                return s.complete_upload(ak)
+            if s.has_q("select") or s.q("select-type"):
+                return s.select_object_content(ak)
+        return s._error("MethodNotAllowed", f"bad object op {m}", 405)
+
+    def select_object_content(self, ak):
+        """SelectObjectContent (reference cmd/object-handlers.go:96 ->
+        pkg/s3select): run the SQL over the object and stream event-stream
+        frames; a CSV WHERE scans on the server's device (K6 on the card).
+        Encrypted objects are decrypted first."""
+        self._authorize(ak)
+        from ..erasure.streaming import BufferSink
+        from ..s3select import S3SelectRequest, parse_select, run_select
+        from ..s3select.sql import SQLError
+        body = self._read_body()
+        try:
+            req = S3SelectRequest.parse(body)
+            # validate the SQL BEFORE reading the object (a bad expression
+            # must 400 without paying the read; frames stream chunked
+            # after the 200, so late errors can only abort mid-stream)
+            parsed = parse_select(req.expression)
+        except (ET.ParseError, SQLError) as e:
+            return self._error("InvalidRequest", str(e), 400)
+        opts = self._opts()
+        oi = self.s3.obj.get_object_info(self.bucket, self.key, opts)
+        self._refuse_unported(oi)
+        sse = self._sse_read_ctx(oi)
+        sink = BufferSink()
+        # BytesScanned = input consumed from storage (the ciphertext);
+        # the engine reports the decoded size as BytesProcessed
+        scanned = oi.size
+        if sse:
+            from ..crypto import DecryptWriter, enc_size
+            oek, base_iv, plain_size, _, cipher = sse
+            scanned = enc_size(plain_size)
+            dw = DecryptWriter(sink, oek, base_iv, 0, 0, plain_size,
+                               self.bucket, self.key, cipher=cipher,
+                               device=self.s3.device)
+            self.s3.obj.get_object(self.bucket, self.key, dw, 0, -1, opts)
+            dw.finish()
+        else:
+            self.s3.obj.get_object(self.bucket, self.key, sink, 0, -1, opts)
+        raw = sink.getvalue()
+        self.send_response(200)
+        self.send_header("Content-Type",
+                         "application/vnd.amazon.eventstream")
+        self.send_header("Transfer-Encoding", "chunked")
+        self.end_headers()
+        out = _ChunkedWriter(self.wfile)
+        try:
+            run_select(req, raw, out, parsed=parsed, scanned_bytes=scanned,
+                       device=self.s3.device)
+        except Exception:  # noqa: BLE001 — mid-stream failure: cut the
+            self.close_connection = True  # connection, the client sees EOF
+            return
+        out.close()
+
+    # --- HTTP verbs ---------------------------------------------------------
+
+    def send_response(self, code, message=None):  # noqa: N802
+        self._last_status = code
+        super().send_response(code, message)
+        # every response carries the request id and host id (reference
+        # setAmzRequestID middleware: x-amz-request-id + x-amz-id-2)
+        self.send_header("x-amz-request-id", self._request_id)
+        self.send_header("x-amz-id-2", host_id())
+
+    def _handle(self):
+        self._last_status = 0
+        self._request_id = uuid.uuid4().hex
+        try:
+            self._route()
+        finally:
+            try:
+                self._drain_body()
+            except Exception:  # noqa: BLE001
+                self.close_connection = True
+
+    def do_GET(self):  # noqa: N802
+        self._handle()
+
+    def do_PUT(self):  # noqa: N802
+        self._handle()
+
+    def do_POST(self):  # noqa: N802
+        self._handle()
+
+    def do_DELETE(self):  # noqa: N802
+        self._handle()
+
+    def do_HEAD(self):  # noqa: N802
+        self._handle()
+
+    # --- service ------------------------------------------------------------
+
+    def list_buckets(self, ak):
+        self._authorize(ak)
+        self._send(200, xu.list_buckets_xml(self.s3.obj.list_buckets()))
+
+    # --- bucket -------------------------------------------------------------
+
+    def put_bucket(self, ak):
+        self._authorize(ak)
+        self.s3.create_bucket(
+            self.bucket,
+            object_lock=self.hdr.get(
+                "x-amz-bucket-object-lock-enabled", "") == "true")
+        self._send(200, headers={"Location": f"/{self.bucket}"})
+
+    def head_bucket(self, ak):
+        self._authorize(ak)
+        self.s3.obj.get_bucket_info(self.bucket)
+        self._send(200)
+
+    def delete_bucket(self, ak):
+        self._authorize(ak)
+        force = self.hdr.get("x-minio-force-delete", "") == "true"
+        self.s3.remove_bucket(self.bucket, force=force)
+        self._send(204)
+
+    @staticmethod
+    def _display_sizes(r):
+        """Listings report the size GET/HEAD do: the plaintext size of an
+        encrypted or compressed object, not the stored stream length."""
+        from ..crypto import META_SCHEME, plain_size_of
+        for oi in r.objects:
+            if oi.internal.get(META_SCHEME):
+                oi.size = plain_size_of(oi.internal, oi.size)
+            elif oi.internal.get(META_COMPRESSION):
+                oi.size = oi.actual_size
+        return r
+
+    def list_objects(self, ak):
+        self._authorize(ak)
+        prefix = self.q("prefix")
+        delimiter = self.q("delimiter")
+        max_keys = min(int(self.q("max-keys", "1000") or "1000"), 10_000)
+        if self.q("list-type") == "2":
+            marker = self.q("continuation-token") or self.q("start-after")
+            r = self._display_sizes(self.s3.obj.list_objects(
+                self.bucket, prefix, marker, delimiter, max_keys))
+            return self._send(200, xu.list_objects_v2_xml(
+                self.bucket, prefix, delimiter, max_keys, r,
+                continuation_token=self.q("continuation-token")))
+        marker = self.q("marker")
+        r = self._display_sizes(self.s3.obj.list_objects(
+            self.bucket, prefix, marker, delimiter, max_keys))
+        self._send(200, xu.list_objects_v1_xml(
+            self.bucket, prefix, delimiter, marker, max_keys, r))
+
+    def list_versions(self, ak):
+        self._authorize(ak)
+        prefix = self.q("prefix")
+        delimiter = self.q("delimiter")
+        max_keys = min(int(self.q("max-keys", "1000") or "1000"), 10_000)
+        r = self._display_sizes(self.s3.obj.list_object_versions(
+            self.bucket, prefix, self.q("key-marker"),
+            self.q("version-id-marker"), delimiter, max_keys))
+        self._send(200, xu.list_versions_xml(
+            self.bucket, prefix, delimiter, max_keys, r))
+
+    def put_versioning(self, ak):
+        self._authorize(ak)
+        self.s3.obj.get_bucket_info(self.bucket)
+        enabled = xu.parse_versioning(self._read_body())
+        was = self.s3.bucket_meta.get(self.bucket)
+        if was.object_lock_enabled and not enabled:
+            # suspending versioning would let WORM-retained versions be
+            # hard-deleted via versionless deletes
+            raise dt.InvalidRequest(
+                self.bucket, "",
+                "cannot suspend versioning on an object-lock bucket")
+        self.s3.bucket_meta.update(
+            self.bucket, versioning_enabled=enabled,
+            versioning_suspended=not enabled and
+            (was.versioning_enabled or was.versioning_suspended))
+        self._send(200)
+
+    def get_versioning(self, ak):
+        self._authorize(ak)
+        self.s3.obj.get_bucket_info(self.bucket)
+        meta = self.s3.bucket_meta.get(self.bucket)
+        self._send(200, xu.versioning_xml(meta.versioning_enabled,
+                                          meta.versioning_suspended))
+
+    def put_bucket_tagging(self, ak):
+        self._authorize(ak)
+        self.s3.obj.get_bucket_info(self.bucket)
+        tags = xu.parse_tagging(self._read_body())
+        self.s3.bucket_meta.update(self.bucket, tagging=tags)
+        self._send(200)
+
+    def get_bucket_tagging(self, ak):
+        self._authorize(ak)
+        meta = self.s3.bucket_meta.get(self.bucket)
+        if not meta.tagging:
+            return self._error("NoSuchTagSet", "no tags", 404)
+        self._send(200, xu.tagging_xml(meta.tagging))
+
+    def delete_bucket_tagging(self, ak):
+        self._authorize(ak)
+        self.s3.bucket_meta.update(self.bucket, tagging={})
+        self._send(204)
+
+    def delete_multiple(self, ak):
+        self._authorize(ak)
+        self._refuse_locked_bucket()
+        objs, quiet = xu.parse_delete_objects(self._read_body())
+        versioned = self.s3.bucket_meta.versioning_enabled(self.bucket)
+        deleted, errs = self.s3.obj.delete_objects(
+            self.bucket, objs, ObjectOptions(versioned=versioned))
+        if quiet:
+            # quiet mode reports only failures
+            pairs = [(d, e) for d, e in zip(deleted, errs) if e is not None]
+            deleted = [d for d, _ in pairs]
+            errs = [e for _, e in pairs]
+        self._send(200, xu.delete_result_xml(deleted, errs))
+
+    # --- object -------------------------------------------------------------
+
+    def _opts(self, versioned=None) -> ObjectOptions:
+        if versioned is None:
+            versioned = self.s3.bucket_meta.versioning_enabled(self.bucket)
+        return ObjectOptions(version_id=self.q("versionId"),
+                             versioned=versioned)
+
+    def _refuse_locked_bucket(self):
+        """Writes and deletes in an object-lock bucket are refused: its
+        retention and legal holds would go unenforced without the lock
+        plane."""
+        if self.s3.bucket_meta.get(self.bucket).object_lock_enabled:
+            raise dt.NotImplemented(self.bucket, self.key)
+
+    def _refuse_unported(self, oi):
+        """A compressed object (the port has no decompressor) or one
+        transitioned to a tier is refused, never served as stored."""
+        if oi.internal.get(META_COMPRESSION) or oi.internal.get(META_TIER):
+            raise dt.NotImplemented(self.bucket, self.key)
+
+    def put_object(self, ak):
+        self._authorize(ak)
+        self._refuse_locked_bucket()
+        size = int(self.hdr.get("content-length", "-1") or "-1")
+        if self.hdr.get("x-amz-content-sha256", "") == STREAMING_PAYLOAD:
+            size = int(self.hdr.get("x-amz-decoded-content-length",
+                                    str(size)))
+        if size < 0:
+            # unbounded socket reads hang keep-alive connections
+            return self._error("MissingContentLength",
+                               "Content-Length required", 411)
+        if size > MAX_PUT_SIZE:
+            raise dt.EntityTooLarge(self.bucket, self.key)
+        user_defined = self._user_meta()
+        self._check_quota(size)
+        hr = self._hash_reader(size)
+        from ..crypto import encrypt_setup, parse_sse_headers
+        sse = parse_sse_headers(self.hdr, self.bucket, self.key)
+        stream, put_size = hr, size
+        sse_resp = {}
+        opts = self._opts()
+        if sse is not None:
+            stream, put_size, sse_resp = encrypt_setup(
+                sse, hr, size, user_defined, self.bucket, self.key,
+                device=self.s3.device)
+        opts.user_defined = user_defined
+        oi = self.s3.obj.put_object(self.bucket, self.key, stream, put_size,
+                                    opts)
+        self._send(200, headers={
+            "ETag": f'"{oi.etag}"',
+            "x-amz-version-id": oi.version_id or None,
+            **sse_resp})
+
+    def _sse_read_ctx(self, oi):
+        """(oek, base_iv, plain_size, response headers, package cipher)
+        of an SSE-C object, unsealed with this request's key (a wrong key
+        MD5 403s before any package is read); None for a plain object."""
+        from ..crypto import sse_read_ctx
+        return sse_read_ctx(oi.internal, self.hdr, self.bucket, self.key,
+                            oi.size, device=self.s3.device)
+
+    def _hash_reader(self, size: int) -> HashReader:
+        """Body reader verifying Content-MD5 / x-amz-content-sha256 on the
+        fly — shared by PutObject and UploadPart so the two paths can't
+        diverge."""
+        sha = self.hdr.get("x-amz-content-sha256", "")
+        sha_hex = sha if sha and sha not in (
+            UNSIGNED_PAYLOAD, STREAMING_PAYLOAD) else ""
+        md5_b64 = self.hdr.get("content-md5", "")
+        md5_hex = ""
+        if md5_b64:
+            try:
+                decoded = base64.b64decode(md5_b64, validate=True)
+            except (binascii.Error, ValueError) as e:
+                raise dt.InvalidDigest(self.bucket, self.key) from e
+            if len(decoded) != 16:
+                raise dt.InvalidDigest(self.bucket, self.key)
+            md5_hex = decoded.hex()
+        return HashReader(self._body_stream(size), size, md5_hex, sha_hex)
+
+    def _user_meta(self) -> dict[str, str]:
+        out = {}
+        ct = self.hdr.get("content-type")
+        if not ct and self.key:
+            # extension-based detection via the curated mimedb table
+            from ..utils.mimedb import content_type
+            ct = content_type(self.key)
+        if ct:
+            out["content-type"] = ct
+        for k, v in self.hdr.items():
+            if k.startswith("x-amz-meta-"):
+                out[k] = v
+        for k in ("cache-control", "content-disposition",
+                  "content-encoding", "content-language", "expires"):
+            if k in self.hdr:
+                out[k] = self.hdr[k]
+        return out
+
+    def _obj_headers(self, oi) -> dict:
+        h = {
+            "ETag": f'"{oi.etag}"',
+            "Last-Modified": xu.http_date(oi.mod_time),
+            "Content-Type": oi.content_type or "application/octet-stream",
+            "Accept-Ranges": "bytes",
+            "x-amz-version-id": oi.version_id or None,
+        }
+        for k, v in oi.user_defined.items():
+            if k.startswith("x-amz-meta-") or \
+                    k.startswith("x-amz-object-lock-") or k in (
+                    "cache-control", "content-disposition",
+                    "content-encoding", "content-language", "expires"):
+                h[k] = v
+        return h
+
+    def _parse_range(self, total: int):
+        rng = self.hdr.get("range", "")
+        if not rng.startswith("bytes="):
+            return None
+        spec = rng[len("bytes="):].split(",")[0].strip()
+        start_s, _, end_s = spec.partition("-")
+        try:
+            if start_s == "":
+                n = int(end_s)
+                if n == 0:
+                    raise dt.InvalidRange(self.bucket, self.key)
+                start, end = max(0, total - n), total - 1
+            else:
+                start = int(start_s)
+                end = int(end_s) if end_s else total - 1
+        except ValueError:
+            return None
+        if start >= total or end < start:
+            raise dt.InvalidRange(self.bucket, self.key)
+        return start, min(end, total - 1)
+
+    def get_object(self, ak):
+        self._authorize(ak)
+        opts = self._opts()
+        oi = self.s3.obj.get_object_info(self.bucket, self.key, opts)
+        self._check_preconditions(oi)
+        self._refuse_unported(oi)
+        sse = self._sse_read_ctx(oi)
+        logical_size = sse[2] if sse else oi.size
+        rng = self._parse_range(logical_size) if logical_size > 0 else None
+        headers = self._obj_headers(oi)
+        if sse:
+            headers.update(sse[3])
+        if rng is None:
+            offset, length = 0, logical_size
+            status = 200
+        else:
+            offset, length = rng[0], rng[1] - rng[0] + 1
+            status = 206
+            headers["Content-Range"] = \
+                f"bytes {rng[0]}-{rng[1]}/{logical_size}"
+        self.send_response(status)
+        for k, v in headers.items():
+            if v:
+                self.send_header(k, v)
+        self.send_header("Content-Length", str(length))
+        self.end_headers()
+        if length <= 0:
+            return
+        if sse:
+            from ..crypto import DecryptWriter, decrypt_range_bounds
+            oek, base_iv, plain_size, _, cipher = sse
+            enc_off, enc_len, seq0, skip = decrypt_range_bounds(
+                offset, length, plain_size)
+            dw = DecryptWriter(self.wfile, oek, base_iv, seq0, skip, length,
+                               self.bucket, self.key, cipher=cipher,
+                               device=self.s3.device)
+            if enc_len > 0:
+                self.s3.obj.get_object(self.bucket, self.key, dw, enc_off,
+                                       enc_len, opts)
+            dw.finish()
+        else:
+            self.s3.obj.get_object(self.bucket, self.key, self.wfile,
+                                   offset, length, opts)
+
+    def head_object(self, ak):
+        self._authorize(ak)
+        oi = self.s3.obj.get_object_info(self.bucket, self.key, self._opts())
+        self._check_preconditions(oi)
+        self._refuse_unported(oi)
+        sse = self._sse_read_ctx(oi)
+        h = self._obj_headers(oi)
+        if sse:
+            h.update(sse[3])
+            h["Content-Length"] = str(sse[2])
+        else:
+            h["Content-Length"] = str(oi.size)
+        self.send_response(200)
+        for k, v in h.items():
+            if v:
+                self.send_header(k, v)
+        self.end_headers()
+
+    def _check_preconditions(self, oi):
+        inm = self.hdr.get("if-none-match", "")
+        if inm and inm.strip('"') == oi.etag:
+            raise dt.NotModified(self.bucket, self.key)
+        im = self.hdr.get("if-match", "")
+        if im and im.strip('"') != oi.etag:
+            raise dt.PreconditionFailed(self.bucket, self.key)
+
+    def _check_quota(self, incoming: int):
+        """Hard bucket quota from the data-usage snapshot
+        (cmd/bucket-quota.go enforceBucketQuotaHard): best-effort like the
+        reference — usage trails the scanner's last sweep. The snapshot is
+        cached on the server for 10 s so the write path does not re-read
+        and parse it per request."""
+        import time as _t
+        meta = self.s3.bucket_meta.get(self.bucket)
+        if meta.quota <= 0:
+            return
+        cached = getattr(self.s3, "_usage_cache", None)
+        if cached is None or _t.monotonic() - cached[0] > 10.0:
+            try:
+                usage = json.loads(self.s3.obj.get_config(USAGE_PATH))
+            except (errors.StorageError, ValueError):
+                usage = {}
+            cached = (_t.monotonic(), usage)
+            self.s3._usage_cache = cached
+        used = cached[1].get("buckets", {}).get(self.bucket, {}).get(
+            "size", 0)
+        if used + max(incoming, 0) > meta.quota:
+            raise dt.QuotaExceeded(
+                self.bucket, self.key,
+                f"quota {meta.quota} would be exceeded")
+
+    def delete_object(self, ak):
+        self._authorize(ak)
+        self._refuse_locked_bucket()
+        oi = self.s3.obj.delete_object(self.bucket, self.key, self._opts())
+        self._send(204, headers={
+            "x-amz-version-id": oi.version_id or None,
+            "x-amz-delete-marker": "true" if oi.delete_marker else None})
+
+    def copy_object(self, ak):
+        self._authorize(ak)
+        self._refuse_locked_bucket()
+        src = urllib.parse.unquote(self.hdr["x-amz-copy-source"])
+        src_vid = ""
+        if "?versionId=" in src:
+            src, _, src_vid = src.partition("?versionId=")
+        src = src.lstrip("/")
+        src_bucket, _, src_key = src.partition("/")
+        src_opts = ObjectOptions(version_id=src_vid)
+        # SSE copy (decrypt source / re-encrypt destination) is not wired
+        # in either package; refuse instead of copying ciphertext
+        from ..crypto import META_SCHEME
+        si_probe = self.s3.obj.get_object_info(src_bucket, src_key, src_opts)
+        if si_probe.internal.get(META_SCHEME) or \
+                self.hdr.get("x-amz-server-side-encryption") or \
+                self.hdr.get(
+                    "x-amz-server-side-encryption-customer-algorithm"):
+            raise dt.NotImplemented(self.bucket, self.key)
+        self._check_quota(si_probe.size)  # destination bucket quota
+        dst_opts = self._opts()
+        directive = self.hdr.get("x-amz-metadata-directive", "COPY")
+        if directive == "REPLACE":
+            dst_opts.user_defined = self._user_meta()
+            dst_opts.metadata_replace = True
+        else:
+            dst_opts.user_defined = dict(si_probe.user_defined)
+            if si_probe.content_type:
+                dst_opts.user_defined["content-type"] = si_probe.content_type
+        # the copy moves the STORED bytes, so the compression markers must
+        # travel with them or the destination would serve raw deflate
+        for k in (META_COMPRESSION, META_ACTUAL_SIZE):
+            if k in si_probe.internal:
+                dst_opts.user_defined[k] = si_probe.internal[k]
+        oi = self.s3.obj.copy_object(src_bucket, src_key, self.bucket,
+                                     self.key, None, src_opts, dst_opts)
+        self._send(200, xu.copy_object_xml(oi.etag, oi.mod_time),
+                   headers={"x-amz-version-id": oi.version_id or None})
+
+    # --- object tagging -----------------------------------------------------
+
+    def put_object_tagging(self, ak):
+        self._authorize(ak)
+        tags = xu.parse_tagging(self._read_body())
+        self.s3.obj.put_object_tags(self.bucket, self.key,
+                                    urllib.parse.urlencode(tags),
+                                    self._opts())
+        self._send(200)
+
+    def get_object_tagging(self, ak):
+        self._authorize(ak)
+        enc = self.s3.obj.get_object_tags(self.bucket, self.key,
+                                          self._opts())
+        self._send(200, xu.tagging_xml(dict(urllib.parse.parse_qsl(enc))))
+
+    def delete_object_tagging(self, ak):
+        self._authorize(ak)
+        self.s3.obj.delete_object_tags(self.bucket, self.key, self._opts())
+        self._send(204)
+
+    # --- multipart ----------------------------------------------------------
+
+    def initiate_upload(self, ak):
+        self._authorize(ak)
+        self._refuse_locked_bucket()
+        if self.hdr.get("x-amz-server-side-encryption") or self.hdr.get(
+                "x-amz-server-side-encryption-customer-algorithm"):
+            # multipart SSE (per-part cipher streams) is not wired in
+            # either package; refuse instead of storing parts unencrypted
+            raise dt.NotImplemented(self.bucket, self.key)
+        opts = self._opts()
+        opts.user_defined = self._user_meta()
+        uid = self.s3.obj.new_multipart_upload(self.bucket, self.key, opts)
+        self._send(200, xu.initiate_multipart_xml(self.bucket, self.key, uid))
+
+    def put_part(self, ak):
+        self._authorize(ak)
+        part_id = int(self.q("partNumber"))
+        uid = self.q("uploadId")
+        size = int(self.hdr.get("content-length", "-1") or "-1")
+        if self.hdr.get("x-amz-content-sha256", "") == STREAMING_PAYLOAD:
+            size = int(self.hdr.get("x-amz-decoded-content-length",
+                                    str(size)))
+        if size < 0:
+            return self._error("MissingContentLength",
+                               "Content-Length required", 411)
+        self._check_quota(size)  # quota applies to multipart traffic too
+        # Content-MD5 / x-amz-content-sha256 are verified on part bodies
+        # exactly like PutObject
+        hr = self._hash_reader(size)
+        pi = self.s3.obj.put_object_part(self.bucket, self.key, uid,
+                                         part_id, hr, size)
+        self._send(200, headers={"ETag": f'"{pi.etag}"'})
+
+    def list_parts(self, ak):
+        self._authorize(ak)
+        info = self.s3.obj.list_object_parts(
+            self.bucket, self.key, self.q("uploadId"),
+            int(self.q("part-number-marker", "0") or "0"),
+            min(int(self.q("max-parts", "1000") or "1000"), 10_000))
+        self._send(200, xu.list_parts_xml(info))
+
+    def list_uploads(self, ak):
+        self._authorize(ak)
+        self.s3.obj.get_bucket_info(self.bucket)
+        prefix = self.q("prefix")
+        max_uploads = min(int(self.q("max-uploads", "1000") or "1000"),
+                          10_000)
+        info = self.s3.obj.list_multipart_uploads(self.bucket, prefix,
+                                                  max_uploads)
+        self._send(200, xu.list_uploads_xml(self.bucket, prefix, max_uploads,
+                                            info))
+
+    def abort_upload(self, ak):
+        self._authorize(ak)
+        self.s3.obj.abort_multipart_upload(self.bucket, self.key,
+                                           self.q("uploadId"))
+        self._send(204)
+
+    def complete_upload(self, ak):
+        self._authorize(ak)
+        parts = xu.parse_complete_multipart(self._read_body())
+        oi = self.s3.obj.complete_multipart_upload(
+            self.bucket, self.key, self.q("uploadId"), parts, self._opts())
+        self._send(200, xu.complete_multipart_xml(
+            f"{self.s3.endpoint()}/{self.bucket}/{self.key}",
+            self.bucket, self.key, oi.etag),
+            headers={"x-amz-version-id": oi.version_id or None})
+
+
+class _CappedReader:
+    """Bound a socket read to the declared Content-Length (socket streams
+    never EOF on keep-alive connections); reports consumption back to the
+    handler for end-of-request draining. The port's erasure encoder reads
+    through ``read`` until a block is whole (the JAX package's
+    ``readinto`` route into pooled buffers is not ported)."""
+
+    def __init__(self, raw, size: int, handler=None):
+        self.raw = raw
+        self.remaining = max(0, size) if size >= 0 else -1
+        self.handler = handler
+
+    def read(self, n: int = -1) -> bytes:
+        if self.remaining == 0:
+            return b""
+        if self.remaining > 0:
+            n = self.remaining if n < 0 else min(n, self.remaining)
+        b = self.raw.read(n)
+        if self.remaining > 0:
+            self.remaining -= len(b)
+        if self.handler is not None:
+            self.handler._consumed += len(b)
+        return b

@@ -5,7 +5,9 @@ discipline around xl.meta).
 
 ``durable_replace(tmp, dst)`` is the commit primitive of xl.meta writes
 and part promotions, ``durable_replace_dir`` that of rename_data's dataDir
-move, ``fsync_after_write`` that of in-place appends. The policy is the JAX
+move, ``fsync_after_write`` that of in-place appends, ``durable_write`` that
+of small whole files (the MRF journal). The stranded-tmp reaper of the JAX
+package's ``durable_write`` is not ported. The policy is the JAX
 package's default, ``off``, unless the environment's ``MINIO_TPU_FSYNC``
 names another (the port has no config registry yet, so the JAX package's
 stored-config layer between the two is absent):
@@ -221,3 +223,28 @@ def fsync_after_write(path: str, mode: str | None = None) -> None:
         fsync_path(path, strict=True)
     elif m == FSYNC_BATCHED:
         _flusher.enqueue(path)
+
+
+#: durable_write's tmp prefix (the JAX package's): distinctive, so no
+#: user-named destination is ever taken for a stranded tmp
+_TMP_PREFIX = ".graft-tmp."
+
+
+def durable_write(path: str, data: bytes, mode: str | None = None) -> None:
+    """Whole-file write + durable commit: a tmp beside ``path``,
+    ``durable_replace`` over it, the tmp unlinked on failure (the MRF
+    journal's writer). Raises OSError like ``os.replace``."""
+    d, base = os.path.split(path)
+    tmp = os.path.join(
+        d or ".",
+        f"{_TMP_PREFIX}{base}.{os.getpid()}.{threading.get_ident()}")
+    try:
+        with open(tmp, "wb") as f:
+            f.write(data)
+        durable_replace(tmp, path, mode)
+    except OSError:
+        try:
+            os.unlink(tmp)
+        except OSError:
+            pass
+        raise

@@ -9,8 +9,10 @@ round trip on the card; the S3 Select scan kernel (K6) on lineitem blocks
 at B = 1, 16 and 128, the edge-case block and the edge blocks of the chip
 smoke (a row longer than a tile and its halo, no newline, wide rows), also
 with tiles forced small so that many rows cross tiles, and one select_scan
-flush and one select through the CUDA queue. Marked ``cuda``: they skip on
-hosts without a CUDA card. On the card:
+flush and one select through the CUDA queue; the object layer and the S3
+server (signed requests over HTTP, the MRF healing lost drives) on the
+card against the CPU, file for file. Marked ``cuda``: they skip on hosts
+without a CUDA card. On the card:
 
     MINIO_TPU_TEST_ON_DEVICE=1 MINIO_TPU_LOCKRANK=0 \
         python -m pytest -m cuda tests/test_torch_cuda.py -q
@@ -676,4 +678,123 @@ def test_objectlayer_on_card_matches_cpu(dev, tmp_path, monkeypatch):
     assert card[2] == host[2]
     for name in ("gf_encode_batched", "gf_matmul_batched",
                  "highwayhash256_chunks"):
+        assert launched[name] > 0, name
+
+
+S3_AK, S3_SK = "card-admin", "card-admin-secret"
+S3_KEY = bytes(range(32))
+S3_SSE = {"x-amz-server-side-encryption-customer-algorithm": "AES256",
+          "x-amz-server-side-encryption-customer-key":
+              __import__("base64").b64encode(S3_KEY).decode(),
+          "x-amz-server-side-encryption-customer-key-md5":
+              __import__("base64").b64encode(
+                  __import__("hashlib").md5(S3_KEY).digest()).decode()}
+S3_CSV = b"".join(b"%d|%d|row%d\n" % (i, (i * 37) % 1000, i)
+                  for i in range(3000))
+S3_SELECT = (b"<SelectObjectContentRequest><Expression>SELECT s._1 FROM "
+             b"s3object s WHERE s._2 &lt; 100</Expression><ExpressionType>"
+             b"SQL</ExpressionType><InputSerialization><CSV><FileHeaderInfo>"
+             b"NONE</FileHeaderInfo><FieldDelimiter>|</FieldDelimiter></CSV>"
+             b"</InputSerialization><OutputSerialization><CSV/>"
+             b"</OutputSerialization></SelectObjectContentRequest>")
+
+
+def _s3server_run(root, device, monkeypatch) -> tuple:
+    """Signed requests over http.client to the S3 server over one 16+4 /
+    1 MiB set on ``device`` (None = the card): PUTs (one SSE-C), a
+    SelectObjectContent, then two drives lost, GETs that rebuild and feed
+    the MRF, and the MRF drained. Returns each response's status, ETag and
+    body, and every file of the set."""
+    import hashlib
+    import http.client
+    import itertools
+    import os
+    import secrets
+    import shutil
+    import time
+    import urllib.parse
+    from minio_tpu_torch.objectlayer import ErasureObjects
+    from minio_tpu_torch.server import S3Server
+    from minio_tpu_torch.server.auth import UNSIGNED_PAYLOAD, SigV4Verifier
+    from minio_tpu_torch.storage.xlstorage import XLStorage
+    _pin_object_ids(monkeypatch)
+    keys = itertools.count(1)
+    monkeypatch.setattr(secrets, "token_bytes", lambda n=32: hashlib.sha256(
+        b"%d" % next(keys)).digest()[:n])
+    dirs = [os.path.join(str(root), f"d{i:02d}") for i in range(20)]
+    ol = ErasureObjects([XLStorage(d) for d in dirs], default_parity=4,
+                        block_size=1 << 20, device=device)
+    srv = S3Server(ol, "127.0.0.1", 0, access_key=S3_AK, secret_key=S3_SK,
+                   device=device)
+    srv.start_background()
+    srv.start_background_services()
+    signer = SigV4Verifier(lambda ak: None)
+    conn = http.client.HTTPConnection("127.0.0.1", srv.port, timeout=300)
+
+    def req(method, path, body=b"", headers=None, query=None):
+        query = {k: [v] for k, v in (query or {}).items()}
+        h = {"host": f"127.0.0.1:{srv.port}", **(headers or {})}
+        h["authorization"] = signer.sign_request(
+            S3_AK, S3_SK, method, path, query, h, UNSIGNED_PAYLOAD)
+        qs = urllib.parse.urlencode([(k, v[0]) for k, v in query.items()])
+        conn.request(method, path + (f"?{qs}" if qs else ""), body=body,
+                     headers=h)
+        r = conn.getresponse()
+        return r.status, r.getheader("ETag"), r.read()
+
+    try:
+        out = [req("PUT", "/b")]
+        out += [req("PUT", f"/b/{n}", d) for n, d in OL_BODIES.items()]
+        big = OL_BODIES["o1048583"]
+        out.append(req("PUT", "/b/enc", big, S3_SSE))
+        out.append(req("PUT", "/b/t.csv", S3_CSV))
+        out.append(req("POST", "/b/t.csv", S3_SELECT,
+                       query={"select": "", "select-type": "2"}))
+        for i in (0, 9):
+            shutil.rmtree(os.path.join(dirs[i], "b"))
+        ol.heal_bucket("b")
+        names = [*OL_BODIES, "enc", "t.csv"]
+        out += [req("GET", f"/b/{n}", headers=S3_SSE if n == "enc" else
+                    None) for n in names]
+        out.append(req("GET", "/b/enc",
+                       headers={**S3_SSE, "range": "bytes=65530-70000"}))
+        deadline = time.monotonic() + 300
+        while srv.mrf.healed + srv.mrf.failed < len(names):
+            assert time.monotonic() < deadline, srv.mrf.stats()
+            time.sleep(0.05)
+        assert srv.mrf.failed == 0
+    finally:
+        conn.close()
+        srv.shutdown()
+    files = {}
+    for d, _sub, fnames in os.walk(str(root)):
+        if ".minio.sys" in d:
+            continue
+        for n in fnames:
+            with open(os.path.join(d, n), "rb") as f:
+                files[os.path.relpath(os.path.join(d, n), str(root))] = \
+                    f.read()
+    return out, files
+
+
+def test_s3server_on_card_matches_cpu(dev, tmp_path, monkeypatch):
+    """The S3 server on the card answers the same signed requests with the
+    same statuses, ETags and bodies as on the CPU, its MRF heals the lost
+    drives to the same files, and the path launched K1, K2, K4, K5 and
+    K6."""
+    from minio_tpu_torch.ops import chacha_cuda, hh_cuda, rs_cuda, scan_cuda
+    for mod in (rs_cuda, hh_cuda, chacha_cuda, scan_cuda):
+        mod.reset_launches()
+    card = _s3server_run(tmp_path / "card", None, monkeypatch)
+    launched = {**rs_cuda.launches, **hh_cuda.launches,
+                **chacha_cuda.launches, **scan_cuda.launches}
+    host = _s3server_run(tmp_path / "cpu", "cpu", monkeypatch)
+    assert [r[0] for r in card[0]] == [200] * 7 + [200] * 5 + [206]
+    assert card[0] == host[0]
+    assert card[1] == host[1]
+    got = {r[2] for r in card[0][7:12]}
+    assert all(d in got for d in OL_BODIES.values())
+    assert card[0][-1][2] == OL_BODIES["o1048583"][65530:70001]
+    for name in ("gf_encode_batched", "gf_matmul_batched", "chacha20_xor",
+                 "highwayhash256_chunks", "scan_codes"):
         assert launched[name] > 0, name

@@ -1,8 +1,8 @@
 """Guards of the port's boundaries: minio_tpu_torch and chip_smoke.py import
 neither JAX nor anything of the JAX package (minio_tpu), nor the
-``msgpack`` and ``cryptography`` wheels the card's machine lacks, and the
-port's entry points run on the CUDA card unless the caller asks for the
-CPU."""
+``msgpack``, ``cryptography`` and ``requests`` wheels the card's machine
+lacks, and the port's entry points run on the CUDA card unless the caller
+asks for the CPU."""
 import ast
 import os
 import pathlib
@@ -20,17 +20,18 @@ SOURCES = sorted(str(p.relative_to(REPO)) for p in PKG.rglob("*.py")) + \
 
 #: top-level packages the port must not import: JAX, the JAX package, and
 #: the wheels the card's machine does not have
-FORBIDDEN = ("jax", "jaxlib", "minio_tpu", "msgpack", "cryptography")
+FORBIDDEN = ("jax", "jaxlib", "minio_tpu", "msgpack", "cryptography",
+             "requests")
 #: the port's module count (walk_packages), raised as slices land
-MODULES = 59
+MODULES = 73
 
 # imports every port module and chip_smoke.py with jax unimportable and a
-# finder that refuses minio_tpu, msgpack and cryptography and their
-# submodules (but not minio_tpu_torch)
+# finder that refuses minio_tpu, msgpack, cryptography and requests and
+# their submodules (but not minio_tpu_torch)
 _PROBE = r"""
 import importlib, importlib.util, pkgutil, sys
 sys.modules["jax"] = None
-REFUSED = ("minio_tpu", "msgpack", "cryptography")
+REFUSED = ("minio_tpu", "msgpack", "cryptography", "requests")
 
 class Refuse:
     def find_spec(self, name, path=None, target=None):
@@ -84,11 +85,13 @@ def test_entry_points_need_cuda_unless_cpu_is_asked():
     from minio_tpu_torch.erasure import Erasure
     from minio_tpu_torch.ops.rs_torch import ReedSolomon
     from minio_tpu_torch.runtime.dispatch import DispatchQueue
+    from minio_tpu_torch.server import S3Server
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is valid")
     for make in (lambda: Erasure(4, 2, 1 << 16),
                  lambda: ReedSolomon(4, 2),
-                 lambda: DispatchQueue()):
+                 lambda: DispatchQueue(),
+                 lambda: S3Server(None)):
         with pytest.raises(RuntimeError, match="CUDA"):
             make()
     er = Erasure(4, 2, 1 << 16, device="cpu")
