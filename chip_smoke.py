@@ -101,15 +101,44 @@ Phases, each printing one JSON line:
    deep and the MRF restores the byte. Teardown by DeleteObjects. K1, K2,
    K4, K5 and K6 must launch. Each step reports the clients' request
    p50/p99.
+10. obs path — the observability plane over the S3 server path's
+   deployment (two 16+4 sets, 1 MiB blocks), 32 signing clients: PUT and
+   GET of 64 objects of 4 MiB, two drives per set replaced, a degraded
+   GET of all feeding the MRF, drained, with the stage attribution of
+   PUT, GET and heal (per-stage p50/p99 and share of wall); the node
+   scrape with ?attribution=1 under the naming lint of
+   tests/test_obs_naming.py, the kernel, lane, dispatch, device_obs and
+   qos families present; one stored trace tree by its trace id, holding a
+   kernel span linked to the request; the timeline's per-lane
+   utilisation and queue-depth p99; the device plane (ledger balanced
+   after the drain, builds and launches per (op, shape), GiB/s and
+   roofline ratio per op, each at most 1.05, the allocator's peak); a 3 s
+   torch.profiler session over a GET load through the admin API, the
+   card's own busy time beside the flushes' CUDA-event intervals; an
+   admission burst of 64 concurrent 4 MiB PUTs (Expect: 100-continue,
+   honouring Retry-After) against a second S3Server on the same layer
+   with max_requests=4 and MINIO_TPU_QOS_MAX_WAIT_MS=20, every object
+   stored exact; and the object layer's PUT and GET of the 64 with every
+   plane off and on (MINIO_TPU_TIMELINE, MINIO_TPU_DEVICE_OBS,
+   MINIO_TPU_TRACE_SPANS): a discarded warm-up turn, then three blocks of
+   off, on, on, off, with each block's on/off ratio and their spread. K1,
+   K2 and K5 must launch.
 
-Each sub-phase of a path reports, beside its wall and GiB/s, the dispatch
-queue's flushes and items by op, each lane's (bulk, interactive) busy
-seconds and share of the wall, the completers' seconds, the interactive
+Each sub-phase of a path reports, beside its wall and GiB/s, the streams'
+occupancy (``stream_occupancy``: the union of the flushes' CUDA-event
+intervals over the wall, and each lane's share; the streams' waits for
+the host are in it, so it is not the card's busy share, which only the
+obs path's profiler window measures), the flight recorder's per-lane
+busy ratio, busy share and batch fill (``timeline``: a lane is busy from
+a flush's start to its readback landing), the dispatch queue's flushes
+and items by op and by lane, the completers' seconds, the interactive
 lane's async completions, the requests' waits on the queue by op, and the
 seconds inside the host hashes by engine (``native``; ``numpy`` must read
 0 calls). A failed flush (a launch or readback that raised: its waiters
 get the error on the card; a CPU queue salvages it on the host) fails the
-run, as does a call of the numpy hashes on a path.
+run, as do a call of the numpy hashes on a path, a library built inside a
+timed sub-phase, an occupancy share outside [0, 1] and an instrument
+(dispatch or storage) that raised.
 
 Kernel launch counts are reset just before each path (each SSE sub-phase)
 and read just after; every kernel a path should run must have launched.
@@ -126,6 +155,7 @@ import io
 import json
 import os
 import shutil
+import socket
 import subprocess
 import sys
 import threading
@@ -1211,12 +1241,59 @@ def merge_sizes(into: dict, sizes: dict) -> None:
             dst[b] = dst.get(b, 0) + v
 
 
+#: the device plane's readings at the start of the current sub-phase
+_MARK: dict = {}
+
+
 def _reset(q) -> None:
-    """Zero the queue's and the request waits' counters before a
-    sub-phase."""
+    """Zero the queue's, the request waits' and the flight recorder's
+    counters before a sub-phase, and read the streams' occupied seconds,
+    the build count and the storage instruments' errors (``_phase_row``
+    takes the differences)."""
+    from minio_tpu_torch.obs import device, timeline
     from minio_tpu_torch.runtime import completion
+    from minio_tpu_torch.storage import xlstorage
     q.reset_stats()
     completion.reset_stats()
+    timeline.reset()
+    _MARK.update(occupancy=device.occupancy_totals(),
+                 builds=device.compiles_total(),
+                 storage_obs_errors=xlstorage.obs_errors())
+
+
+def _device_rows(wall: float) -> dict:
+    """The sub-phase's stream occupancy (the union of the flushes'
+    CUDA-event intervals on the card's clock over the wall, and each
+    lane's own share: the card's work plus the streams' waits for the
+    host) and the flight recorder's per-lane figures: its last-minute
+    ``busy_ratio`` as a scrape reads it, and the lane's busy seconds
+    (flush start to readback landed) over the wall. Fails on a share
+    outside [0, 1], on a library built inside the sub-phase and on a
+    storage instrument that raised."""
+    from minio_tpu_torch.obs import device, timeline
+    from minio_tpu_torch.storage import xlstorage
+    builds = device.compiles_total() - _MARK["builds"]
+    check(builds == 0, f"{builds} libraries built during a timed phase")
+    errs = xlstorage.obs_errors() - _MARK["storage_obs_errors"]
+    check(errs == 0, f"{errs} storage instruments raised")
+    occ = device.occupancy_share(_MARK["occupancy"],
+                                 device.occupancy_totals(), wall)
+    check(len(occ) == 1, f"flush intervals on {sorted(occ)}")
+    (dev_occ,) = occ.values()
+    if dev_occ["union"] is not None:
+        for what, v in [("union", dev_occ["union"]),
+                        *dev_occ["lanes"].items()]:
+            check(0.0 <= v <= 1.0, f"stream occupancy of {what} is {v}")
+    util = timeline.utilization()
+    return {"stream_occupancy": dev_occ,
+            "timeline": {
+                "lanes": {ln: {"busy_ratio": st["busy_ratio"],
+                               "busy_share":
+                                   st["busy_seconds_total"] / wall,
+                               "flushes": st["flushes"],
+                               "batch_fill_avg": st["batch_fill_avg"]}
+                          for ln, st in util["lanes"].items()},
+                "queue_depth_p99": util["queue_depth"]["p99"]}}
 
 
 def _phase_row(q, total: int, wall: float, hashes: _HashClocks) -> dict:
@@ -1235,10 +1312,9 @@ def _phase_row(q, total: int, wall: float, hashes: _HashClocks) -> dict:
     check(st["salvaged_batches"] == 0,
           f"{st['salvaged_batches']} flushes ({st['salvaged_items']} items) "
           f"were salvaged on the host")
-    lanes = {name: {**v, "busy_share": v["busy_s"] / wall}
-             for name, v in st["lanes"].items()}
+    check(st["obs_errors"] == 0, f"{st['obs_errors']} instruments raised")
     return {"wall_s": wall, "gib_s": total / wall / 2**30,
-            "lanes": lanes, "completer_s": st["completer_seconds"],
+            "lanes": st["lanes"], "completer_s": st["completer_seconds"],
             "interactive_async_completions":
                 st["lanes"]["interactive"]["async_completions"],
             "failed": {"batches": st["failed_batches"],
@@ -1254,11 +1330,8 @@ def _phase_row(q, total: int, wall: float, hashes: _HashClocks) -> dict:
             "items_per_flush_by_op": {
                 op: v["items"] / v["batches"]
                 for op, v in st["ops"].items() if v["batches"]},
-            "dispatcher_busy_s": st["flush_seconds"],
-            "dispatcher_busy_share": st["flush_seconds"] / wall,
-            "dispatcher_busy_s_by_op": {
-                op: v for op, v in st["seconds_by_op"].items() if v},
-            "ops": {op: v for op, v in st["ops"].items() if v["items"]}}
+            "ops": {op: v for op, v in st["ops"].items() if v["items"]},
+            **_device_rows(wall)}
 
 
 def phase_main(device, n_objects: int, obj_bytes: int, seed: int) -> dict:
@@ -1836,7 +1909,7 @@ def phase_select(device, table: dict, n_objects: int, seed: int) -> dict:
         # dispatcher's scan flush (stacking, then K6 with its read-back)
         clocks = [_Clock(mod, name) for mod, name in (
             (s3object, "erasure_decode"), (s3object, "run_select"),
-            (dispatch, "_stack"), (scan_cuda, "scan_codes"))]
+            (dispatch, "_stage"), (scan_cuda, "scan_codes"))]
         for c in clocks:
             c.__enter__()
         try:
@@ -2236,13 +2309,34 @@ class _S3Client:
             self._local.conn = None
 
     def send(self, method: str, url: str, body: bytes, headers: dict,
-             close: bool = False) -> tuple:
+             close: bool = False, expect: bool = False) -> tuple:
         """One request on this thread's connection: (status, headers,
         body). ``close`` drops the connection after it (the server closes
-        one after an aws-chunked body)."""
+        one after an aws-chunked body). ``expect`` sends the headers with
+        ``Expect: 100-continue`` and the body only after the server's 100
+        (or after 1 s without an answer), as the AWS SDKs send a PUT: a
+        refusal then arrives before the body is sent."""
+        import select
         t0 = time.monotonic()
         c = self._conn()
-        c.request(method, url, body=body, headers=headers)
+        if not expect:
+            c.request(method, url, body=body, headers=headers)
+        else:
+            c.putrequest(method, url, skip_host=True,
+                         skip_accept_encoding=True)
+            for k, v in headers.items():
+                c.putheader(k, v)
+            c.putheader("Content-Length", str(len(body)))
+            c.putheader("Expect", "100-continue")
+            c.endheaders()
+            if select.select([c.sock], [], [], 1.0)[0] and \
+                    c.sock.recv(12, socket.MSG_PEEK)[9:12] == b"100":
+                head = b""
+                while not head.endswith(b"\r\n\r\n"):
+                    head += c.sock.recv(1)
+                c.send(body)
+            elif not select.select([c.sock], [], [], 0)[0]:
+                c.send(body)
         r = c.getresponse()
         data = r.read()
         self.latencies.append(time.monotonic() - t0)
@@ -2251,7 +2345,8 @@ class _S3Client:
         return r.status, {k.lower(): v for k, v in r.getheaders()}, data
 
     def request(self, method: str, path: str, query: dict | None = None,
-                body: bytes = b"", headers: dict | None = None) -> tuple:
+                body: bytes = b"", headers: dict | None = None,
+                expect: bool = False) -> tuple:
         import urllib.parse
         from minio_tpu_torch.server.auth import UNSIGNED_PAYLOAD
         query = {k: [v] for k, v in (query or {}).items()}
@@ -2261,7 +2356,7 @@ class _S3Client:
             UNSIGNED_PAYLOAD)
         qs = urllib.parse.urlencode([(k, v[0]) for k, v in query.items()])
         url = urllib.parse.quote(path) + (f"?{qs}" if qs else "")
-        return self.send(method, url, body, h)
+        return self.send(method, url, body, h, expect=expect)
 
     def chunked_put(self, path: str, payload: bytes) -> tuple:
         """A STREAMING-AWS4-HMAC-SHA256-PAYLOAD upload in 64 KiB chunks,
@@ -2334,7 +2429,7 @@ def phase_s3server(device, table: dict, sizes: dict, seed: int) -> dict:
     with 16 KiB chunks), driven over HTTP by signed requests from a pool of
     client threads (see the module docstring, step 9). Launch counts are
     reset once before the path and read after it; each step reports its
-    own, the clients' request p50/p99 and the dispatcher's busy share."""
+    own, the clients' request p50/p99 and the lanes' busy shares."""
     import base64
     import hashlib
     import re
@@ -2775,6 +2870,465 @@ def phase_s3server(device, table: dict, sizes: dict, seed: int) -> dict:
     return result
 
 
+#: the obs path: admission's gate for the burst, its bounded wait, the
+#: burst's PUTs, and the planes' off/on turns: one discarded warm-up turn
+#: after the burst, then three ABBA blocks
+OBS_MAX_REQUESTS = 4
+OBS_MAX_WAIT_MS = 20
+OBS_WARMUP = "on"
+OBS_TURNS = ("off", "on", "on", "off") * 3
+#: the admin plane's torch.profiler session over a GET load, seconds
+OBS_TRACE_S = 3.0
+#: each plane's own switch, set to 0 for an "off" turn
+OBS_SWITCHES = ("MINIO_TPU_TIMELINE", "MINIO_TPU_DEVICE_OBS",
+                "MINIO_TPU_TRACE_SPANS")
+#: families the obs path's scrape must hold: kernel, lane, dispatch,
+#: device_obs and qos groups
+OBS_FAMILIES = ("minio_tpu_kernel_op_latency_seconds",
+                "minio_tpu_kernel_op_duration_seconds",
+                "minio_tpu_lane_flushes_total",
+                "minio_tpu_dispatch_batches_total",
+                "minio_tpu_device_obs_enabled", "minio_tpu_device_hbm_used",
+                "minio_tpu_qos_admission_inflight",
+                "minio_tpu_qos_class_latency_seconds",
+                "minio_tpu_stage_share_of_wall")
+#: and, on the card, the device plane's CUDA-event families
+OBS_CARD_FAMILIES = ("minio_tpu_device_obs_stream_occupancy_ratio",
+                     "minio_tpu_device_seconds_total",
+                     "minio_tpu_kernel_achieved_gibs",
+                     "minio_tpu_device_hbm_bytes_in_use")
+
+
+def lint_exposition(text: str) -> dict:
+    """The naming lint of tests/test_obs_naming.py over one exposition:
+    every family snake_case under ``minio_tpu_``, one HELP and one TYPE
+    before its first sample. Returns {family: type}."""
+    import re
+    name_re = re.compile(r"^minio_tpu_[a-z0-9]+(_[a-z0-9]+)*$")
+    lines = [ln for ln in text.splitlines() if ln.strip()]
+    helps, types, samples = {}, {}, []
+    for i, ln in enumerate(lines):
+        if ln.startswith("# HELP "):
+            helps.setdefault(ln.split()[2], i)
+        elif ln.startswith("# TYPE "):
+            fam = ln.split()[2]
+            check(fam not in types, f"duplicate # TYPE for {fam}")
+            check(ln.split()[3] in ("gauge", "counter", "histogram",
+                                    "summary", "untyped"), ln)
+            types[fam] = (i, ln.split()[3])
+        else:
+            check(not ln.startswith("#"), f"unknown comment line {ln}")
+            cut = min([len(ln)] + [ln.find(c) for c in "{ " if c in ln])
+            samples.append((i, ln[:cut]))
+    hist = {n[:-len("_bucket")] for _, n in samples
+            if n.endswith("_bucket")}
+    for i, name in samples:
+        fam = next((name[:-len(suf)] for suf in ("_bucket", "_count",
+                                                  "_sum")
+                    if name.endswith(suf) and name[:-len(suf)] in hist),
+                   name)
+        check(bool(name_re.match(fam)), f"metric name {name}")
+        check(fam in types and fam in helps and types[fam][0] < i
+              and helps[fam] < i, f"{name} lacks a HELP/TYPE before it")
+    return {f: t for f, (_, t) in types.items()}
+
+
+def phase_obs(device, n_objects: int, obj_bytes: int, card: str,
+              seed: int) -> dict:
+    """The observability plane over the S3 server (module docstring, step
+    10): the object layer path's deployment behind the port's S3Server,
+    32 signing clients; stage attribution of PUT, GET and heal, the
+    metrics scrape under the naming lint, a trace tree with its kernel
+    span, the timeline, the device plane, an admission burst against a
+    second server with 4 slots, and the object layer's walls with every
+    plane off and on, in turns."""
+    import json as _json
+    import uuid
+    import numpy as np
+    from minio_tpu_torch.erasure.streaming import PreallocSink
+    from minio_tpu_torch.objectlayer import ErasureSets, ServerPools
+    from minio_tpu_torch.obs import attribution, device as dev_obs
+    from minio_tpu_torch.obs import timeline
+    from minio_tpu_torch.runtime.dispatch import global_queue
+    from minio_tpu_torch.server import S3Server
+    from minio_tpu_torch.storage.xlstorage import XLStorage
+
+    n_disks = OL_SETS * (K + M)
+    root = _disk_root("obs")
+    disk_dirs = [os.path.join(root, f"d{i:02d}") for i in range(n_disks)]
+    gen = np.random.default_rng(seed + 4)
+    dep = str(uuid.UUID(bytes=gen.bytes(16)))
+    bucket = "obs"
+    q = global_queue(device)
+    sets = ErasureSets([XLStorage(d) for d in disk_dirs], OL_SETS, K + M,
+                       dep, default_parity=M, block_size=BLOCK,
+                       device=device)
+    pool = ServerPools([sets])
+    srv = S3Server(pool, "127.0.0.1", 0, access_key=S3_ACCESS_KEY,
+                   secret_key=S3_SECRET_KEY, region=S3_REGION, device=device)
+    srv.start_background()
+    srv.start_background_services()
+    mrf = srv.mrf
+    partial: dict = {}
+    for layer in srv._erasure_layers():
+        add = layer.on_partial
+
+        def record(b, o, v="", scan_mode="normal", _add=add):
+            partial.setdefault(o, []).append(scan_mode)
+            _add(b, o, v, scan_mode=scan_mode)
+
+        layer.on_partial = record
+    client = _S3Client(srv.port)
+    bodies = {f"o/{j:04d}": gen.bytes(obj_bytes) for j in range(n_objects)}
+    names = sorted(bodies)
+    result = {"deployment": f"1 pool x {OL_SETS} sets x {K + M} drives",
+              "geometry": f"{K}+{M}", "block": BLOCK, "objects": n_objects,
+              "object_bytes": obj_bytes, "client_threads": S3_THREADS,
+              "card": card, "cut": "one process over local disk "
+                                   "directories, clients over loopback"}
+
+    def run(label, fn, jobs, nbytes, kernels=(), threads=S3_THREADS):
+        _reset(q)
+        client.latencies.clear()
+        before = read_launches()
+        with _HashClocks() as hashes:
+            t0 = time.monotonic()
+            with ThreadPoolExecutor(max_workers=threads) as ex:
+                res = list(ex.map(fn, jobs))
+            wall = time.monotonic() - t0
+        row = _phase_row(q, nbytes, wall, hashes)
+        after = read_launches()
+        row["launches"] = {k: after[k] - before.get(k, 0) for k in after}
+        lat = list(client.latencies)
+        if lat:
+            row.update(requests=len(lat),
+                       request_p50_ms=_percentile(lat, 0.50) * 1e3,
+                       request_p99_ms=_percentile(lat, 0.99) * 1e3)
+        result[label] = row
+        if device.type == "cuda":
+            for name in kernels:
+                check(row["launches"][name] > 0,
+                      f"kernel {name} never launched in obs {label}")
+        return res
+
+    def ok(status, want, what):
+        check(status == want, f"{what}: HTTP {status}, want {want}")
+
+    def stages(op):
+        rep = attribution.report().get(op)
+        check(rep is not None and rep["count"] > 0, f"no {op} attribution")
+        return {"count": rep["count"], "wall_p50_s": rep["wall_p50_s"],
+                "wall_p99_s": rep["wall_p99_s"],
+                "stages": {st: {k: v[k] for k in ("p50_s", "p99_s",
+                                                   "share_of_wall")}
+                           for st, v in rep["stages"].items()}}
+
+    def get_exact(name):
+        st, _h, data = client.request("GET", f"/{bucket}/{name}")
+        ok(st, 200, f"GET {name}")
+        check(data == bodies[name], f"GET {name} is not exact")
+        return st
+
+    reset_launches()
+    ok(client.request("PUT", f"/{bucket}")[0], 200, "PUT bucket")
+    timeline.configure()
+    attribution.reset()
+
+    # 1. PUT and GET, with their stage attribution
+    def put(name):
+        st, _h, data = client.request("PUT", f"/{bucket}/{name}",
+                                      body=bodies[name])
+        ok(st, 200, f"PUT {name}: {data[:200]!r}")
+
+    total = n_objects * obj_bytes
+    run("put", put, names, total, ("gf_encode_batched",
+                                   "highwayhash256_chunks"))
+    run("get", get_exact, names, total, ("highwayhash256_chunks",))
+    result["attribution"] = {"put": stages("put"), "get": stages("get")}
+
+    # 2. two drives of each set replaced; degraded GETs feed the MRF,
+    # drained; the heal stages
+    for s in range(OL_SETS):
+        for i in OL_LOST:
+            path = disk_dirs[s * (K + M) + i]
+            shutil.rmtree(path)
+            sets.sets[s]._disks[i] = XLStorage(path)
+    hb = pool.heal_bucket(bucket)
+    check(hb.after_state.count("ok") == n_disks, f"heal_bucket: {hb}")
+    run("degraded_get", get_exact, names, total,
+        ("highwayhash256_chunks", "gf_matmul_batched"))
+    deadline = time.monotonic() + 60
+    while set(names) - set(partial) and time.monotonic() < deadline:
+        time.sleep(0.01)
+    check(not set(names) - set(partial), "degraded GETs missed the MRF")
+
+    def drain(_):
+        deadline = time.monotonic() + 600
+        while mrf.stats()["healed"] + mrf.stats()["failed"] < len(partial) \
+                or not mrf.dq.q.empty():
+            check(time.monotonic() < deadline, "the MRF did not drain")
+            time.sleep(0.01)
+        return True
+
+    run("mrf_drain", drain, [0], 0, ("gf_matmul_batched",), threads=1)
+    check(mrf.stats()["failed"] == 0, f"MRF {mrf.stats()}")
+    result["attribution"]["heal"] = stages("heal")
+
+    # 3. the scrape, under the naming lint, with the data path's families
+    t0 = time.monotonic()
+    st, h, data = client.request("GET", "/minio/v2/metrics/node",
+                                 query={"attribution": "1"})
+    ok(st, 200, "metrics scrape")
+    fams = lint_exposition(data.decode())
+    want = OBS_FAMILIES + (OBS_CARD_FAMILIES if device.type == "cuda"
+                           else ())
+    missing = [f for f in want if f not in fams]
+    check(not missing, f"scrape lacks {missing}")
+    result["scrape"] = {"families": len(fams), "bytes": len(data),
+                        "lint": "passed", "required": list(want),
+                        "wall_s": time.monotonic() - t0}
+
+    # 4. one stored trace tree by its trace id: a kernel span linked to
+    # the request's spans
+    st, _h, data = client.request("GET", "/minio/admin/v3/trace",
+                                  query={"slow": "1", "count": "200"})
+    ok(st, 200, "trace ?slow=1")
+    slow = [e for e in _json.loads(data)
+            if e["name"] in ("s3.getobject", "s3.putobject")]
+    check(bool(slow), "no slow S3 trace kept")
+    tid = slow[0]["trace_id"]
+    st, _h, data = client.request("GET", "/minio/admin/v3/trace",
+                                  query={"trace_id": tid})
+    ok(st, 200, f"trace {tid}")
+    tree = _json.loads(data)
+    ids = {sp["span_id"] for sp in tree["spans"]}
+    kspans = [sp for sp in tree["spans"] if sp["name"].startswith("kernel.")
+              and any(ln["trace_id"] == tid and ln["span_id"] in ids
+                      for ln in sp.get("links", ()))]
+    check(bool(kspans), f"trace {tid} holds no kernel span linked to it")
+    result["trace"] = {"trace_id": tid, "name": tree["name"],
+                       "duration_s": tree["duration_s"],
+                       "spans": len(tree["spans"]),
+                       "kernel_spans": len(kspans),
+                       "kernel_ops": sorted({sp["name"] for sp in kspans}),
+                       "span_names": sorted({sp["name"]
+                                             for sp in tree["spans"]})}
+
+    # 5. the timeline: per-lane utilisation and queue-depth p99
+    st, _h, data = client.request("GET", "/minio/admin/v3/timeline",
+                                  query={"count": "1"})
+    ok(st, 200, "timeline")
+    tl = _json.loads(data)
+    result["timeline"] = {"lanes": tl["utilization"]["lanes"],
+                          "queue_depth": tl["utilization"]["queue_depth"],
+                          "events_total": tl["events_total"],
+                          "dropped_total": tl["dropped_total"]}
+
+    # 6. the device plane: ledger balanced after the drain, builds and
+    # first launches, GiB/s and roofline ratio per op, memory peak
+    st, _h, data = client.request("GET", "/minio/admin/v3/device")
+    ok(st, 200, "device")
+    d = _json.loads(data)
+    check(d["ledger_balanced"], f"ledger unbalanced: {d['ledger']}")
+    for op, r in d["roofline"].items():
+        check(r["roofline_ratio"] is None or r["roofline_ratio"] <= 1.05,
+              f"roofline ratio of {op} is {r['roofline_ratio']}")
+    if device.type == "cuda":
+        check(bool(d["roofline"]), "no device time on the card")
+        check(all(o["union_share"] is not None
+                  for o in d["stream_occupancy"].values()),
+              "no stream occupancy on the card")
+    result["device"] = {
+        "card": d["card"], "nvidia_smi": card,
+        "ledger_balanced": d["ledger_balanced"], "ledger": d["ledger"],
+        "builds": {k: d["compile"][k] for k in (
+            "compiles_total", "compile_seconds_total", "storms_total",
+            "first_launches_total", "launches_total")},
+        "build_table": d["compile"]["table"],
+        "launches_by_shape": d["compile"]["launches"],
+        "roofline": d["roofline"],
+        "stream_occupancy": d["stream_occupancy"],
+        "memory": d["device_memory"], "host_bufpool": d["host_bufpool"]}
+
+    # 6b. the admin plane's torch.profiler session over a GET load: the
+    # device's own busy time as CUPTI records it beside the flushes'
+    # CUDA-event intervals in the same window
+    stop = threading.Event()
+
+    def load(j):
+        while not stop.is_set():
+            get_exact(names[j % len(names)])
+            j += S3_THREADS
+
+    with ThreadPoolExecutor(max_workers=S3_THREADS) as ex:
+        futs = [ex.submit(load, j) for j in range(S3_THREADS)]
+        try:
+            st, _h, data = client.request("GET", "/minio/admin/v3/device",
+                                          query={"trace": str(OBS_TRACE_S)})
+        finally:
+            stop.set()
+        for f in futs:
+            f.result()
+    ok(st, 200, "device?trace")
+    tr = _json.loads(data)["trace"]
+    check("error" not in tr, f"device trace: {tr}")
+    shutil.rmtree(tr["logdir"], ignore_errors=True)
+    prof_busy, occupied = tr["device_busy_s"], tr["flush_stream_occupancy_s"]
+    if device.type == "cuda":
+        check(tr["device_events"] > 0 and
+              0.0 < tr["device_busy_share"] <= 1.0,
+              f"the card's busy share is {tr['device_busy_share']} "
+              f"({tr['device_events']} activity records)")
+    result["profiled_get"] = {
+        "window_s": tr["window_s"], "session_s": tr["seconds"],
+        "device_events": tr["device_events"],
+        "device_busy_s": prof_busy,
+        "device_busy_share": tr["device_busy_share"],
+        "device_idle_share": tr["device_idle_share"],
+        "flush_stream_occupancy_s": occupied,
+        "flush_stream_occupancy_share": occupied / tr["window_s"],
+        "occupancy_over_device_busy": occupied / prof_busy if prof_busy
+        else None,
+        "top_device_names": dict(list(
+            tr["device_seconds_by_name"].items())[:8])}
+
+    # 7. admission: a second server on the same layer with 4 slots and a
+    # 20 ms wait; a burst of PUTs whose clients honour Retry-After
+    ok(client.request("PUT", "/burst")[0], 200, "PUT bucket")
+    # (a rehearsal's few objects meet one slot)
+    slots = max(1, min(OBS_MAX_REQUESTS, n_objects // 16))
+    gate = S3Server(pool, "127.0.0.1", 0, access_key=S3_ACCESS_KEY,
+                    secret_key=S3_SECRET_KEY, region=S3_REGION,
+                    device=device, max_requests=slots)
+    gate.start_background()
+    burst = _S3Client(gate.port)
+    seen = {"503": 0, "reset": 0, "retries": 0}
+    lock = threading.Lock()
+
+    def put_burst(name):
+        import http.client
+        while True:
+            try:
+                st, h, data = burst.request("PUT", f"/burst/{name}",
+                                            body=bodies[name], expect=True)
+            except (OSError, http.client.HTTPException):
+                # a refusal that came after the body started (the 1 s
+                # wait for the 100 ran out): the answer is lost with the
+                # connection; wait the gate's Retry-After (1 s for a
+                # concurrency reject)
+                burst._drop()
+                with lock:
+                    seen["reset"] += 1
+                    seen["retries"] += 1
+                time.sleep(1.0)
+                continue
+            if st == 503:
+                check(b"<Code>SlowDown</Code>" in data, "503 without SlowDown")
+                with lock:
+                    seen["503"] += 1
+                    seen["retries"] += 1
+                time.sleep(int(h["retry-after"]))
+                continue
+            ok(st, 200, f"burst PUT {name}: {data[:200]!r}")
+            return
+
+    os.environ["MINIO_TPU_QOS_MAX_WAIT_MS"] = str(OBS_MAX_WAIT_MS)
+    try:
+        t0 = time.monotonic()
+        with ThreadPoolExecutor(max_workers=len(names)) as ex:
+            list(ex.map(put_burst, names))
+        burst_wall = time.monotonic() - t0
+    finally:
+        del os.environ["MINIO_TPU_QOS_MAX_WAIT_MS"]
+    adm = gate.qos_admission.stats()
+    burst.close()
+    gate.shutdown()
+    for name in names:
+        sink = PreallocSink()
+        pool.get_object("burst", name, sink)
+        check(sink.getbuffer() == bodies[name], f"burst {name} not exact")
+    result["admission"] = {
+        "max_requests": slots, "max_wait_ms": OBS_MAX_WAIT_MS,
+        "puts": len(names), "wall_s": burst_wall,
+        "slowdown_503": adm["rejected"].get("interactive", 0),
+        "client_saw_503": seen["503"],
+        "client_saw_reset": seen["reset"], "admitted": adm["admitted"],
+        "stored_exact": len(names)}
+    check(adm["rejected"].get("interactive", 0) > 0,
+          "the burst met no SlowDown")
+
+    # 8. the object layer's PUT and GET with every plane off and on, in
+    # turns, each plane by its own switch: a warm-up turn after the burst
+    # (dropped: the first turn after it is the slowest), then ABBA blocks
+    walls = []
+    try:
+        for mode in (OBS_WARMUP, *OBS_TURNS):
+            for sw in OBS_SWITCHES:
+                if mode == "off":
+                    os.environ[sw] = "0"
+                else:
+                    os.environ.pop(sw, None)
+            timeline.configure()
+            row = {"planes": mode}
+            for what in ("put", "get"):
+                def one(name, what=what):
+                    if what == "put":
+                        pool.put_object(bucket, name,
+                                        io.BytesIO(bodies[name]),
+                                        len(bodies[name]))
+                        return True
+                    sink = PreallocSink()
+                    pool.get_object(bucket, name, sink)
+                    return sink.getbuffer() == bodies[name]
+
+                t0 = time.monotonic()
+                with ThreadPoolExecutor(max_workers=S3_THREADS) as ex:
+                    good = list(ex.map(one, names))
+                row[f"{what}_wall_s"] = time.monotonic() - t0
+                check(all(good), f"{what} with the planes {mode} not exact")
+            walls.append(row)
+    finally:
+        for sw in OBS_SWITCHES:
+            os.environ.pop(sw, None)
+        timeline.configure()
+    warmup, walls = walls[0], walls[1:]
+    keys = ("put_wall_s", "get_wall_s")
+
+    def mean_of(rows, mode, w):
+        vals = [r[w] for r in rows if r["planes"] == mode]
+        return sum(vals) / len(vals)
+
+    blocks = [walls[i:i + 4] for i in range(0, len(walls), 4)]
+    ratios = {w: [mean_of(b, "on", w) / mean_of(b, "off", w)
+                  for b in blocks] for w in keys}
+    result["planes_on_off"] = {
+        "warmup_dropped": warmup, "turns": walls,
+        "mean": {m: {w: mean_of(walls, m, w) for w in keys}
+                 for m in ("off", "on")},
+        "spread": {m: {w: [min(r[w] for r in walls if r["planes"] == m),
+                           max(r[w] for r in walls if r["planes"] == m)]
+                       for w in keys} for m in ("off", "on")},
+        "on_over_off_by_block": ratios,
+        "on_over_off": {w: mean_of(walls, "on", w) / mean_of(walls, "off", w)
+                        for w in keys},
+        "on_over_off_median": {w: sorted(r)[len(r) // 2]
+                               for w, r in ratios.items()}}
+    check(dev_obs.ledger_balanced(), "ledger unbalanced after the turns")
+
+    client.close()
+    srv.shutdown()
+    launches = read_launches()
+    result["launches"] = launches
+    result["launch_sizes"] = read_launch_sizes()
+    if device.type == "cuda":
+        for kname in ("gf_matmul_batched", "gf_encode_batched",
+                      "highwayhash256_chunks"):
+            check(launches[kname] > 0,
+                  f"kernel {kname} never launched on the obs path")
+    shutil.rmtree(root, ignore_errors=True)
+    return result
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--cpu-rehearsal", action="store_true",
@@ -2822,6 +3376,8 @@ def main() -> int:
                 "csv": 2, "parts": (5 << 20, 333)} if rehearsal else \
         {"big": (S3_BIG, OBJECT_BYTES), "sse": (S3_SSE, OBJECT_BYTES),
          "csv": S3_CSV, "parts": S3_PARTS}
+    # the obs path: objects and their bytes
+    obs_sizes = (4, 1 << 20) if rehearsal else (S3_BIG, OBJECT_BYTES)
     phase = "build"
     try:
         phase_build(rehearsal)
@@ -2865,9 +3421,14 @@ def main() -> int:
         if rehearsal:
             s3res["cut"] += f"; {s3_sizes}"
         emit({"phase": "s3server_path", "card": card, **s3res})
+        phase = "obs_path"
+        obsres = phase_obs(device, *obs_sizes, card, args.seed)
+        if rehearsal:
+            obsres["cut"] += f"; {obs_sizes[0]} objects of {obs_sizes[1]}"
+        emit({"phase": "obs_path", **obsres})
         paths = {"mur3x256s_path": res, "sse_hh256s_path": sres,
                  "select_path": selres, "objectlayer_path": olres,
-                 "s3server_path": s3res}
+                 "s3server_path": s3res, "obs_path": obsres}
         for name, row in rows.items():
             by_path = {p: r["launches"][name] for p, r in paths.items()}
             row["launches"] = sum(by_path.values())

@@ -21,8 +21,16 @@ which batches concurrent requests' blocks into single device launches:
 Every wait on the queue goes through ``runtime.completion.await_result``
 (counted per op), and a PUT's framed block comes from the buffer pool. The
 JAX package verifies a healthy GET on the host, in native C++; the port
-keeps the device hash there (the ``verify`` op). Left out for later
-slices: the native-fd paths, hedged reads, spans and stage attribution.
+keeps the device hash there (the ``verify`` op).
+
+Stage attribution (``obs/stages``, free when no collector is armed): a
+PUT charges ``body_read``, ``encode_hash`` (the queue wait and the host
+digests of a tail block), ``etag`` and ``shard_write``; a GET
+``shard_read``, ``decode`` and ``write_out``; a heal ``shard_read``,
+``rebuild`` and ``shard_write``. Every shard read and write submitted to
+the IO pool carries the caller's context (``obs.spans.wrap_ctx``), so its
+storage span lands in the request's trace. Left out for later slices: the
+native-fd paths and hedged reads.
 """
 from __future__ import annotations
 
@@ -36,6 +44,8 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
+from ..obs import spans as _spans
+from ..obs import stages as _stages
 from ..runtime.bufpool import global_pool
 from ..runtime.completion import await_result
 from ..utils import errors
@@ -130,6 +140,9 @@ class _OrderedWriter:
                 self._dead = e
                 out.set_exception(e)
 
+        # contextvars do not follow executor submits: the write's storage
+        # span joins the request's trace through the captured context
+        run = _spans.wrap_ctx(run)
         prev, self._last = self._last, out
         if prev is None:
             io_pool().submit(run)
@@ -177,6 +190,7 @@ def erasure_encode(erasure: Erasure, stream, writers: list,
     object layer's gate)."""
     from .bitrot import device_chunk
     total = 0
+    stc = _stages.active()
     owriters = [None if w is None else _OrderedWriter(w) for w in writers]
     enc_window: deque = deque()    # [kind, future, shard_len]
     write_window: deque = deque()  # {writer index: write future}
@@ -202,14 +216,18 @@ def erasure_encode(erasure: Erasure, stream, writers: list,
 
     def start_writes(entry):
         kind, fut, shard_len = entry
-        res = await_result(fut, "encode")
+        with _stages.timed(stc, "encode_hash"):
+            res = await_result(fut, "encode")
         futs = {}
         if kind == "py":
             if etag is not None and shard_len and chunk:
                 # framed writers without a device route for this block
                 from .bitrot import shard_chunk_digests
-                etag.add_digests(shard_chunk_digests(
-                    np.stack(res[:k]), chunk, algo_id).data)
+                with _stages.timed(stc, "encode_hash"):
+                    digs = shard_chunk_digests(np.stack(res[:k]), chunk,
+                                               algo_id)
+                with _stages.timed(stc, "etag"):
+                    etag.add_digests(digs.data)
             for i, ow in enumerate(owriters):
                 if ow is not None and writers[i] is not None:
                     futs[i] = ow.write_async(res[i].tobytes())
@@ -219,12 +237,14 @@ def erasure_encode(erasure: Erasure, stream, writers: list,
         if kind == "pyh":
             data2d, parity2d, digs = res
         else:
-            data2d, parity2d = np.stack(res[:k]), np.stack(res[k:])
-            digs = np.concatenate([
-                shard_chunk_digests(data2d, chunk, algo_id),
-                shard_chunk_digests(parity2d, chunk, algo_id)])
+            with _stages.timed(stc, "encode_hash"):
+                data2d, parity2d = np.stack(res[:k]), np.stack(res[k:])
+                digs = np.concatenate([
+                    shard_chunk_digests(data2d, chunk, algo_id),
+                    shard_chunk_digests(parity2d, chunk, algo_id)])
         if etag is not None:
-            etag.add_digests(np.ascontiguousarray(digs[:k]).data)
+            with _stages.timed(stc, "etag"):
+                etag.add_digests(np.ascontiguousarray(digs[:k]).data)
         shape = (len(writers), digs.shape[1] + shard_len)
         buf = global_pool().get(shape[0] * shape[1])
         framed_all = buf.reshape(shape)
@@ -241,12 +261,13 @@ def erasure_encode(erasure: Erasure, stream, writers: list,
         for i in range(len(writers)):
             if writers[i] is None:
                 errs[i] = errors.DiskNotFound()
-        for i, f in futs.items():
-            try:
-                f.result()
-            except Exception as e:  # noqa: BLE001 — disk errors are votes
-                errs[i] = _vote(e)
-                writers[i] = None
+        with _stages.timed(stc, "shard_write"):
+            for i, f in futs.items():
+                try:
+                    f.result()
+                except Exception as e:  # noqa: BLE001 — disk errors are votes
+                    errs[i] = _vote(e)
+                    writers[i] = None
         # every write of the block has returned: its framed buffer is free
         global_pool().put(buf)
         err = errors.reduce_write_quorum_errs(
@@ -259,7 +280,8 @@ def erasure_encode(erasure: Erasure, stream, writers: list,
     try:
         while not eof or enc_window or write_window:
             while not eof and len(enc_window) < ENCODE_WINDOW:
-                buf = _read_full(stream, bs)
+                with _stages.timed(stc, "body_read"):
+                    buf = _read_full(stream, bs)
                 if not buf:
                     eof = True
                     if total == 0 and not enc_window:
@@ -348,7 +370,8 @@ class _ParallelReader:
                     continue
                 fn = self.readers[i].read_at_raw if raw \
                     else self.readers[i].read_at
-                pending[io_pool().submit(fn, shard_offset, shard_len)] = i
+                pending[io_pool().submit(_spans.wrap_ctx(fn), shard_offset,
+                                         shard_len)] = i
                 return True
             return False
 
@@ -405,6 +428,7 @@ def erasure_decode(erasure: Erasure, writer, readers: list, offset: int,
     start_block = offset // bs
     end_block = (offset + length) // bs
     window: deque = deque()
+    stc = _stages.active()
 
     def submit(b: int):
         """Read block b's shards and return a window entry, or None when
@@ -422,12 +446,15 @@ def erasure_decode(erasure: Erasure, writer, readers: list, offset: int,
         shard_len = ceil_div(block_data_len, k)
         shard_offset = b * erasure.shard_size()
         if preader.fusable(shard_len):
-            shards = preader.read_block(shard_offset, shard_len, raw=True)
+            with _stages.timed(stc, "shard_read"):
+                shards = preader.read_block(shard_offset, shard_len,
+                                            raw=True)
             fut = erasure.decode_data_blocks_verified_async(
                 shards, preader.last_digests, preader.fuse_chunk(shard_len),
                 preader.fuse_algo())
             return ["verified", fut, b, block_data_len, boff, blen]
-        shards = preader.read_block(shard_offset, shard_len)
+        with _stages.timed(stc, "shard_read"):
+            shards = preader.read_block(shard_offset, shard_len)
         return ["plain", erasure.decode_data_blocks_async(shards), b,
                 block_data_len, boff, blen]
 
@@ -438,8 +465,10 @@ def erasure_decode(erasure: Erasure, writer, readers: list, offset: int,
         reads, then resubmit the pending device-verified entries (their
         raw reads carried the corrupt shard too)."""
         preader.drop_corrupt(corrupt)
-        blocks = erasure.decode_data_blocks(preader.read_block(
-            b * erasure.shard_size(), ceil_div(block_data_len, k)))
+        with _stages.timed(stc, "shard_read"):
+            shards = preader.read_block(b * erasure.shard_size(),
+                                        ceil_div(block_data_len, k))
+        blocks = erasure.decode_data_blocks(shards)
         pending = list(window)
         window.clear()
         for e in pending:
@@ -455,7 +484,8 @@ def erasure_decode(erasure: Erasure, writer, readers: list, offset: int,
 
     def emit(entry):
         kind, fut, b, block_data_len, boff, blen = entry
-        res = await_result(fut, "decode")
+        with _stages.timed(stc, "decode"):
+            res = await_result(fut, "decode")
         if kind == "verified":
             blocks, corrupt = res
             if corrupt:
@@ -463,7 +493,8 @@ def erasure_decode(erasure: Erasure, writer, readers: list, offset: int,
         else:
             blocks = res
         block = np.concatenate(blocks[:k])
-        writer.write(memoryview(block)[boff: boff + blen])
+        with _stages.timed(stc, "write_out"):
+            writer.write(memoryview(block)[boff: boff + blen])
         stats.bytes_written += blen
 
     for b in range(start_block, end_block + 1):
@@ -502,6 +533,7 @@ def erasure_heal(erasure: Erasure, writers: list, readers: list,
     # shards' digests from the same flush, so the host hashes nothing
     from .bitrot import device_chunk
     framed = _framed_writers(erasure, writers)
+    stc = _stages.active()
 
     def submit(b: int):
         block_data_len = min(bs, total_length - b * bs)
@@ -512,18 +544,22 @@ def erasure_heal(erasure: Erasure, writers: list, readers: list,
             hashed = framed is not None and \
                 framed[1] == preader.fuse_algo() and \
                 device_chunk(shard_len, *framed) == chunk
-            shards = preader.read_block(shard_offset, shard_len, raw=True)
+            with _stages.timed(stc, "shard_read"):
+                shards = preader.read_block(shard_offset, shard_len,
+                                            raw=True)
             fut = erasure.rebuild_targets_verified_async(
                 shards, preader.last_digests, targets, chunk,
                 preader.fuse_algo(), hash_out=hashed)
             return ["fused", fut, b, hashed]
-        shards = preader.read_block(shard_offset, shard_len)
+        with _stages.timed(stc, "shard_read"):
+            shards = preader.read_block(shard_offset, shard_len)
         return ["plain", erasure.rebuild_targets_async(shards, targets), b,
                 False]
 
     def emit(entry):
         kind, fut, b, hashed = entry
-        res = await_result(fut, "rebuild")
+        with _stages.timed(stc, "rebuild"):
+            res = await_result(fut, "rebuild")
         frames = None
         if kind == "fused":
             rebuilt, corrupt = res[0], res[1]
@@ -536,10 +572,12 @@ def erasure_heal(erasure: Erasure, writers: list, readers: list,
                 # replacement reads, resubmit the pending fused entries
                 preader.drop_corrupt(corrupt)
                 block_data_len = min(bs, total_length - b * bs)
-                rebuilt = await_result(erasure.rebuild_targets_async(
-                    preader.read_block(b * erasure.shard_size(),
-                                       ceil_div(block_data_len, k)),
-                    targets), "rebuild")
+                with _stages.timed(stc, "shard_read"):
+                    shards = preader.read_block(b * erasure.shard_size(),
+                                                ceil_div(block_data_len, k))
+                with _stages.timed(stc, "rebuild"):
+                    rebuilt = await_result(erasure.rebuild_targets_async(
+                        shards, targets), "rebuild")
                 pending = list(window)
                 window.clear()
                 for e in pending:
@@ -553,10 +591,11 @@ def erasure_heal(erasure: Erasure, writers: list, readers: list,
             if w is None:
                 continue
             try:
-                if frames is not None:
-                    w.write_framed(frames[row])
-                else:
-                    w.write(arr.tobytes())
+                with _stages.timed(stc, "shard_write"):
+                    if frames is not None:
+                        w.write_framed(frames[row])
+                    else:
+                        w.write(arr.tobytes())
                 wrote += 1
             except Exception as e:  # noqa: BLE001 — a per-disk vote
                 errs[t] = e

@@ -12,16 +12,24 @@ with K1 and verify with K5. On the card, both storage classes' codecs are
 prepared when the set is built, so K2's nvcc build never lands inside a
 PUT or a flush.
 
+PUT, GET and heal each run inside a span (``objectlayer.put_object``,
+``objectlayer.get_object``; ``heal.object``, a root of its own when no
+request is traced, under the background class) and an armed stage
+collector (``obs.attribution.observed``: the standing per-op stage
+report); heals pin their rebuilds to the interactive lane, feed the
+``heal_shard`` latency window and publish a ``heal.shard`` scanner trace.
+
 What the JAX package's engine also does and the port does not yet: the
-disk health trackers, the startup crash recovery, the spans, attribution,
-trace, latency and bucket-usage feeds, the scanner's change tracker and
-the QoS lane affinity. The ``on_partial``, ``on_disk_state`` and
-``ns_lock`` hooks are plain attributes, as in the JAX package.
+disk health trackers, the startup crash recovery, the bucket-usage feed,
+the scanner's change tracker and the QoS lane affinity. The
+``on_partial``, ``on_disk_state`` and ``ns_lock`` hooks are plain
+attributes, as in the JAX package.
 """
 from __future__ import annotations
 
 import contextlib
 import io
+import time
 import uuid
 from dataclasses import replace
 
@@ -31,6 +39,12 @@ from ..erasure.bitrot import (BITROT_CHUNK_KEY, DEFAULT_BITROT_ALGO,
                               native_algo_id, pick_bitrot_chunk)
 from ..erasure.streaming import (PreallocSink, erasure_decode,
                                  erasure_encode, erasure_heal)
+from .. import qos as _qos
+from ..obs import attribution as _attr
+from ..obs import latency as _lat
+from ..obs import metrics as _mx
+from ..obs import spans as _spans
+from ..obs import trace as _trc
 from ..storage.datatypes import ErasureInfo, FileInfo, ObjectPartInfo
 from ..storage.xlmeta import XLMeta
 from ..storage.xlstorage import META_BUCKET, META_TMP, new_tmp_id
@@ -305,6 +319,14 @@ class ErasureObjects(MultipartMixin, ObjectLayer):
 
     def put_object(self, bucket: str, object: str, stream, size: int,
                    opts: ObjectOptions = None) -> ObjectInfo:
+        with _spans.span("objectlayer.put_object", bucket=bucket,
+                         object=object), _attr.observed("put"):
+            return self._put_object_inner(bucket, object, stream, size,
+                                          opts)
+
+    def _put_object_inner(self, bucket: str, object: str, stream,
+                          size: int, opts: ObjectOptions = None
+                          ) -> ObjectInfo:
         opts = opts or ObjectOptions()
         check_names(bucket, object)
         self.get_bucket_info(bucket)  # BucketNotFound early
@@ -419,8 +441,11 @@ class ErasureObjects(MultipartMixin, ObjectLayer):
                     continue
                 fij = replace(fi, erasure=replace(fi.erasure, index=j + 1),
                               metadata=dict(fi.metadata))
+                # contextvars do not follow executor submits: the
+                # storage span joins the PUT's trace through wrap_ctx
                 futs[j] = meta_pool().submit(
-                    d.rename_data, META_TMP, tmp_id, fij, bucket, object)
+                    _spans.wrap_ctx(d.rename_data), META_TMP, tmp_id, fij,
+                    bucket, object)
             for j, f in futs.items():
                 try:
                     f.result()
@@ -459,34 +484,38 @@ class ErasureObjects(MultipartMixin, ObjectLayer):
         always present, so the JAX package's no-engine fallback has no
         counterpart here."""
 
-        def fallback():
+        def fallback(reason: str):
             if etag_known:
                 # a supplied/etag-source ETag: the wrapper's MD5 is dead
                 # weight either way
                 hr.disable_payload_hash()
+                return None
+            _mx.inc("minio_tpu_pipeline_host_fallback_total", reason=reason)
+            _mx.inc("minio_tpu_pipeline_etag_total", mode="md5")
             return None
 
         if PIPELINE_ETAG_MODE != "fused":
-            return fallback()
+            return fallback("config")
         algo = algo if algo is not None else self.bitrot_algo
         if not algo.streaming or native_algo_id(algo) is None:
-            return fallback()
+            return fallback("algo")
         if chunk and shard_size and shard_size % chunk:
             # framing-ineligible geometry (a stored multipart chunk that
             # doesn't divide this upload's shard): erasure_encode would
             # never feed the collector — keep the MD5 chain instead
-            return fallback()
+            return fallback("unaligned_chunk")
         if size < PIPELINE_ETAG_MIN_BYTES:
             # unknown sizes (-1) fall back too: the small-object MD5 is
             # the compat tax
-            return fallback()
+            return fallback("small_object")
         if etag_known:
             hr.disable_payload_hash()
             return None
         if not hr.disable_payload_hash():
             # client sent Content-MD5 / signed SHA256: the payload MUST be
             # hashed to verify — it doubles as the ETag
-            return None
+            return fallback("content_digest")
+        _mx.inc("minio_tpu_pipeline_etag_total", mode="fused")
         return PipelineETag()
 
     def _cleanup_tmp(self, tmp_id: str):
@@ -540,6 +569,14 @@ class ErasureObjects(MultipartMixin, ObjectLayer):
     def get_object(self, bucket: str, object: str, writer, offset: int = 0,
                    length: int = -1, opts: ObjectOptions = None
                    ) -> ObjectInfo:
+        with _spans.span("objectlayer.get_object", bucket=bucket,
+                         object=object), _attr.observed("get"):
+            return self._get_object_inner(bucket, object, writer, offset,
+                                          length, opts)
+
+    def _get_object_inner(self, bucket: str, object: str, writer,
+                          offset: int = 0, length: int = -1,
+                          opts: ObjectOptions = None) -> ObjectInfo:
         opts = opts or ObjectOptions()
         check_names(bucket, object)
         self.get_bucket_info(bucket)
@@ -1092,11 +1129,17 @@ class ErasureObjects(MultipartMixin, ObjectLayer):
         /corrupt shards via decode→encode, rewrite xl.meta on healed disks.
         The rebuilds ride the dispatch queue's interactive lane (its
         default for the rebuild ops), so heals of many objects coalesce
-        into batched launches."""
+        into batched launches. A heal outside a traced request opens its
+        own root trace, tail-sampled against the background budget."""
         try:
-            return self._heal_object_inner(bucket, object, version_id,
-                                           dry_run, remove_dangling,
-                                           scan_mode)
+            with _spans.maybe_root("heal.object", cls="background",
+                                   bucket=bucket, object=object,
+                                   mode=scan_mode), \
+                    _attr.observed("heal"), \
+                    _qos.device_stream(_qos.STREAM_INTERACTIVE):
+                return self._heal_object_inner(bucket, object, version_id,
+                                               dry_run, remove_dangling,
+                                               scan_mode)
         finally:
             if not dry_run:
                 # healed journals change quorum resolution; listings must
@@ -1258,6 +1301,8 @@ class ErasureObjects(MultipartMixin, ObjectLayer):
                         sink, algo, bitrot_chunk)
                 except Exception:  # noqa: BLE001
                     pass
+            t0 = time.perf_counter()
+            heal_err = ""
             try:
                 src_errs.extend(
                     erasure_heal(er, writers, readers, part.size))
@@ -1268,8 +1313,23 @@ class ErasureObjects(MultipartMixin, ObjectLayer):
                 failed_targets.update(
                     i for i in to_heal if writers[dist[i] - 1] is None)
             except Exception as e:  # noqa: BLE001
+                heal_err = str(e)
                 raise to_object_err(e, bucket, object) from e
             finally:
+                dur = time.perf_counter() - t0
+                shard_bytes = logical * len(to_heal)
+                if not heal_err:
+                    # only successful rebuilds move the heal-shard window:
+                    # fast failures must not read as heal throughput
+                    ctx = _spans.current()
+                    _lat.observe("kernel", dur, shard_bytes,
+                                 op="heal_shard",
+                                 trace_id=ctx.trace_id
+                                 if ctx is not None and ctx.sampled else "")
+                _trc.publish_scanner(
+                    func="heal.shard", path=f"{bucket}/{object}",
+                    duration_s=dur, input_bytes=shard_bytes,
+                    error=heal_err)
                 for r in readers:
                     src = getattr(r, "src", None)
                     if src is not None and hasattr(src, "close"):

@@ -10,7 +10,8 @@ of their source, the shared headers, the flags and the defines, so a
 changed source rebuilds and an unchanged one loads at once. ``build()``
 starts one ``nvcc`` per missing library, all at the same time. Nothing is
 compiled at import: the CPU tests import every module on hosts without
-``nvcc``.
+``nvcc``. Every library built is reported to ``obs/device`` (a timed
+``compile`` row, timeline event and stage charge).
 """
 from __future__ import annotations
 
@@ -148,6 +149,8 @@ def build(keys=None) -> dict[str, float]:
             failed.append((lab, lib))
             continue
         os.replace(tmp, lib)
+        from ..obs import device as _dev
+        _dev.note_build(lab, took[lab])
     if failed:
         msgs = []
         for lab, lib in failed:

@@ -4,8 +4,6 @@ staging of the dispatch queue's host->device copies.
 ``BufferPool``: exact-size free lists of uint8 numpy arrays for the few
 block-sized buffers the data plane allocates per erasure geometry; retained
 bytes are bounded, and get() never blocks (a miss is a fresh allocation).
-The JAX package's timeline and device-ledger hooks wait for the port of
-obs/.
 
 ``StagingPool``: page-locked (``pin_memory``) tensors, reused per (role,
 shape, dtype), into which a flush stacks its items' inputs before one
@@ -14,6 +12,10 @@ event recorded after its copy, and is handed out again only once that event
 has completed, so a copy still in flight never reads a buffer that the next
 flush is filling. The event is anything with ``query()`` (a
 ``torch.cuda.Event`` on the card; the tests pass a stand-in).
+
+Both pools put every acquire and release of a pooled size on the flight
+recorder (``buf_acquire``/``buf_release``, sampled) and into the device
+plane's host-buffer high-water (``obs.device.note_host_buf``).
 """
 from __future__ import annotations
 
@@ -22,6 +24,9 @@ from collections import defaultdict, deque
 
 import numpy as np
 import torch
+
+from ..obs import device as _dev
+from ..obs import timeline as _tl
 
 #: Retained-bytes cap across all buckets (not a cap on live buffers).
 MAX_RETAINED = 256 << 20
@@ -49,8 +54,15 @@ class BufferPool:
                 if lst:
                     self._retained -= nbytes
                     self.hits += 1
-                    return lst.pop()
-                self.misses += 1
+                    arr = lst.pop()
+                else:
+                    self.misses += 1
+                    arr = None
+            # recorded outside the pool lock
+            _tl.record("buf_acquire", bytes=nbytes, hit=arr is not None)
+            _dev.note_host_buf(nbytes, acquired=True)
+            if arr is not None:
+                return arr
         return np.empty(nbytes, dtype=np.uint8)
 
     def put(self, arr: np.ndarray | None) -> None:
@@ -59,6 +71,8 @@ class BufferPool:
         if arr is None or arr.nbytes < self.min_pooled \
                 or not arr.flags.owndata:
             return
+        _tl.record("buf_release", bytes=arr.nbytes)
+        _dev.note_host_buf(arr.nbytes, acquired=False)
         with self._lock:
             if self._retained + arr.nbytes > self.max_retained:
                 return
@@ -115,25 +129,36 @@ class StagingPool:
         """A host tensor of ``shape``/``dtype`` whose last copy (if any)
         has completed; contents are undefined."""
         k = (key, tuple(shape), dtype)
+        buf = None
         with self._lock:
             q = self._free.get(k)
             if q:
                 for _ in range(len(q)):
-                    buf, ev = q[0]
+                    cand, ev = q[0]
                     if ev is None or ev.query():
                         q.popleft()
-                        self._retained -= buf.nbytes
+                        self._retained -= cand.nbytes
                         self.hits += 1
-                        return buf
+                        buf = cand
+                        break
                     q.rotate(-1)
-                self.busy += 1
-            self.misses += 1
-        return torch.empty(shape, dtype=dtype, pin_memory=self.pin)
+                else:
+                    self.busy += 1
+            if buf is None:
+                self.misses += 1
+        hit = buf is not None
+        if not hit:
+            buf = torch.empty(shape, dtype=dtype, pin_memory=self.pin)
+        _tl.record("buf_acquire", bytes=buf.nbytes, hit=hit, pinned=self.pin)
+        _dev.note_host_buf(buf.nbytes, acquired=True)
+        return buf
 
     def release(self, key, buf: torch.Tensor, event) -> None:
         """Return ``buf`` (from get) once its copy was enqueued; ``event``
         completes when the copy has read it."""
         k = (key, tuple(buf.shape), buf.dtype)
+        _tl.record("buf_release", bytes=buf.nbytes, pinned=self.pin)
+        _dev.note_host_buf(buf.nbytes, acquired=False)
         with self._lock:
             q = self._free.setdefault(k, deque())
             if len(q) >= self.per_key or \

@@ -5,15 +5,18 @@ The dispatch lanes never block on a readback (completers and the
 interactive lane's poller do); the consumer side — a heal's rebuilt
 shards, a GET's decoded block — does need the value on its own thread.
 Each such wait goes through ``await_result``, counted and timed per op in
-this module's counters (``stats()``), so the time requests spend waiting
-on the card has a standing answer. The JAX package exports the same
-counts as ``minio_tpu_lane_await_*`` metrics; the port has no metrics
-plane yet.
+this module's counters (``stats()``, reset per measured phase) and in the
+metrics store's ``minio_tpu_lane_await_total{op}`` and
+``minio_tpu_lane_await_seconds_total{op}`` (cumulative, as the JAX
+package exports them), so the time requests spend waiting on the card has
+a standing answer.
 """
 from __future__ import annotations
 
 import threading
 import time
+
+from ..obs import metrics as _mx
 
 _lock = threading.Lock()
 _waits: dict[str, int] = {}
@@ -32,6 +35,8 @@ def await_result(fut, op: str = "", timeout: float | None = None):
         with _lock:
             _waits[label] = _waits.get(label, 0) + 1
             _seconds[label] = _seconds.get(label, 0.0) + dt
+        _mx.inc("minio_tpu_lane_await_total", op=label)
+        _mx.inc("minio_tpu_lane_await_seconds_total", dt, op=label)
 
 
 def stats() -> dict:

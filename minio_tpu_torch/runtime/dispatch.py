@@ -33,7 +33,8 @@ Mechanics (as in the JAX package):
   ``["failed_items"]``, ``["salvaged_batches"]``/``["salvaged_items"]``)
   and logged with the op and the exception. A library that fails to build
   (``BuildError``) fails the futures on either queue;
-- flushes, items and busy seconds are counted per op and per lane.
+- flushes and items are counted per op and per lane (a lane's busy
+  seconds are the flight recorder's, obs/timeline).
 
 Ops, with the meaning of the JAX ``_flush_device`` branches:
 ``encode`` (parity of [k, W] words), ``encode_hashed`` (parity + per-chunk
@@ -48,10 +49,25 @@ version on a CPU queue; concurrent selects with the same SQL share a
 flush).
 
 A CPU queue (``device="cpu"``) runs the same lanes on the plain versions,
-with no staging and no events. Left out for later slices: the QoS planner,
-``LinkProfile`` and spill-to-CPU (they come with ``qos/``), the device mesh
-and per-lane placement, input donation, and batch padding (it bounded XLA
-recompiles; PyTorch runs eagerly).
+with no staging and no events.
+
+Instruments (``obs/``), at the JAX queue's sites: an item's QoS class and
+stream come from ``qos.current_class()``/``current_stream()`` (the stream
+override picks the lane, ``_INTERACTIVE_LANE_OPS`` otherwise; both ride
+the bucket key); the flight recorder gets ``enqueue``, ``flush_start``,
+``flush_end``, ``complete`` and ``salvage`` events and the sampled queue
+depth; every item's wall through the queue feeds the ``kernel``, ``qos``
+and ``lane`` latency windows and its stage collector's ``queue_wait``; a
+flush publishes one ``kernel`` trace (while someone listens) and one
+kernel span per traced request, linked to every coalesced item's span;
+the device ledger holds a flush's bytes from launch to readback; and on
+the card a flush's copies and launches sit between two CUDA events on its
+lane's stream, read by the completer into ``obs/device``'s device time,
+busy shares and roofline. None of it synchronizes the card or waits on
+the dispatcher. Left out for later slices: the QoS planner,
+``LinkProfile`` and spill-to-CPU, the device mesh and per-lane placement,
+input donation, and batch padding (it bounded XLA recompiles; PyTorch
+runs eagerly).
 """
 from __future__ import annotations
 
@@ -67,6 +83,13 @@ import numpy as np
 import torch
 
 from .. import native
+from .. import qos as _qos
+from ..obs import device as _dev
+from ..obs import latency as _lat
+from ..obs import spans as _sp
+from ..obs import stages as _stages
+from ..obs import timeline as _tl
+from ..obs import trace as _trc
 from ..ops import chacha_cuda, rs_cuda, scan_cuda
 from ..ops import fused as _fused
 from ..ops.chacha_torch import check_shared_nonce
@@ -97,6 +120,11 @@ OPS = ("encode", "encode_hashed", "masked", "fused", "verify", "sse_xor",
 #: reconstruct, plus their fused verify+rebuild twin
 _INTERACTIVE_LANE_OPS = frozenset({"masked", "fused"})
 
+#: op labels of the timeline, traces, spans and metrics (the JAX queue's)
+_OP_NAME = {"encode": "encode", "masked": "reconstruct", "fused": "fused",
+            "encode_hashed": "encode_hashed", "verify": "verify",
+            "select_scan": "select_scan", "sse_xor": "sse_xor"}
+
 
 def interactive_lane_enabled() -> bool:
     """MINIO_TPU_DISPATCH_INTERACTIVE_LANE=0 sends every op down the bulk
@@ -114,6 +142,8 @@ class _Pending:
     cipher_key: bytes = b""              # sse_xor: the object's package key
     future: Future = field(default_factory=Future)
     t: float = field(default_factory=time.monotonic)
+    ctx: object = None                   # the submitter's sampled span
+    stc: object = None                   # the submitter's stage collector
 
 
 @dataclass
@@ -127,6 +157,7 @@ class _Bucket:
     params: tuple = ()                  # select_scan: program, cols, ...
     items: list = field(default_factory=list)
     key: tuple = ()
+    cls: str = _qos.CLASS_INTERACTIVE   # the submitters' QoS class
 
 
 class _Lane:
@@ -143,9 +174,6 @@ class _Lane:
             if device.type == "cuda" else None
         self.flushes = 0
         self.items = 0
-        #: seconds this lane's thread spent inside flushes (staging,
-        #: launches, enqueueing the readback): its busy share of a run
-        self.busy_s = 0.0
         self.thread: threading.Thread | None = None
 
 
@@ -156,6 +184,13 @@ class _Flight:
     items: list
     hosts: list                          # host outputs (pinned on the card)
     event: object = None                 # torch.cuda.Event, None when ready
+    lane: str = "bulk"
+    t0: float = 0.0                      # flush start, host monotonic
+    nbytes: int = 0                      # inputs + outputs of the flush
+    flush_id: int = 0                    # timeline pairing (0: recorder off)
+    start: object = None                 # CUDA event before the copies in
+    origin: object = None                # obs.device clock origin
+    token: object = None                 # device ledger charge
 
     def ready(self) -> bool:
         if self.event is None:
@@ -166,19 +201,33 @@ class _Flight:
             return True
 
 
-def _stack(arrays: list[np.ndarray], device, staging: StagingPool | None
+def _stage(arrays: list[np.ndarray], device, staging: StagingPool | None
            = None, role: str = "") -> tuple[torch.Tensor, torch.Tensor | None]:
-    """The items' uint32 arrays stacked as one int32 tensor on ``device``:
-    on the card through a pinned buffer of ``staging`` and one
-    ``non_blocking`` copy on the current stream. Returns (tensor, the
-    staging buffer to release after the copy, or None)."""
+    """The items' uint32 arrays stacked as one int32 tensor: on the card
+    into a pinned buffer of ``staging`` (the host half only: the caller
+    copies it over with ``non_blocking``), elsewhere on ``device``
+    itself. Returns (tensor, the staging buffer to release after its
+    copy, or None)."""
     if staging is None or device.type != "cuda":
         return words_to_device(np.stack(arrays), device), None
     buf = staging.get(role, (len(arrays),) + arrays[0].shape, torch.int32)
     # one call, not one per item: under many request threads every
     # release of the interpreter lock costs the dispatcher a wait
     np.stack(arrays, out=buf.numpy().view(np.uint32), casting="unsafe")
-    return buf.to(device, non_blocking=True), buf
+    return buf, buf
+
+
+def _inputs(b: _Bucket, items: list) -> dict[str, list]:
+    """The arrays a flush stacks, by role."""
+    roles = {"words": [p.words for p in items]}
+    if b.op == "sse_xor":
+        roles["keys"] = [np.frombuffer(p.cipher_key, "<u4") for p in items]
+        roles["nonces"] = [p.nonces for p in items]
+    if b.op in ("masked", "fused"):
+        roles["masks"] = [p.masks for p in items]
+    if b.op in ("fused", "verify"):
+        roles["digests"] = [p.digests for p in items]
+    return roles
 
 
 def _rows_from_masks(masks: np.ndarray) -> np.ndarray:
@@ -296,11 +345,7 @@ class DispatchQueue:
         self._stats_lock = threading.Lock()
         self.batches = {op: 0 for op in OPS}
         self.items = {op: 0 for op in OPS}
-        #: dispatcher seconds inside flushes, per op
-        self.seconds = {op: 0.0 for op in OPS}
         self.max_items = 0
-        #: seconds the dispatcher threads spent inside flushes, both lanes
-        self.flush_seconds = 0.0
         #: seconds completers spent reading flushes back (event waits,
         #: results handed out, their callbacks)
         self.completer_seconds = 0.0
@@ -309,9 +354,17 @@ class DispatchQueue:
         self.failed_items = 0
         self.salvaged_batches = 0
         self.salvaged_items = 0
+        #: instruments (obs/) that raised; never fatal to a flush
+        self.obs_errors = 0
         #: a failed flush is recomputed on the host only on a CPU queue
         self.host_salvage = self.device.type != "cuda"
         self.staging = StagingPool() if self.device.type == "cuda" else None
+        #: the traces' route label (the JAX queue's "device"/"cpu")
+        self.route = "device" if self.device.type == "cuda" else "cpu"
+        self._clock = None
+        if self.device.type == "cuda":
+            _dev.note_card(torch.cuda.get_device_name(self.device))
+            self._clock = _dev.clock(self.device)
         self._completers = ThreadPoolExecutor(
             max_workers=completers,
             thread_name_prefix="minio-tpu-torch-complete")
@@ -413,15 +466,35 @@ class DispatchQueue:
             _Pending(words))
 
     def _submit(self, key: tuple, new_bucket: _Bucket, p: _Pending) -> Future:
+        # the QoS class and the stream ride the bucket key: a flush is one
+        # class's, on one lane (an explicit qos.device_stream wins over
+        # the per-op default; with the interactive lane off every op is
+        # the bulk lane's)
+        cls = _qos.current_class()
+        stream = _qos.current_stream()
+        if stream is None:
+            stream = _qos.STREAM_INTERACTIVE \
+                if new_bucket.op in _INTERACTIVE_LANE_OPS else _qos.STREAM_BULK
         lane = self._ia if self._ia is not None and \
-            new_bucket.op in _INTERACTIVE_LANE_OPS else self._bulk
-        new_bucket.key = key
+            stream == _qos.STREAM_INTERACTIVE else self._bulk
+        ctx = _sp.current()
+        p.ctx = ctx if ctx is not None and ctx.sampled else None
+        p.stc = _stages.active()
+        new_bucket.key = key + (cls, lane.name)
+        new_bucket.cls = cls
         with lane.cv:
             if self._stop:
                 raise RuntimeError("dispatch queue stopped")
-            b = lane.buckets.setdefault(key, new_bucket)
+            b = lane.buckets.setdefault(new_bucket.key, new_bucket)
             b.items.append(p)
+            depth = len(b.items)
             lane.cv.notify()
+        # flight recorder: the item entered its bucket (sampled event type,
+        # recorded outside the lane's lock)
+        _tl.record("enqueue", op=_OP_NAME[new_bucket.op],
+                   trace_id=p.ctx.trace_id if p.ctx is not None else "",
+                   bytes=p.words.nbytes, bucket_depth=depth,
+                   stream=lane.name, **{"class": cls})
         return p.future
 
     # --- dispatchers --------------------------------------------------------
@@ -461,6 +534,11 @@ class DispatchQueue:
                             b.items = b.items[lane.max_batch:]
                             to_flush.append((b, items))
                     lane.buckets.clear()
+                # the lane's queue depth when flushes are collected, the
+                # collected items included
+                depth = sum(len(b.items) for b in lane.buckets.values()) + \
+                    sum(len(items) for _, items in to_flush)
+            _tl.note_queue_depth(depth)
             for b, items in to_flush:
                 self._run_flush(lane, b, items)
             if stopping:
@@ -468,71 +546,94 @@ class DispatchQueue:
 
     def _run_flush(self, lane: _Lane, b: _Bucket, items: list[_Pending]):
         t0 = time.monotonic()
+        n = len(items)
+        for p in items:
+            if p.stc is not None:
+                p.stc.add("queue_wait", t0 - p.t)
+        fid = 0
+        if _tl.enabled():
+            fid = _tl.next_flush_id()
+            _tl.record("flush_start", op=_OP_NAME[b.op], lane=lane.name,
+                       flush_id=fid, batch=n, capacity=lane.max_batch,
+                       bytes=sum(p.words.nbytes for p in items),
+                       route=self.route, stream=lane.name,
+                       **{"class": b.cls})
         flight = failed = None
         try:
             flight = self._flush(lane, b, items)
         except Exception as e:  # noqa: BLE001 — handed on below
             failed = e
         # counted before any item completes, so a waiter sees its flush
-        dt = time.monotonic() - t0
-        n = len(items)
         with self._stats_lock:
             lane.flushes += 1
             lane.items += n
-            lane.busy_s += dt
-            self.flush_seconds += dt
-            self.seconds[b.op] += dt
             self.batches[b.op] += 1
             self.items[b.op] += n
             self.max_items = max(self.max_items, n)
         if failed is not None:
-            self._completers.submit(self._failed, b, items, failed, "launch")
-        elif lane is self._ia:
+            self._completers.submit(self._failed, b, items, failed, "launch",
+                                    _Flight(b, items, [], lane=lane.name,
+                                            t0=t0, flush_id=fid))
+            return
+        flight.t0, flight.flush_id = t0, fid
+        if lane is self._ia:
             self._ia_completer.submit(flight)
         else:
             self._completers.submit(self._complete, flight)
 
     def _flush(self, lane: _Lane, b: _Bucket, items: list[_Pending]
                ) -> _Flight:
-        """Stage, launch and enqueue the readback of one flush."""
+        """Stage, launch and enqueue the readback of one flush. On the card
+        every input is stacked into its pinned buffer first, so the two
+        CUDA events around the copies and launches leave the host's
+        staging out (the stream's waits for the host to enqueue the next
+        copy or launch stay in)."""
         dev = self.device
+        roles = _inputs(b, items)
+        nbytes = sum(a.nbytes for arrs in roles.values() for a in arrs)
+        _dev.note_launch(_OP_NAME[b.op], f"{len(items)}x"
+                         f"{'x'.join(map(str, items[0].words.shape))}")
         if dev.type != "cuda":
-            outs = self._launch(b, items, [])
-            return _Flight(b, items, [o.numpy() for o in outs])
-        staged: list = []
-        with torch.cuda.stream(lane.stream):
-            outs = self._launch(b, items, staged)
-            hosts = []
-            for o in outs:
-                h = torch.empty(o.shape, dtype=o.dtype, pin_memory=True)
-                h.copy_(o, non_blocking=True)
-                hosts.append(h)
-            event = torch.cuda.Event(blocking=True)
-            event.record(lane.stream)
-        for role, buf in staged:
-            self.staging.release(role, buf, event)
-        return _Flight(b, items, hosts, event)
+            outs = self._launch(b, len(items), {
+                r: _stage(arrs, dev)[0] for r, arrs in roles.items()})
+            f = _Flight(b, items, [o.numpy() for o in outs], lane=lane.name)
+        else:
+            staged = {r: _stage(arrs, dev, self.staging, f"{b.op}.{r}")
+                      for r, arrs in roles.items()}
+            timed = _dev.enabled()
+            origin = start = None
+            with torch.cuda.stream(lane.stream):
+                if timed:
+                    origin = self._clock.origin(lane.stream)
+                    start = torch.cuda.Event(enable_timing=True)
+                    start.record(lane.stream)
+                outs = self._launch(b, len(items), {
+                    r: host.to(dev, non_blocking=True)
+                    for r, (host, _) in staged.items()})
+                hosts = []
+                for o in outs:
+                    h = torch.empty(o.shape, dtype=o.dtype, pin_memory=True)
+                    h.copy_(o, non_blocking=True)
+                    hosts.append(h)
+                event = torch.cuda.Event(blocking=True, enable_timing=timed)
+                event.record(lane.stream)
+            for r, (_, buf) in staged.items():
+                self.staging.release(f"{b.op}.{r}", buf, event)
+            f = _Flight(b, items, hosts, event, lane=lane.name, start=start,
+                        origin=origin)
+        f.nbytes = nbytes + sum(o.nbytes for o in outs)
+        f.token = _dev.ledger_acquire(lane.name, f.nbytes)
+        return f
 
-    def _launch(self, b: _Bucket, items: list[_Pending], staged: list
-                ) -> tuple[torch.Tensor, ...]:
-        dev = self.device
-        n = len(items)
-
-        def stack(role: str, arrays: list) -> torch.Tensor:
-            t, buf = _stack(arrays, dev, self.staging, f"{b.op}.{role}")
-            if buf is not None:
-                staged.append((f"{b.op}.{role}", buf))
-            return t
-
-        words = stack("words", [p.words for p in items])
+    def _launch(self, b: _Bucket, n: int, t: dict) -> tuple[torch.Tensor, ...]:
+        """The kernels of one flush over its inputs ``t`` (by role, on the
+        queue's device)."""
+        words = t["words"]
         shard_nbytes = int(words.shape[-1]) * 4
         if b.op == "select_scan":
             return (scan_cuda.scan_codes(words.reshape(n, -1), *b.params),)
         if b.op == "sse_xor":
-            keys = [np.frombuffer(p.cipher_key, "<u4") for p in items]
-            return chacha_cuda.chacha20_xor(
-                stack("keys", keys), stack("nonces", [p.nonces for p in items]),
-                words)
+            return chacha_cuda.chacha20_xor(t["keys"], t["nonces"], words)
         if b.op == "encode":
             return (b.codec.encode_words_batch(words),)
         if b.op == "encode_hashed":
@@ -540,23 +641,22 @@ class DispatchQueue:
                 b.hash_key, shard_nbytes, b.codec.encode_words_batch,
                 b.chunk_size, b.hash_algo)(words)
         if b.op == "masked":
-            return (rs_cuda.gf_matmul_batched(
-                stack("masks", [p.masks for p in items]), words),)
+            return (rs_cuda.gf_matmul_batched(t["masks"], words),)
         if b.op == "fused":
             return _fused.fused_fn_for(
                 b.hash_key, shard_nbytes, rs_cuda.gf_matmul_batched,
                 b.chunk_size, b.hash_algo, b.hash_out)(
-                    stack("masks", [p.masks for p in items]), words,
-                    stack("digests", [p.digests for p in items]))
+                    t["masks"], words, t["digests"])
         return (_fused.verify_fn_for(  # verify
             b.hash_key, shard_nbytes, b.chunk_size, b.hash_algo)(
-                words, stack("digests", [p.digests for p in items])),)
+                words, t["digests"]),)
 
     # --- completion ---------------------------------------------------------
 
     def _complete(self, f: _Flight) -> None:
         """Wait for a flush's readback and hand each item its result; a
-        readback that raises goes to ``_failed``."""
+        readback that raises goes to ``_failed``. The device time and the
+        flush's trace and span are recorded before any waiter wakes."""
         t0 = time.monotonic()
         try:
             if f.event is not None:
@@ -566,24 +666,121 @@ class DispatchQueue:
             if f.b.op != "select_scan":  # words travel as int32 bits
                 host = [h.view(np.uint32) if h.dtype == np.int32 else h
                         for h in host]
+            self._observe(self._note_device_time, f)
+            self._observe(self._flush_done, f)
+            # the flush's device buffers are done with: released before any
+            # waiter wakes, so a drained queue reads balanced
+            _dev.ledger_release(f.token)
             for i, p in enumerate(f.items):
                 # sse_xor results are whole payloads: each item gets a
                 # copy, so one slow consumer does not pin the flush's batch
                 res = tuple(h[i].copy() if f.b.op == "sse_xor" else h[i]
                             for h in host)
                 p.future.set_result(res if len(res) > 1 else res[0])
+            self._observe(self._items_done, f)
         except Exception as e:  # noqa: BLE001 — handed on to the waiters
-            self._failed(f.b, f.items, e, "readback")
+            self._failed(f.b, f.items, e, "readback", f)
         finally:
+            _dev.ledger_release(f.token)
             with self._stats_lock:
                 self.completer_seconds += time.monotonic() - t0
 
+    def _observe(self, record, *args) -> None:
+        """Run one instrument; one that raises never fails the flush's
+        waiters: it is counted (``stats()["obs_errors"]``) and logged."""
+        try:
+            record(*args)
+        except Exception:  # noqa: BLE001 — counted, logged, never fatal
+            with self._stats_lock:
+                self.obs_errors += 1
+            log.exception("dispatch instrument %s failed", record.__name__)
+
+    def _note_device_time(self, f: _Flight) -> None:
+        """The flush's CUDA-event interval (its events have completed) into
+        obs/device: device seconds by op, the lane's busy seconds and the
+        card's union."""
+        if f.start is None:
+            return
+        secs = f.start.elapsed_time(f.event) / 1e3
+        start = self._clock.position(f.origin, f.start)
+        _dev.note_device_time(_OP_NAME[f.b.op], secs, f.nbytes, lane=f.lane,
+                              device=str(self.device), start_s=start,
+                              end_s=start + secs)
+
+    def _flush_done(self, f: _Flight, error: str = "") -> None:
+        """One flush's own records: the timeline's ``flush_end`` (which
+        feeds the lane's busy ratio), the ``kernel`` trace while someone
+        listens, and one kernel span per traced request, linked to every
+        coalesced item's span."""
+        op = _OP_NAME[f.b.op]
+        n = len(f.items)
+        now = time.monotonic()
+        dur = now - f.t0
+        if f.flush_id:
+            _tl.record("flush_end", op=op, lane=f.lane, flush_id=f.flush_id,
+                       batch=n, capacity=self._lane_cap(f.lane),
+                       bytes=f.nbytes, route=self.route, stream=f.lane,
+                       dur=round(dur, 6))
+        if not n:
+            return
+        if _trc.subscribed():
+            _trc.publish_kernel(
+                op=op, route=self.route, batch=n,
+                queue_wait_s=f.t0 - min(p.t for p in f.items),
+                duration_s=dur, input_bytes=f.nbytes, error=error)
+        traced = [p for p in f.items if p.ctx is not None]
+        if not traced or not _sp.enabled():
+            return
+        groups: dict[str, list[_Pending]] = {}
+        links = []
+        seen: set[tuple[str, str]] = set()
+        for p in traced:
+            groups.setdefault(p.ctx.trace_id, []).append(p)
+            key = (p.ctx.trace_id, p.ctx.span_id)
+            if key not in seen:
+                seen.add(key)
+                links.append({"trace_id": p.ctx.trace_id,
+                              "span_id": p.ctx.span_id})
+        span_id = _sp.new_span_id()
+        wall0 = time.time() - dur
+        for tid, ps in groups.items():
+            _sp.record({
+                "name": f"kernel.{op}", "trace_id": tid, "span_id": span_id,
+                "parent_span_id": ps[0].ctx.span_id, "time": wall0,
+                "duration_s": round(dur, 6), "error": error,
+                "links": links,
+                "attrs": {"route": self.route, "lane": f.lane, "batch": n,
+                          "batch_id": f.flush_id, "items": len(ps),
+                          "queue_wait_s": round(
+                              f.t0 - min(p.t for p in ps), 6)}})
+
+    def _items_done(self, f: _Flight) -> None:
+        """Each completed item's wall through the queue (submit to result)
+        into the ``kernel``, ``qos`` and ``lane`` latency windows, and its
+        ``complete`` event."""
+        op = _OP_NAME[f.b.op]
+        now = time.monotonic()
+        for p in f.items:
+            wall = now - p.t
+            nbytes = p.words.nbytes
+            tid = p.ctx.trace_id if p.ctx is not None else ""
+            _lat.observe("kernel", wall, nbytes, op=op, trace_id=tid)
+            _lat.observe("qos", wall, nbytes, trace_id=tid,
+                         **{"class": f.b.cls})
+            _lat.observe("lane", wall, nbytes, trace_id=tid, stream=f.lane)
+            _tl.record("complete", op=op, trace_id=tid, wall=round(wall, 6),
+                       stream=f.lane, **{"class": f.b.cls})
+
+    def _lane_cap(self, name: str) -> int:
+        return self._ia.max_batch if name == "interactive" and self._ia \
+            else self._bulk.max_batch
+
     def _failed(self, b: _Bucket, items: list[_Pending], exc: Exception,
-                where: str) -> None:
+                where: str, f: _Flight | None = None) -> None:
         """A flush whose launch or readback raised: on a CPU queue its items
         are recomputed on the host (``_host_result``); on the card, or when
-        a library failed to build, its waiters get the exception. Counted
-        and logged either way."""
+        a library failed to build, its waiters get the exception. Counted,
+        logged and put on the timeline either way."""
         items = [p for p in items if not p.future.done()]
         if not items:
             return
@@ -599,6 +796,12 @@ class DispatchQueue:
                     "%s); %s", b.op, len(items), where, type(exc).__name__,
                     exc, "salvaged on the host" if salvage
                     else "its waiters get the error")
+        if salvage:
+            _tl.record("salvage", op=_OP_NAME[b.op], lane="cpu", reason=where,
+                       batch=len(items))
+        if f is not None:
+            self._observe(self._flush_done, f, f"{type(exc).__name__}: {exc}")
+            _dev.ledger_release(f.token)
         for p in items:
             if not salvage:
                 p.future.set_exception(exc)
@@ -627,27 +830,23 @@ class DispatchQueue:
             for op in OPS:
                 self.batches[op] = 0
                 self.items[op] = 0
-                self.seconds[op] = 0.0
             self.max_items = 0
-            self.flush_seconds = 0.0
             self.completer_seconds = 0.0
             self.ia_async_completions = 0
             self.failed_batches = self.failed_items = 0
             self.salvaged_batches = self.salvaged_items = 0
+            self.obs_errors = 0
             for lane in self._lanes():
                 lane.flushes = lane.items = 0
-                lane.busy_s = 0.0
 
     def stats(self) -> dict:
         with self._stats_lock:
             batches = sum(self.batches.values())
             items = sum(self.items.values())
             lanes = {lane.name: {"flushes": lane.flushes,
-                                 "items": lane.items,
-                                 "busy_s": lane.busy_s}
+                                 "items": lane.items}
                      for lane in self._lanes()}
-            lanes.setdefault("interactive", {"flushes": 0, "items": 0,
-                                             "busy_s": 0.0})
+            lanes.setdefault("interactive", {"flushes": 0, "items": 0})
             lanes["interactive"].update(
                 enabled=self._ia is not None,
                 batch_cap=self._ia.max_batch if self._ia else 0,
@@ -655,9 +854,7 @@ class DispatchQueue:
             return {"batches": batches, "items": items,
                     "ops": {op: {"batches": self.batches[op],
                                  "items": self.items[op]} for op in OPS},
-                    "seconds_by_op": dict(self.seconds),
                     "max_items": self.max_items,
-                    "flush_seconds": self.flush_seconds,
                     "avg_batch": items / batches if batches else 0.0,
                     "lanes": lanes,
                     "completer_seconds": self.completer_seconds,
@@ -665,6 +862,7 @@ class DispatchQueue:
                     "failed_items": self.failed_items,
                     "salvaged_batches": self.salvaged_batches,
                     "salvaged_items": self.salvaged_items,
+                    "obs_errors": self.obs_errors,
                     "staging": self.staging.stats() if self.staging
                     else None}
 

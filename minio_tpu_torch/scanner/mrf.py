@@ -14,12 +14,17 @@ The queue + backoff-park + journal machinery is ``scanner.park.DebtQueue``;
 this module keeps the heal worker (what "paying the debt" means for heal)
 and the MRF-specific retry policy knobs. The journal's JSON is the JAX
 package's, so either package recovers the other's ``mrf.json``. Heals run
-on the object layer's device, with no QoS class: the port has no ``qos/``
-yet (the JAX worker heals under ``qos.background()``)."""
+on the object layer's device under ``qos.background()`` (background-class
+dispatch work, tail-sampled against the background budget), and each
+publishes an ``mrf.heal`` scanner trace while someone listens."""
 from __future__ import annotations
 
 import os
 import threading
+import time
+
+from .. import qos
+from ..obs import trace as _trc
 
 from .park import FLUSH_INTERVAL_S, DebtQueue  # noqa: F401 — re-export
 
@@ -101,14 +106,17 @@ class MRFHealer:
             # element with the attempt count
             bucket, object, version_id, scan_mode = entry[:4]
             attempt = entry[4] if len(entry) > 4 else 0
+            t0 = time.perf_counter()
+            err = ""
             try:
                 # remove_dangling: an object deleted while a node was
                 # down leaves quorum-lost junk that can never heal —
                 # purging it IS paying the debt (reference healObject
                 # dangling handling)
-                res = self.obj.heal_object(bucket, object, version_id,
-                                           scan_mode=scan_mode,
-                                           remove_dangling=True)
+                with qos.background():
+                    res = self.obj.heal_object(bucket, object, version_id,
+                                               scan_mode=scan_mode,
+                                               remove_dangling=True)
                 # a heal that left any drive offline/missing/corrupt
                 # did NOT pay the debt — a dead node's shards cannot be
                 # rebuilt until it rejoins, so the entry must survive
@@ -119,6 +127,7 @@ class MRFHealer:
                 self.healed += 1
             except Exception as e:  # noqa: BLE001
                 self.failed += 1
+                err = f"{type(e).__name__}: {e}"
                 if attempt + 1 <= RETRY_MAX and not _debt_moot(e):
                     # park with backoff, KEEP the journal entry: the
                     # failure is usually an offline target (a dead
@@ -127,6 +136,10 @@ class MRFHealer:
                                  attempt + 1, RETRY_BASE_S, RETRY_CAP_S)
                     self.dq.flush()
                     continue
+            finally:
+                _trc.publish_scanner(
+                    func="mrf.heal", path=f"{bucket}/{object}",
+                    duration_s=time.perf_counter() - t0, error=err)
                 # retries exhausted (or the object is gone): the deep
                 # scanner cycle re-finds anything still genuinely
                 # degraded

@@ -1,0 +1,288 @@
+"""Admin API, the port of the observability ops of
+minio_tpu/server/admin.py (reference cmd/admin-router.go subset). Routes
+live under /minio/admin/v3/... and require the root credentials, signed
+with SigV4 like any S3 request.
+
+Ops: ``info``, ``storageinfo``, ``trace`` (the live JSON-line stream,
+``?trace_id=`` for one stored span tree, ``?slow=1`` for the slow-trace
+store), ``timeline`` (the flight recorder, ``?attribution=1``,
+``?fmt=chrome``), ``top/api``, ``device`` (the device plane,
+``?trace=<seconds>`` for one torch.profiler session) and ``qos``. Every
+other admin op (IAM, config, heal, tier, KMS, replication, fault and
+profiling, the service signals) answers ``501 NotImplemented`` in the
+reference's error XML: those planes are not ported. The ``?peers=1``
+fan-outs wait for the port of ``dist/``'s RPC plane.
+"""
+from __future__ import annotations
+
+import json
+
+from ..objectlayer import datatypes as dt
+from .auth import AuthError
+
+
+def handle_admin(h) -> None:
+    """``h`` is the S3 handler. Admin calls authenticate like S3 and must
+    carry the root credentials."""
+    try:
+        ak = h._authenticate()
+    except AuthError as e:
+        return h._error(e.code, e.message, e.status)
+    if h.s3.lookup_secret(ak) != h.s3.secret_key:
+        return h._error("AccessDenied", "admin requires root credentials",
+                        403)
+    path = h.url_path[len("/minio/admin/"):]
+    _, _, op = path.partition("/")  # strip the version segment
+    try:
+        _dispatch_admin(h, op)
+    except dt.ObjectAPIError as e:
+        h._api_error(e)
+    except Exception as e:  # noqa: BLE001 — the boundary: answer 500
+        h._error("InternalError", str(e), 500)
+
+
+def _json(h, obj) -> None:
+    h._send(200, json.dumps(obj).encode(), "application/json")
+
+
+def _dispatch_admin(h, op: str) -> None:
+    if op == "info":
+        return _json(h, {"mode": "online", "backend": h.s3.obj.backend_type(),
+                         "region": h.s3.region, **h.s3.obj.storage_info()})
+    if op == "storageinfo":
+        return _json(h, h.s3.obj.storage_info())
+    if op == "trace":
+        return _trace(h)
+    if op == "timeline":
+        return _timeline(h)
+    if op == "top/api":
+        return _top_api(h)
+    if op == "device":
+        return _device(h)
+    if op == "qos":
+        # admission in-flight/reject totals and the per-class last-minute
+        # latency percentiles
+        from ..qos import qos_status
+        return _json(h, qos_status(h.s3))
+    h._not_implemented(f"admin {op} is not implemented")
+
+
+def _device(h) -> None:
+    """Device plane (obs/device.py): per-lane live-buffer ledger, builds
+    and first launches, per-op seconds of the flushes' CUDA-event
+    intervals with the GiB/s and roofline ratios over them, the streams'
+    occupancy, the caching allocator's memory. ``trace=<seconds>``
+    additionally runs one torch.profiler session and returns its logdir
+    and the card's own busy and idle share under ``trace``."""
+    from ..obs import device
+    q = {k: v[0] for k, v in h.query.items()}
+    rep = device.status(touch_backend=True)
+    rep["endpoint"] = f"{h.s3.address}:{h.s3.port}"
+    if "trace" in q:
+        try:
+            seconds = float(q["trace"])
+        except ValueError:
+            return h._error("InvalidArgument",
+                            "bad trace seconds parameter", 400)
+        rep["trace"] = device.capture_trace(seconds)
+    _json(h, rep)
+
+
+def _parse_duration(s: str) -> float:
+    """Duration query param -> seconds: bare float seconds or with an
+    us/ms/s suffix (madmin-style '?threshold=100ms')."""
+    s = s.strip().lower()
+    if not s:
+        return 0.0
+    for suf, mult in (("us", 1e-6), ("ms", 1e-3), ("s", 1.0)):
+        if s.endswith(suf):
+            return float(s[:-len(suf)]) * mult
+    return float(s)
+
+
+def _trace_filter(q: dict):
+    """Predicate over trace dicts from ?type= (csv of
+    http|storage|kernel|scanner, or 'all'; default http), ?threshold=<dur>
+    (only events at least this slow) and ?err=1 (only failures: error set
+    or status >= 400). Raises ValueError on an unknown type so a typo gets
+    a 400 instead of a silent empty stream."""
+    from ..obs.trace import TRACE_TYPES
+    types = {t for t in q.get("type", "").split(",") if t}
+    unknown = types - set(TRACE_TYPES) - {"all"}
+    if unknown:
+        raise ValueError(f"unknown trace type {sorted(unknown)!r}")
+    if not types:
+        types = {"http"}
+    if "all" in types:
+        types = None
+    threshold = _parse_duration(q.get("threshold", ""))
+    err_only = q.get("err") == "1"
+
+    def want(d: dict) -> bool:
+        if types is not None and d.get("trace_type", "http") not in types:
+            return False
+        if threshold and d.get("duration_s", 0.0) < threshold:
+            return False
+        if err_only and not (d.get("error") or d.get("status", 0) >= 400):
+            return False
+        return True
+
+    return want
+
+
+def _trace_tree(h, q: dict) -> None:
+    """Stored span tree by trace id (tail-sampled slow/error traces):
+    ?trace_id=<id>."""
+    from ..obs import spans as sp
+    tid = q.get("trace_id", "")
+    entry = sp.store().get(tid)
+    spans_list = list(entry.get("spans", ())) if entry else []
+    if not spans_list:
+        return h._error("XMinioTraceNotFound",
+                        f"no stored trace {tid!r} (only slow/error "
+                        "traces are kept)", 404)
+    meta = {k: v for k, v in entry.items() if k != "spans"}
+    _json(h, {**meta, "trace_id": tid, "spans": spans_list,
+              "tree": sp.assemble(spans_list)})
+
+
+def _trace_slow(h, q: dict) -> None:
+    """Newest-first summaries of the slow-trace store (?slow=1&count=N):
+    requests that breached their QoS class budget or errored; fetch a
+    full tree with ?trace_id=."""
+    from ..obs import spans as sp
+    try:
+        n = int(q.get("count", "50"))
+    except ValueError:
+        n = 50
+    _json(h, sp.store().list_slow(n))
+
+
+def _trace(h) -> None:
+    """`mc admin trace` analogue: streams JSON-line trace events — the
+    newest matches of the ring, then live events — bounded by ?count and
+    ?timeout; ?type/?threshold/?err filter both. ?trace_id= returns one
+    stored span tree, ?slow=1 lists the slow-trace store."""
+    import queue as qmod
+    import time as _t
+
+    from ..obs.trace import recent, trace_pubsub
+    from .s3api import _ChunkedWriter
+    q = {k: v[0] for k, v in h.query.items()}
+    if q.get("trace_id"):
+        return _trace_tree(h, q)
+    if q.get("slow") == "1":
+        return _trace_slow(h, q)
+    try:
+        count = int(q.get("count", "50"))
+        timeout = float(q.get("timeout", "10"))
+        want = _trace_filter(q)
+    except ValueError as e:
+        return h._error("InvalidArgument", f"bad trace query: {e}", 400)
+    # subscribe before the ring dump so no event falls between the two
+    sub = trace_pubsub.subscribe()
+    try:
+        h.send_response(200)
+        h.send_header("Content-Type", "application/x-ndjson")
+        h.send_header("Transfer-Encoding", "chunked")
+        h.end_headers()
+        out = _ChunkedWriter(h.wfile)
+        # filter over the FULL ring, then keep the newest `count` matches
+        hist = [d for d in (t.to_dict() for t in recent()) if want(d)]
+        sent = 0
+        for d in hist[max(0, len(hist) - count):]:
+            out.write((json.dumps(d) + "\n").encode())
+            sent += 1
+        deadline = _t.monotonic() + timeout
+        while sent < count and _t.monotonic() < deadline:
+            try:
+                d = sub.get(timeout=0.2).to_dict()
+            except qmod.Empty:
+                continue
+            if want(d):
+                out.write((json.dumps(d) + "\n").encode())
+                sent += 1
+        out.close()
+    except (BrokenPipeError, ConnectionResetError, OSError):
+        # the client hung up mid-stream: the normal end of a follow
+        h.close_connection = True
+    finally:
+        trace_pubsub.unsubscribe(sub)
+
+
+def _timeline(h) -> None:
+    """The dispatch flight recorder: the event ring + per-lane
+    utilization. ``since=<monotonic seconds>`` filters to newer events
+    (pair with the returned ``now``), ``count=N`` keeps the newest N,
+    ``fmt=chrome`` exports Chrome-trace/Perfetto JSON instead,
+    ``attribution=1`` embeds the standing per-op stage breakdown."""
+    import time as _t
+
+    from ..obs import attribution, timeline
+    q = {k: v[0] for k, v in h.query.items()}
+    try:
+        since = float(q.get("since", "0"))
+    except ValueError:
+        return h._error("InvalidArgument",
+                        f"bad since {q.get('since')!r}", 400)
+    try:
+        count = int(q.get("count", "0"))
+    except ValueError:
+        count = 0
+    if q.get("fmt") == "chrome":
+        return _json(h, timeline.export_chrome(since, count))
+    out = {"now": _t.monotonic(), **timeline.status(),
+           "utilization": timeline.utilization(),
+           "events": timeline.snapshot(since, count)}
+    if q.get("attribution") == "1":
+        out["attribution"] = attribution.report()
+    _json(h, out)
+
+
+def _top_api(h) -> None:
+    """`mc admin top api` analogue: per-API call counts and latency
+    percentiles from the request histograms the handler records, and per
+    S3 API name the worst last-minute sample with its trace id."""
+    from ..obs import latency as lat
+    from ..obs import spans as sp
+    from ..obs.metrics import counters_snapshot, histograms_snapshot
+    out: dict = {}
+
+    def labels(key: str) -> dict:
+        if "{" not in key:
+            return {}
+        return {k: v.strip('"') for k, _, v in
+                (p.partition("=") for p in key[key.index("{") + 1:-1]
+                 .split(","))}
+
+    for key, v in counters_snapshot().items():
+        if not key.startswith("minio_tpu_requests_total"):
+            continue
+        lab = labels(key)
+        entry = out.setdefault(lab.get("api") or "unknown",
+                               {"calls": 0, "errors": 0})
+        entry["calls"] += int(v)
+        if lab.get("code") and not lab["code"].startswith("2"):
+            entry["errors"] += int(v)
+    for key, vals in histograms_snapshot().items():
+        if not key.startswith("minio_tpu_request_duration_seconds") or \
+                not vals:
+            continue
+        api = labels(key).get("api", "unknown")
+        vals.sort()
+        entry = out.setdefault(api, {"calls": len(vals), "errors": 0})
+        entry["p50_ms"] = round(vals[len(vals) // 2] * 1e3, 2)
+        entry["p99_ms"] = round(vals[min(len(vals) - 1,
+                                         int(len(vals) * 0.99))] * 1e3, 2)
+        entry["max_ms"] = round(vals[-1] * 1e3, 2)
+    for lab, w in lat.snapshot("api"):
+        st = w.stats(())
+        worst_tid = st["worst_trace_id"]
+        if not worst_tid:
+            continue
+        entry = out.setdefault(lab.get("api", ""),
+                               {"calls": st["count"], "errors": 0})
+        entry["worst_ms"] = round(st["worst_s"] * 1e3, 2)
+        entry["worst_trace_id"] = worst_tid
+        entry["worst_trace_stored"] = sp.store().contains(worst_tid)
+    _json(h, out)

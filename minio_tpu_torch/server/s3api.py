@@ -16,16 +16,25 @@ GET, ranged GET, HEAD, conditional requests, delete, copy, object
 tagging, the six multipart handlers, SSE-C, SelectObjectContent), the
 health endpoints and the MRF heal queue that degraded reads feed.
 
+The observability and admission planes (``obs/``, ``qos/``): every
+request passes admission control (``qos.admission``: a bounded-wait
+concurrency gate of ``max_requests`` slots and per-class token buckets;
+an overloaded server answers ``503 SlowDown`` with ``Retry-After``),
+opens a root span whose id is its ``x-amz-request-id``, and is counted,
+timed and published on the trace stream. ``/minio/v2/metrics/{cluster,
+node}`` and ``/minio/metrics`` serve the Prometheus exposition
+(``?attribution=1`` adds the stage families), ``/minio/admin/`` the
+admin observability ops (``server/admin.py``).
+
 Every API whose plane is not ported answers S3's ``501 NotImplemented``
 in the reference's error XML: STS, federation and internal RPC, the
-admin, metrics and console planes, POST policy uploads, notifications,
-bucket policies, lifecycle, replication, object lock (retention, legal
-hold, lock-enabled buckets), restore and transitioned objects, SSE-S3 and
-SSE-KMS, and compressed objects (the port never compresses; an object the
-JAX package stored compressed is refused, never served as raw deflate).
-Admission control, spans, metrics, the trace stream, the audit log and
-the profiler belong to ``qos/`` and ``obs/``, not ported yet: a request
-here is routed, its errors mapped and its request id stamped."""
+other admin ops and the console plane, POST policy uploads,
+notifications, bucket policies, lifecycle, replication, object lock
+(retention, legal hold, lock-enabled buckets), restore and transitioned
+objects, SSE-S3 and SSE-KMS, and compressed objects (the port never
+compresses; an object the JAX package stored compressed is refused,
+never served as raw deflate). The audit log, the SLO plane and the
+profiler are not ported."""
 from __future__ import annotations
 
 import base64
@@ -35,18 +44,24 @@ import json
 import os
 import socket
 import threading
+import time
 import urllib.parse
-import uuid
 import xml.etree.ElementTree as ET
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 from ..bucket import metadata as bucket_metadata
+from ..obs import latency as _lat
+from ..obs import metrics as _mx
+from ..obs import spans as _sp
+from ..obs import trace as _trc
 from ..objectlayer import ObjectOptions
 from ..objectlayer import datatypes as dt
 from ..utils import errors
 from ..utils.device import resolve_device
 from ..utils.hashreader import (BadDigestError, HashReader,
                                 SHA256MismatchError)
+from ..qos.admission import AdmissionController, classify_request, \
+    plane_exempt
 from . import xmlutil as xu
 from .auth import (STREAMING_PAYLOAD, UNSIGNED_PAYLOAD, AuthError,
                    ChunkedSigV4Reader, SigV4Verifier, parse_auth_header,
@@ -80,11 +95,12 @@ class S3Server:
     """Owns the ObjectLayer, auth and bucket metadata; builds the HTTP
     server. ``device`` is where the handlers' own device work runs (the
     SSE-C keystreams, the Select scan): the CUDA card unless the caller
-    passes ``device="cpu"``; give the object layer the same device."""
+    passes ``device="cpu"``; give the object layer the same device.
+    ``max_requests`` is the admission gate's concurrency."""
 
     def __init__(self, objlayer, address: str = "0.0.0.0", port: int = 9000,
                  region: str = "us-east-1", access_key: str = "",
-                 secret_key: str = "", device=None):
+                 secret_key: str = "", device=None, max_requests: int = 256):
         self.obj = objlayer
         self.region = region
         self.device = resolve_device(device)
@@ -98,6 +114,10 @@ class S3Server:
         self.port = port
         self._httpd: ThreadingHTTPServer | None = None
         self.mrf = None
+        #: admission control: a request that cannot get a slot within the
+        #: bounded wait (or whose class token bucket is empty) is answered
+        #: 503 SlowDown + Retry-After instead of parking a handler thread
+        self.qos_admission = AdmissionController(max_requests=max_requests)
 
     def lookup_secret(self, access_key: str) -> str | None:
         """The secret of an access key: root credentials only (IAM users
@@ -247,6 +267,10 @@ class _ChunkedWriter:
 class _S3Handler(BaseHTTPRequestHandler):
     protocol_version = "HTTP/1.1"
     s3: S3Server = None  # set by subclass factory
+    #: the request carries ``Expect: 100-continue`` (handle_expect_100)
+    _expect_100 = False
+    #: when the response's status line went out (TTFB); None before
+    _t_first = None
 
     def log_message(self, fmt, *args):  # noqa: A003
         pass
@@ -449,14 +473,32 @@ class _S3Handler(BaseHTTPRequestHandler):
             ok = self.s3.obj is not None and self.s3.obj.is_ready()
             return self._send(200 if ok else 503, b"",
                               "text/plain; charset=utf-8")
-        if self.url_path.rstrip("/") == "/minio" or \
-                self.url_path.startswith("/minio/"):
-            # metrics, admin, console, web RPC and internal RPC planes
-            return self._not_implemented(
-                f"{self.url_path} is not implemented")
         if self.s3.obj is None:
             return self._error("ServerNotInitialized",
                                "server still starting", 503)
+        if self.url_path.startswith("/minio/metrics") or \
+                self.url_path.startswith("/minio/v2/metrics"):
+            from ..obs.metrics import render_prometheus
+            scope = "node" if self.url_path.rstrip("/").endswith("/node") \
+                else "cluster"
+            # exemplars are OpenMetrics-only syntax: on an explicit
+            # ?openmetrics=1 only (a classic parser reads a trailing
+            # exemplar as an invalid timestamp)
+            om = self.q("openmetrics") == "1"
+            ctype = ("application/openmetrics-text; version=1.0.0; "
+                     "charset=utf-8") if om else \
+                "text/plain; version=0.0.4"
+            return self._send(200, render_prometheus(
+                self.s3, scope, attribution=self.q("attribution") == "1",
+                openmetrics=om), ctype)
+        if self.url_path.startswith("/minio/admin/"):
+            from .admin import handle_admin
+            return handle_admin(self)
+        if self.url_path.rstrip("/") == "/minio" or \
+                self.url_path.startswith("/minio/"):
+            # console, web RPC and internal RPC planes
+            return self._not_implemented(
+                f"{self.url_path} is not implemented")
         if self.command == "POST" and self.url_path == "/":
             return self._not_implemented("STS is not implemented")
         if self.command == "POST" and self.key == "" and \
@@ -628,22 +670,139 @@ class _S3Handler(BaseHTTPRequestHandler):
 
     def send_response(self, code, message=None):  # noqa: N802
         self._last_status = code
+        if self._t_first is None:
+            self._t_first = time.perf_counter()  # TTFB anchor
         super().send_response(code, message)
         # every response carries the request id and host id (reference
         # setAmzRequestID middleware: x-amz-request-id + x-amz-id-2)
         self.send_header("x-amz-request-id", self._request_id)
         self.send_header("x-amz-id-2", host_id())
 
+    def _admit(self):
+        """Admission control ahead of routing: object and control-plane
+        requests pass their class's token bucket and the bounded-wait
+        concurrency gate or are answered ``503 SlowDown`` + ``Retry-After``.
+        Health, metrics and admin planes are exempt: an overloaded server
+        stays observable. Returns (proceed, release callback)."""
+        adm = self.s3.qos_admission
+        # kept for the finish-side tail sampling: a trace is judged under
+        # the class it was admitted under
+        cls = self._qos_class = classify_request(self.command, self.path)
+        if cls is None:
+            return True, None
+        grant = adm.admit(cls)
+        if grant.ok:
+            return True, lambda: adm.release(grant)
+        _mx.inc("minio_tpu_qos_admission_rejects_total",
+                reason=grant.reason, **{"class": cls})
+        # parsed so the request's counters and trace name it; the body
+        # stays unread, so the connection closes (and says so)
+        self._parse()
+        self.close_connection = True
+        self._send(
+            503,
+            xu.error_xml(
+                "SlowDown",
+                "request rate/concurrency limit exceeded; reduce "
+                "your request rate", self.url_path,
+                request_id=self._request_id, host_id=host_id()),
+            headers={"Retry-After": adm.retry_after_header(grant),
+                     "Connection": "close"})
+        return False, None
+
+    @staticmethod
+    def _span_exempt(path: str) -> bool:
+        """Requests that open no request-scoped trace: health and metrics
+        probes (the planes admission exempts) and admin trace follows,
+        whose duration the client chooses."""
+        return plane_exempt(path) or (
+            path.startswith("/minio/admin/")
+            and path.rstrip("/").endswith("/trace"))
+
+    def handle_expect_100(self):
+        """``Expect: 100-continue``: the interim 100 waits for admission
+        (``_handle``), so a request the gate refuses gets its 503 before
+        its client sends the body — as the reference's server, which
+        answers 100 only when a handler first reads the body."""
+        self._expect_100 = True
+        return True
+
     def _handle(self):
+        """Route one request inside the observability plane: admission,
+        a root span (its trace id is the request id), the request
+        counters and latencies, the per-API window and the http trace.
+        Admission 503s run inside it, so they are counted and traced like
+        every other response."""
         self._last_status = 0
-        self._request_id = uuid.uuid4().hex
+        self._t_first = None
+        rid = _sp.new_trace_id()
+        self._request_id = rid
+        raw_path = self.path.partition("?")[0]
+        root = tok = None
+        if _sp.enabled() and not self._span_exempt(raw_path):
+            root, tok = _sp.begin_request(rid)
+        t0 = time.perf_counter()
+        release = None
         try:
-            self._route()
+            proceed, release = self._admit()
+            if proceed:
+                if self._expect_100:
+                    self.send_response_only(100)
+                    self.end_headers()
+                self._route()
         finally:
+            self._expect_100 = False
+            if release is not None:
+                release()
             try:
                 self._drain_body()
             except Exception:  # noqa: BLE001
                 self.close_connection = True
+            self._observe(rid, root, tok, time.perf_counter() - t0, t0)
+
+    def _observe(self, rid: str, root, tok, dur: float, t0: float) -> None:
+        """The finished request's counters, latency window, trace event
+        and root span (with the tail-sampling decision)."""
+        status = self._last_status
+        path = getattr(self, "url_path", self.path)
+        api = f"s3.{self.command}"
+        if path.startswith("/minio/admin/"):
+            api = "admin"
+        elif path.startswith("/minio/"):
+            api = "internal"
+        api_detail = api
+        traced = root is not None and root.sampled
+        _mx.inc("minio_tpu_requests_total", api=api, code=str(status))
+        _mx.observe("minio_tpu_request_duration_seconds", dur, api=api)
+        ttfb = (self._t_first or time.perf_counter()) - t0
+        if api.startswith("s3."):
+            name = self._api_name()
+            api_detail = f"s3.{name}"
+            _mx.inc("minio_tpu_s3_requests_total", api=name)
+            if status >= 400:
+                _mx.inc("minio_tpu_s3_requests_errors_total", api=name)
+            _mx.observe("minio_tpu_s3_ttfb_seconds", ttfb, api=name)
+            if root is not None:
+                _lat.observe("api", dur, 0, trace_id=rid if traced else "",
+                             api=name)
+        elif api == "admin" and root is not None:
+            _lat.observe("api", dur, 0, trace_id=rid if traced else "",
+                         api="admin")
+        node = f"{self.s3.address}:{self.s3.port}"
+        _trc.publish(_trc.TraceInfo(
+            node=node, func=api, method=self.command, path=path,
+            query=getattr(self, "raw_query", ""), status=status,
+            duration_s=dur, ttfb_s=ttfb,
+            input_bytes=int(getattr(self, "hdr", {}).get(
+                "content-length", "0") or 0),
+            remote=self.client_address[0], trace_id=rid,
+            span_id=root.span_id if root is not None else ""))
+        if root is not None:
+            _sp.finish_request(
+                root, tok, name=api_detail, method=self.command, path=path,
+                status=status, duration_s=dur,
+                cls=getattr(self, "_qos_class", None) or "control",
+                node=node, remote=self.client_address[0])
 
     def do_GET(self):  # noqa: N802
         self._handle()

@@ -11,12 +11,17 @@ Write discipline mirrors the reference: shard data streams into
 (rename_data); xl.meta updates write-to-tmp + ``durable_replace`` (the
 fsync-policy commit primitive, storage/durability.py). A shard file itself
 is written beside its destination and renamed onto it on close, so a
-reader never sees a half-written shard. The per-op trace spans, latency
-windows and fault-injection points of the JAX package's disk wait for the
-observability planes.
+reader never sees a half-written shard.
+
+Every disk call is measured (``_OpSpan``): its seconds and bytes feed the
+per-disk per-op last-minute latency window (``minio_tpu_disk_latency_
+seconds``), a storage trace while someone listens, and a storage span in
+the calling request's trace. The JAX package's fault-injection points
+wait for the port of its fault plane.
 """
 from __future__ import annotations
 
+import logging
 import os
 import shutil
 import stat
@@ -25,6 +30,9 @@ import time
 import uuid
 from typing import Iterator
 
+from ..obs import latency as _lat
+from ..obs import spans as _spans
+from ..obs import trace as _trc
 from ..utils import errors
 from .datatypes import DiskInfo, FileInfo, VolInfo
 from .durability import (FSYNC_ALWAYS, durable_replace, durable_replace_dir,
@@ -133,6 +141,66 @@ class _FileReadAt:
         self.close()
 
 
+#: instruments of ``_OpSpan`` that raised (counted, logged, never fatal)
+_obs_errors = 0
+_obs_errors_lock = threading.Lock()
+log = logging.getLogger(__name__)
+
+
+def obs_errors() -> int:
+    """How many storage-call instruments raised since the process began
+    (their disk calls kept their own results)."""
+    return _obs_errors
+
+
+class _OpSpan:
+    """One measured storage call (reference storageTrace wrapping every
+    xlStorage op with trace type madmin.TraceStorage): feeds the per-disk
+    last-minute latency window, publishes a storage trace only while a
+    trace subscriber listens, and records a leaf span into the calling
+    request's trace. An instrument that raises never replaces the disk
+    call's result: it is counted (``obs_errors()``) and logged."""
+
+    __slots__ = ("disk", "op", "path", "in_bytes", "t0")
+
+    def __init__(self, disk: str, op: str, path: str, in_bytes: int = 0):
+        self.disk = disk
+        self.op = op
+        self.path = path
+        self.in_bytes = in_bytes
+
+    def __enter__(self) -> "_OpSpan":
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, etype, exc, tb) -> bool:
+        global _obs_errors
+        dur = time.perf_counter() - self.t0
+        try:
+            ctx = _spans.current()
+            tid = ctx.trace_id if ctx is not None and ctx.sampled else ""
+            err = f"{etype.__name__}: {exc}" if etype else ""
+            _lat.observe("disk", dur, self.in_bytes, disk=self.disk,
+                         op=self.op, trace_id=tid)
+            _trc.publish_storage(node=self.disk, op=self.op, path=self.path,
+                                 duration_s=dur, input_bytes=self.in_bytes,
+                                 error=err)
+            if tid:
+                _spans.record({
+                    "name": f"storage.{self.op}", "trace_id": tid,
+                    "span_id": _spans.new_span_id(),
+                    "parent_span_id": ctx.span_id,
+                    "time": time.time() - dur, "duration_s": round(dur, 6),
+                    "error": err,
+                    "attrs": {"disk": self.disk, "path": self.path,
+                              "bytes": self.in_bytes}})
+        except Exception:  # noqa: BLE001 — counted, logged, never fatal
+            with _obs_errors_lock:
+                _obs_errors += 1
+            log.exception("storage instrument of %s failed", self.op)
+        return False
+
+
 class XLStorage(StorageAPI):
     """One disk: a root directory of volumes (see the module doc)."""
 
@@ -158,6 +226,11 @@ class XLStorage(StorageAPI):
     def endpoint(self) -> str:
         return self._endpoint
 
+    def _op(self, op: str, volume: str, path: str = "",
+            in_bytes: int = 0) -> _OpSpan:
+        return _OpSpan(self._endpoint, op,
+                       f"{volume}/{path}" if path else volume, in_bytes)
+
     def get_disk_id(self) -> str:
         return self._disk_id
 
@@ -165,115 +238,124 @@ class XLStorage(StorageAPI):
         self._disk_id = disk_id
 
     def disk_info(self) -> DiskInfo:
-        st = os.statvfs(self.root)
-        total = st.f_blocks * st.f_frsize
-        free = st.f_bavail * st.f_frsize
-        return DiskInfo(total=total, free=free, used=total - free,
-                        fs_type="posix", endpoint=self._endpoint,
-                        mount_path=self.root, id=self._disk_id)
+        with self._op("disk_info", ""):
+            st = os.statvfs(self.root)
+            total = st.f_blocks * st.f_frsize
+            free = st.f_bavail * st.f_frsize
+            return DiskInfo(total=total, free=free, used=total - free,
+                            fs_type="posix", endpoint=self._endpoint,
+                            mount_path=self.root, id=self._disk_id)
 
     # --- volumes ------------------------------------------------------------
 
     def make_vol(self, volume: str) -> None:
-        p = self._abs(volume)
-        if os.path.isdir(p):
-            raise errors.VolumeExists(volume)
-        os.makedirs(p, exist_ok=True)
+        with self._op("make_vol", volume):
+            p = self._abs(volume)
+            if os.path.isdir(p):
+                raise errors.VolumeExists(volume)
+            os.makedirs(p, exist_ok=True)
 
     def list_vols(self) -> list[VolInfo]:
-        out = []
-        for name in sorted(os.listdir(self.root)):
-            if name == META_BUCKET:
-                continue
-            p = os.path.join(self.root, name)
-            if os.path.isdir(p):
-                out.append(VolInfo(name=name, created=os.stat(p).st_ctime))
-        return out
+        with self._op("list_vols", ""):
+            out = []
+            for name in sorted(os.listdir(self.root)):
+                if name == META_BUCKET:
+                    continue
+                p = os.path.join(self.root, name)
+                if os.path.isdir(p):
+                    out.append(VolInfo(name=name, created=os.stat(p).st_ctime))
+            return out
 
     def stat_vol(self, volume: str) -> VolInfo:
-        p = self._abs(volume)
-        if not os.path.isdir(p):
-            raise errors.VolumeNotFound(volume)
-        return VolInfo(name=volume, created=os.stat(p).st_ctime)
+        with self._op("stat_vol", volume):
+            p = self._abs(volume)
+            if not os.path.isdir(p):
+                raise errors.VolumeNotFound(volume)
+            return VolInfo(name=volume, created=os.stat(p).st_ctime)
 
     def delete_vol(self, volume: str, force: bool = False) -> None:
-        p = self._abs(volume)
-        if not os.path.isdir(p):
-            raise errors.VolumeNotFound(volume)
-        if force:
-            shutil.rmtree(p)
-            return
-        try:
-            os.rmdir(p)
-        except OSError:
-            raise errors.VolumeNotEmpty(volume) from None
+        with self._op("delete_vol", volume):
+            p = self._abs(volume)
+            if not os.path.isdir(p):
+                raise errors.VolumeNotFound(volume)
+            if force:
+                shutil.rmtree(p)
+                return
+            try:
+                os.rmdir(p)
+            except OSError:
+                raise errors.VolumeNotEmpty(volume) from None
 
     # --- raw files ----------------------------------------------------------
 
     def list_dir(self, volume: str, dir_path: str, count: int = -1
                  ) -> list[str]:
-        base = self._abs(volume, dir_path) if dir_path else self._abs(volume)
-        if not os.path.isdir(self._abs(volume)):
-            raise errors.VolumeNotFound(volume)
-        try:
-            names = sorted(os.listdir(base))
-        except FileNotFoundError:
-            raise errors.FileNotFound(dir_path) from None
-        except NotADirectoryError:
-            raise errors.IsNotRegular(dir_path) from None
-        out = []
-        for n in names:
-            if os.path.isdir(os.path.join(base, n)):
-                n += "/"
-            out.append(n)
-            if 0 < count <= len(out):
-                break
-        return out
+        with self._op("list", volume, dir_path):
+            base = self._abs(volume, dir_path) if dir_path else self._abs(volume)
+            if not os.path.isdir(self._abs(volume)):
+                raise errors.VolumeNotFound(volume)
+            try:
+                names = sorted(os.listdir(base))
+            except FileNotFoundError:
+                raise errors.FileNotFound(dir_path) from None
+            except NotADirectoryError:
+                raise errors.IsNotRegular(dir_path) from None
+            out = []
+            for n in names:
+                if os.path.isdir(os.path.join(base, n)):
+                    n += "/"
+                out.append(n)
+                if 0 < count <= len(out):
+                    break
+            return out
 
     def read_all(self, volume: str, path: str) -> bytes:
         """Whole-file read (raw os.open/os.read: xl.meta reads run once per
         disk per request)."""
-        try:
-            fd = os.open(self._abs(volume, path), os.O_RDONLY)
-        except FileNotFoundError:
-            if not os.path.isdir(self._abs(volume)):
-                raise errors.VolumeNotFound(volume) from None
-            raise errors.FileNotFound(path) from None
-        except IsADirectoryError:
-            raise errors.IsNotRegular(path) from None
-        try:
-            size = os.fstat(fd).st_size
-            chunks = []
-            got = 0
-            while got < size:
-                b = os.read(fd, size - got)
-                if not b:
-                    break
-                chunks.append(b)
-                got += len(b)
-            return chunks[0] if len(chunks) == 1 else b"".join(chunks)
-        except IsADirectoryError:
-            raise errors.IsNotRegular(path) from None
-        finally:
-            os.close(fd)
+        with self._op("read_all", volume, path):
+            try:
+                fd = os.open(self._abs(volume, path), os.O_RDONLY)
+            except FileNotFoundError:
+                if not os.path.isdir(self._abs(volume)):
+                    raise errors.VolumeNotFound(volume) from None
+                raise errors.FileNotFound(path) from None
+            except IsADirectoryError:
+                raise errors.IsNotRegular(path) from None
+            try:
+                size = os.fstat(fd).st_size
+                chunks = []
+                got = 0
+                while got < size:
+                    b = os.read(fd, size - got)
+                    if not b:
+                        break
+                    chunks.append(b)
+                    got += len(b)
+                return chunks[0] if len(chunks) == 1 else b"".join(chunks)
+            except IsADirectoryError:
+                raise errors.IsNotRegular(path) from None
+            finally:
+                os.close(fd)
 
     def write_all(self, volume: str, path: str, data: bytes) -> None:
         """Atomic whole-file write (tmp + durable rename)."""
-        dst = self._abs(volume, path)
-        if not os.path.isdir(self._abs(volume)):
-            raise errors.VolumeNotFound(volume)
-        os.makedirs(os.path.dirname(dst), exist_ok=True)
-        tmp = self._abs(META_TMP, new_tmp_id())
-        with open(tmp, "wb") as f:
-            f.write(data)
-        durable_replace(tmp, dst)
+        with self._op("write_all", volume, path, in_bytes=len(data)):
+            dst = self._abs(volume, path)
+            if not os.path.isdir(self._abs(volume)):
+                raise errors.VolumeNotFound(volume)
+            os.makedirs(os.path.dirname(dst), exist_ok=True)
+            tmp = self._abs(META_TMP, new_tmp_id())
+            with open(tmp, "wb") as f:
+                f.write(data)
+            durable_replace(tmp, dst)
 
     def append_file(self, volume: str, path: str, data: bytes) -> None:
-        dst = self._abs(volume, path)
-        os.makedirs(os.path.dirname(dst), exist_ok=True)
-        with open(dst, "ab") as f:
-            f.write(data)
-        fsync_after_write(dst)
+        with self._op("append_file", volume, path, in_bytes=len(data)):
+            dst = self._abs(volume, path)
+            os.makedirs(os.path.dirname(dst), exist_ok=True)
+            with open(dst, "ab") as f:
+                f.write(data)
+            fsync_after_write(dst)
 
     def create_file_writer(self, volume: str, path: str) -> _FileWriter:
         return _FileWriter(self._abs(volume, path))
@@ -283,48 +365,51 @@ class XLStorage(StorageAPI):
 
     def rename_file(self, src_volume: str, src_path: str, dst_volume: str,
                     dst_path: str) -> None:
-        src = self._abs(src_volume, src_path)
-        dst = self._abs(dst_volume, dst_path)
-        if not os.path.exists(src):
-            raise errors.FileNotFound(src_path)
-        os.makedirs(os.path.dirname(dst), exist_ok=True)
-        durable_replace(src, dst)
+        with self._op("rename_file", src_volume, src_path):
+            src = self._abs(src_volume, src_path)
+            dst = self._abs(dst_volume, dst_path)
+            if not os.path.exists(src):
+                raise errors.FileNotFound(src_path)
+            os.makedirs(os.path.dirname(dst), exist_ok=True)
+            durable_replace(src, dst)
 
     def delete_path(self, volume: str, path: str, recursive: bool = False
                     ) -> None:
-        p = self._abs(volume, path)
-        try:
-            if os.path.isdir(p):
-                if recursive:
-                    shutil.rmtree(p)
-                else:
-                    os.rmdir(p)
-            else:
-                os.unlink(p)
-        except FileNotFoundError:
-            raise errors.FileNotFound(path) from None
-        except OSError as e:
-            raise errors.FaultyDisk(str(e)) from e
-        # prune now-empty parents up to the volume root (reference
-        # deleteFile parent cleanup)
-        parent = os.path.dirname(p)
-        vol_root = self._abs(volume)
-        while parent != vol_root and parent.startswith(self.root):
+        with self._op("delete", volume, path):
+            p = self._abs(volume, path)
             try:
-                os.rmdir(parent)
-            except OSError:
-                break
-            parent = os.path.dirname(parent)
+                if os.path.isdir(p):
+                    if recursive:
+                        shutil.rmtree(p)
+                    else:
+                        os.rmdir(p)
+                else:
+                    os.unlink(p)
+            except FileNotFoundError:
+                raise errors.FileNotFound(path) from None
+            except OSError as e:
+                raise errors.FaultyDisk(str(e)) from e
+            # prune now-empty parents up to the volume root (reference
+            # deleteFile parent cleanup)
+            parent = os.path.dirname(p)
+            vol_root = self._abs(volume)
+            while parent != vol_root and parent.startswith(self.root):
+                try:
+                    os.rmdir(parent)
+                except OSError:
+                    break
+                parent = os.path.dirname(parent)
 
     def stat_file_size(self, volume: str, path: str) -> int:
-        p = self._abs(volume, path)
-        try:
-            st = os.stat(p)
-        except FileNotFoundError:
-            raise errors.FileNotFound(path) from None
-        if not stat.S_ISREG(st.st_mode):
-            raise errors.IsNotRegular(path)
-        return st.st_size
+        with self._op("stat", volume, path):
+            p = self._abs(volume, path)
+            try:
+                st = os.stat(p)
+            except FileNotFoundError:
+                raise errors.FileNotFound(path) from None
+            if not stat.S_ISREG(st.st_mode):
+                raise errors.IsNotRegular(path)
+            return st.st_size
 
     # --- xl.meta version ops ------------------------------------------------
 
@@ -378,26 +463,27 @@ class XLStorage(StorageAPI):
         """Commit a freshly written object version: move
         ``<src>/<dataDir>`` under the object dir and add the version to
         xl.meta atomically w.r.t. this disk (reference RenameData)."""
-        with self._meta_lock:
-            try:
-                meta = self._load_meta(dst_volume, dst_path)
-            except errors.FileNotFound:
-                meta = XLMeta()
-            if fi.data_dir and fi.data is None:
-                src = self._abs(src_volume, src_path, fi.data_dir)
-                if not os.path.isdir(src):
-                    raise errors.FileNotFound(src_path)
-                dst = self._abs(dst_volume, dst_path, fi.data_dir)
-                os.makedirs(os.path.dirname(dst), exist_ok=True)
-                if os.path.isdir(dst):
-                    shutil.rmtree(dst)
-                durable_replace_dir(src, dst)
-            old_ddirs = meta.add_version(fi)
-            self._store_meta(dst_volume, dst_path, meta)
-            self._purge_ddirs(dst_volume, dst_path, old_ddirs)
-        # the tmp parent dir; already-gone is success (a prior call won)
-        shutil.rmtree(self._abs(src_volume, src_path.split("/")[0]),
-                      ignore_errors=True)
+        with self._op("rename_data", dst_volume, dst_path):
+            with self._meta_lock:
+                try:
+                    meta = self._load_meta(dst_volume, dst_path)
+                except errors.FileNotFound:
+                    meta = XLMeta()
+                if fi.data_dir and fi.data is None:
+                    src = self._abs(src_volume, src_path, fi.data_dir)
+                    if not os.path.isdir(src):
+                        raise errors.FileNotFound(src_path)
+                    dst = self._abs(dst_volume, dst_path, fi.data_dir)
+                    os.makedirs(os.path.dirname(dst), exist_ok=True)
+                    if os.path.isdir(dst):
+                        shutil.rmtree(dst)
+                    durable_replace_dir(src, dst)
+                old_ddirs = meta.add_version(fi)
+                self._store_meta(dst_volume, dst_path, meta)
+                self._purge_ddirs(dst_volume, dst_path, old_ddirs)
+            # the tmp parent dir; already-gone is success (a prior call won)
+            shutil.rmtree(self._abs(src_volume, src_path.split("/")[0]),
+                          ignore_errors=True)
 
     def _purge_ddirs(self, volume: str, path: str, ddirs: list[str]):
         """Remove data dirs of replaced versions (overwrite cleanup)."""
@@ -405,44 +491,49 @@ class XLStorage(StorageAPI):
             shutil.rmtree(self._abs(volume, path, ddir), ignore_errors=True)
 
     def write_metadata(self, volume: str, path: str, fi: FileInfo) -> None:
-        with self._meta_lock:
-            try:
-                meta = self._load_meta(volume, path)
-            except errors.FileNotFound:
-                meta = XLMeta()
-            old_ddirs = meta.add_version(fi)
-            self._store_meta(volume, path, meta)
-            self._purge_ddirs(volume, path, old_ddirs)
+        with self._op("write_metadata", volume, path):
+            with self._meta_lock:
+                try:
+                    meta = self._load_meta(volume, path)
+                except errors.FileNotFound:
+                    meta = XLMeta()
+                old_ddirs = meta.add_version(fi)
+                self._store_meta(volume, path, meta)
+                self._purge_ddirs(volume, path, old_ddirs)
 
     def update_metadata(self, volume: str, path: str, fi: FileInfo) -> None:
-        with self._meta_lock:
-            meta = self._load_meta(volume, path)
-            meta.find_version(fi.version_id)  # must exist
-            meta.add_version(fi)
-            self._store_meta(volume, path, meta)
+        with self._op("update_metadata", volume, path):
+            with self._meta_lock:
+                meta = self._load_meta(volume, path)
+                meta.find_version(fi.version_id)  # must exist
+                meta.add_version(fi)
+                self._store_meta(volume, path, meta)
 
     def read_version(self, volume: str, path: str, version_id: str = "",
                      read_data: bool = False) -> FileInfo:
         # inline data (fi.data) comes ONLY from xl.meta's Data section, as
         # in the reference (cmd/xl-storage.go:1138): part.N files hold
         # bitrot-framed shard bytes, never object bytes
-        return self._load_meta(volume, path).to_fileinfo(volume, path,
-                                                         version_id)
+        with self._op("read_version", volume, path):
+            return self._load_meta(volume, path).to_fileinfo(volume, path,
+                                                             version_id)
 
     def list_versions(self, volume: str, path: str) -> list[FileInfo]:
-        return self._load_meta(volume, path).list_versions(volume, path)
+        with self._op("list_versions", volume, path):
+            return self._load_meta(volume, path).list_versions(volume, path)
 
     def delete_version(self, volume: str, path: str, fi: FileInfo) -> None:
-        with self._meta_lock:
-            meta = self._load_meta(volume, path)
-            ddir = meta.delete_version(fi)
-            if ddir:
-                try:
-                    self.delete_path(volume, f"{path}/{ddir}",
-                                     recursive=True)
-                except errors.FileNotFound:
-                    pass
-            self._store_meta(volume, path, meta)
+        with self._op("delete_version", volume, path):
+            with self._meta_lock:
+                meta = self._load_meta(volume, path)
+                ddir = meta.delete_version(fi)
+                if ddir:
+                    try:
+                        self.delete_path(volume, f"{path}/{ddir}",
+                                         recursive=True)
+                    except errors.FileNotFound:
+                        pass
+                self._store_meta(volume, path, meta)
 
     def _part_geometry(self, fi: FileInfo):
         from ..erasure.bitrot import BITROT_CHUNK_KEY, BitrotAlgorithm
@@ -455,42 +546,44 @@ class XLStorage(StorageAPI):
     def check_parts(self, volume: str, path: str, fi: FileInfo) -> None:
         """Verify all parts exist with the expected shard file size
         (reference CheckParts)."""
-        from ..erasure.bitrot import bitrot_shard_file_size
-        if fi.data is not None:
-            return
-        algo, chunk = self._part_geometry(fi)
-        for part in fi.parts:
-            p = f"{path}/{fi.data_dir}/part.{part.number}"
-            want = bitrot_shard_file_size(
-                fi.erasure.shard_file_size(part.size), chunk, algo)
-            if self.stat_file_size(volume, p) != want:
-                raise errors.FileCorrupt(p)
+        with self._op("check_parts", volume, path):
+            from ..erasure.bitrot import bitrot_shard_file_size
+            if fi.data is not None:
+                return
+            algo, chunk = self._part_geometry(fi)
+            for part in fi.parts:
+                p = f"{path}/{fi.data_dir}/part.{part.number}"
+                want = bitrot_shard_file_size(
+                    fi.erasure.shard_file_size(part.size), chunk, algo)
+                if self.stat_file_size(volume, p) != want:
+                    raise errors.FileCorrupt(p)
 
     def verify_file(self, volume: str, path: str, fi: FileInfo) -> None:
         """Deep bitrot scan of every part on this disk (reference
         VerifyFile / bitrotVerify), on the host."""
-        from ..erasure.bitrot import bitrot_logical_size, new_bitrot_reader
-        if fi.data is not None:
-            return
-        algo, chunk = self._part_geometry(fi)
-        for part in fi.parts:
-            p = f"{path}/{fi.data_dir}/part.{part.number}"
-            logical = bitrot_logical_size(self.stat_file_size(volume, p),
-                                          chunk, algo)
-            if logical != fi.erasure.shard_file_size(part.size):
-                raise errors.FileCorrupt(p)
-            src = self.read_file_at(volume, p)
-            try:
-                r = new_bitrot_reader(src, algo, logical, chunk)
-                # multi-chunk spans keep the syscall count low
-                span = chunk * max(1, (4 << 20) // chunk)
-                off = 0
-                while off < logical:
-                    n = min(span, logical - off)
-                    r.read_at(off, n)
-                    off += n
-            finally:
-                src.close()
+        with self._op("verify_file", volume, path):
+            from ..erasure.bitrot import bitrot_logical_size, new_bitrot_reader
+            if fi.data is not None:
+                return
+            algo, chunk = self._part_geometry(fi)
+            for part in fi.parts:
+                p = f"{path}/{fi.data_dir}/part.{part.number}"
+                logical = bitrot_logical_size(self.stat_file_size(volume, p),
+                                              chunk, algo)
+                if logical != fi.erasure.shard_file_size(part.size):
+                    raise errors.FileCorrupt(p)
+                src = self.read_file_at(volume, p)
+                try:
+                    r = new_bitrot_reader(src, algo, logical, chunk)
+                    # multi-chunk spans keep the syscall count low
+                    span = chunk * max(1, (4 << 20) // chunk)
+                    off = 0
+                    while off < logical:
+                        n = min(span, logical - off)
+                        r.read_at(off, n)
+                        off += n
+                finally:
+                    src.close()
 
     # --- crash recovery -----------------------------------------------------
 
@@ -499,28 +592,29 @@ class XLStorage(StorageAPI):
         sweeps everything minted by this or any DEAD process. Entries
         pid-prefixed by a different still-LIVE process are always
         skipped."""
-        base = self._abs(META_TMP)
-        try:
-            names = os.listdir(base)
-        except OSError:
-            return 0
-        now = time.time()
-        swept = 0
-        for name in names:
-            p = os.path.join(base, name)
-            if _minted_by_live_peer(name):
-                continue
+        with self._op("sweep_tmp", META_TMP):
+            base = self._abs(META_TMP)
             try:
-                if age_s > 0 and now - os.stat(p).st_mtime < age_s:
-                    continue
-                if os.path.isdir(p):
-                    shutil.rmtree(p)
-                else:
-                    os.unlink(p)
-                swept += 1
+                names = os.listdir(base)
             except OSError:
-                continue  # raced with a concurrent commit/clean
-        return swept
+                return 0
+            now = time.time()
+            swept = 0
+            for name in names:
+                p = os.path.join(base, name)
+                if _minted_by_live_peer(name):
+                    continue
+                try:
+                    if age_s > 0 and now - os.stat(p).st_mtime < age_s:
+                        continue
+                    if os.path.isdir(p):
+                        shutil.rmtree(p)
+                    else:
+                        os.unlink(p)
+                    swept += 1
+                except OSError:
+                    continue  # raced with a concurrent commit/clean
+            return swept
 
     @staticmethod
     def _subtree_has_meta(p: str) -> bool:
@@ -540,64 +634,65 @@ class XLStorage(StorageAPI):
         the journal commit, or of a failed purge. ``age_s`` guards
         in-flight overwrites (their dataDir lands moments before the
         journal does)."""
-        out = {"orphan_ddirs": 0, "quarantined": 0, "has_meta": False}
-        obj_dir = self._abs(volume, path)
-        now = time.time()
-        with self._meta_lock:
-            referenced = self._reconcile_refs(volume, path, out, age_s, now)
-        try:
-            names = os.listdir(obj_dir)
-        except OSError:
-            return out
-        # the subtree walks run without the lock: nested namespaces are
-        # only skipped here, and phase 3 re-verifies under it
-        candidates = []
-        for name in names:
-            p = os.path.join(obj_dir, name)
-            if not os.path.isdir(p) or name in referenced:
-                continue
-            if self._subtree_has_meta(p):
-                continue
-            try:
-                if age_s > 0 and now - os.stat(p).st_mtime < age_s:
-                    continue
-            except OSError:
-                continue
-            candidates.append(name)
-        trash: list[str] = []
-        for name in candidates:
-            p = os.path.join(obj_dir, name)
+        with self._op("reconcile", volume, path):
+            out = {"orphan_ddirs": 0, "quarantined": 0, "has_meta": False}
+            obj_dir = self._abs(volume, path)
+            now = time.time()
             with self._meta_lock:
-                fresh = {"orphan_ddirs": 0, "quarantined": 0,
-                         "has_meta": False}
-                refs = self._reconcile_refs(volume, path, fresh, 0.0, now)
-                if name in refs or self._subtree_has_meta(p):
+                referenced = self._reconcile_refs(volume, path, out, age_s, now)
+            try:
+                names = os.listdir(obj_dir)
+            except OSError:
+                return out
+            # the subtree walks run without the lock: nested namespaces are
+            # only skipped here, and phase 3 re-verifies under it
+            candidates = []
+            for name in names:
+                p = os.path.join(obj_dir, name)
+                if not os.path.isdir(p) or name in referenced:
                     continue
-                t = self._abs(META_TMP, new_tmp_id())
+                if self._subtree_has_meta(p):
+                    continue
                 try:
-                    os.replace(p, t)
+                    if age_s > 0 and now - os.stat(p).st_mtime < age_s:
+                        continue
                 except OSError:
                     continue
-                trash.append(t)
-                out["orphan_ddirs"] += 1
-        for t in trash:
-            shutil.rmtree(t, ignore_errors=True)
-        if not out["has_meta"]:
-            # journal-less slot: fold the dir away so walks stop yielding a
-            # phantom object — immediately when empty, after age_s when
-            # only the quarantined journal remains
-            with self._meta_lock:
-                try:
-                    entries = os.listdir(obj_dir)
-                    if not entries:
-                        self.delete_path(volume, path)
-                    elif entries == [XL_META_CORRUPT_FILE] and age_s > 0:
-                        cp = os.path.join(obj_dir, XL_META_CORRUPT_FILE)
-                        if now - os.stat(cp).st_mtime >= age_s:
-                            self.delete_path(volume, path, recursive=True)
-                except (OSError, errors.StorageError):
-                    pass
-        return out
+                candidates.append(name)
+            trash: list[str] = []
+            for name in candidates:
+                p = os.path.join(obj_dir, name)
+                with self._meta_lock:
+                    fresh = {"orphan_ddirs": 0, "quarantined": 0,
+                             "has_meta": False}
+                    refs = self._reconcile_refs(volume, path, fresh, 0.0, now)
+                    if name in refs or self._subtree_has_meta(p):
+                        continue
+                    t = self._abs(META_TMP, new_tmp_id())
+                    try:
+                        os.replace(p, t)
+                    except OSError:
+                        continue
+                    trash.append(t)
+                    out["orphan_ddirs"] += 1
+            for t in trash:
+                shutil.rmtree(t, ignore_errors=True)
+            if not out["has_meta"]:
+                # journal-less slot: fold the dir away so walks stop yielding a
+                # phantom object — immediately when empty, after age_s when
+                # only the quarantined journal remains
+                with self._meta_lock:
+                    try:
+                        entries = os.listdir(obj_dir)
+                        if not entries:
+                            self.delete_path(volume, path)
+                        elif entries == [XL_META_CORRUPT_FILE] and age_s > 0:
+                            cp = os.path.join(obj_dir, XL_META_CORRUPT_FILE)
+                            if now - os.stat(cp).st_mtime >= age_s:
+                                self.delete_path(volume, path, recursive=True)
+                    except (OSError, errors.StorageError):
+                        pass
+            return out
 
     def _reconcile_refs(self, volume: str, path: str, out: dict,
                         age_s: float, now: float) -> set:

@@ -10,13 +10,15 @@ bytes either way. When the fused-pipeline ETag is eligible the object
 layer calls :meth:`HashReader.disable_payload_hash` and derives the ETag
 from the per-chunk bitrot digests the encode path computes anyway
 (:class:`PipelineETag`); :func:`pipeline_etag_reference` is the
-from-raw-bytes reference of that ETag."""
+from-raw-bytes reference of that ETag. The payload digests charge the
+``etag`` stage of an armed stage collector (``obs/stages``)."""
 from __future__ import annotations
 
 import base64
 import binascii
 import hashlib
 
+from ..obs import stages as _stages
 from . import errors
 
 
@@ -76,9 +78,10 @@ class HashReader:
             return b""
         self._read += len(b)
         if self._payload_hash:
-            self._md5.update(b)
-            if self._sha256 is not None:
-                self._sha256.update(b)
+            with _stages.timed(_stages.active(), "etag"):
+                self._md5.update(b)
+                if self._sha256 is not None:
+                    self._sha256.update(b)
         return b
 
     def _finish(self):

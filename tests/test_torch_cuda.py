@@ -798,3 +798,157 @@ def test_s3server_on_card_matches_cpu(dev, tmp_path, monkeypatch):
     for name in ("gf_encode_batched", "gf_matmul_batched", "chacha20_xor",
                  "highwayhash256_chunks", "scan_codes"):
         assert launched[name] > 0, name
+
+
+# -- the observability plane on the card --------------------------------------
+
+
+def test_flush_device_time_comes_from_cuda_events(dev):
+    """A CUDA queue's flushes land in the device plane: each op's CUDA-event
+    device seconds are > 0 and at most its flushes' walls (flush start to
+    readback landed, on the host clock); the streams' occupancy over the
+    run and each lane's lie in (0, 1]; the roofline ratio is the card's
+    (or null for a card whose bound the port does not know); the ledger
+    is balanced after the drain."""
+    import time
+    from minio_tpu_torch.erasure.bitrot import HIGHWAY_KEY
+    from minio_tpu_torch.obs import device as pdev
+    from minio_tpu_torch.obs import timeline as ptl
+    from minio_tpu_torch.ops.rs_torch import get_codec, pack_shards
+    from minio_tpu_torch.runtime.dispatch import DispatchQueue
+    codec = get_codec(4, 2, device=dev)
+    cases = [_encode_hashed_case(codec, 300 + s) for s in range(32)]
+    full = np.concatenate([np.random.default_rng(9).integers(
+        0, 256, (4, 8192), dtype=np.uint8)])
+    q = DispatchQueue(dev, max_batch=8, max_delay=0.002)
+    ptl.configure()
+    ptl.reset()
+    pdev.reset()
+    before = pdev.occupancy_totals()
+    t0 = time.monotonic()
+    try:
+        futs = [q.encode_hashed(codec, w, HIGHWAY_KEY, 4096, 0)
+                for w, _, _ in cases]
+        masks = codec.target_masks_np((0, 2, 3, 4), (1,))
+        futs += [q.masked(codec, pack_shards(full), masks)
+                 for _ in range(6)]
+        for f in futs:
+            f.result(timeout=120)
+        wall = time.monotonic() - t0
+    finally:
+        q.stop()
+    assert q.stats()["obs_errors"] == 0
+    st = pdev.status()
+    ends = [e for e in ptl.snapshot() if e["type"] == "flush_end"]
+    for op in ("encode_hashed", "reconstruct"):
+        row = st["roofline"][op]
+        walls = [e["dur"] for e in ends if e["op"] == op]
+        assert row["flushes"] == len(walls) >= 1
+        assert 0 < row["device_seconds"] <= sum(walls)
+        ceiling = pdev.roofline_gibs()
+        if ceiling is None:
+            assert row["roofline_ratio"] is None
+        else:
+            assert 0 < row["roofline_ratio"] <= 1.05
+    share = pdev.occupancy_share(before, pdev.occupancy_totals(),
+                                 wall)[str(dev)]
+    assert 0.0 < share["union"] <= 1.0
+    assert set(share["lanes"]) == {"bulk", "interactive"}
+    assert all(0.0 < v <= 1.0 for v in share["lanes"].values())
+    assert share["union"] <= sum(share["lanes"].values()) + 1e-9
+    assert st["ledger_balanced"]
+    assert st["ledger"]["bulk"]["acquired_total"] >= 4
+    assert st["card"] == torch.cuda.get_device_name(dev)
+
+
+def test_device_memory_rows_once_cuda_is_live(dev):
+    from minio_tpu_torch.obs import device as pdev
+    torch.empty(1 << 20, device=dev)
+    rows = pdev.device_memory()
+    assert rows and rows[0]["name"] == torch.cuda.get_device_name(0)
+    assert rows[0]["peak_bytes_in_use"] >= rows[0]["bytes_in_use"] >= 0
+    assert rows[0]["bytes_limit"] > rows[0]["free_bytes"] > 0
+
+
+_SCRAPE_PROBE = r"""
+import sys, tempfile, torch
+from minio_tpu_torch.obs import device, metrics
+from minio_tpu_torch.objectlayer import ErasureObjects
+from minio_tpu_torch.server import S3Server
+from minio_tpu_torch.storage import XLStorage
+d = tempfile.mkdtemp()
+layer = ErasureObjects([XLStorage(f"{d}/d{i}") for i in range(4)],
+                       default_parity=2, device="cpu")
+srv = S3Server(layer, "127.0.0.1", 0, device="cpu")
+text = metrics.render_prometheus(srv, "node").decode()
+assert not torch.cuda.is_initialized(), "a scrape initialised CUDA"
+assert "minio_tpu_device_hbm_bytes_in_use" not in text
+assert device.status()["device_memory"] == []
+from minio_tpu_torch.runtime.dispatch import DispatchQueue
+from minio_tpu_torch.ops.rs_torch import get_codec, pack_shards
+import numpy as np
+q = DispatchQueue("cuda")
+q.encode(get_codec(4, 2, device="cuda"), pack_shards(np.zeros(
+    (4, 4096), np.uint8))).result(timeout=120)
+q.stop()
+text = metrics.render_prometheus(srv, "node").decode()
+assert "minio_tpu_device_hbm_bytes_in_use" in text
+assert "minio_tpu_device_obs_stream_occupancy_ratio" in text
+print("ok")
+"""
+
+
+def test_scrape_never_initialises_cuda_before_a_flush(dev):
+    import os
+    import pathlib
+    import subprocess
+    import sys
+    repo = pathlib.Path(__file__).resolve().parent.parent
+    env = dict(os.environ, PYTHONPATH=str(repo))
+    r = subprocess.run([sys.executable, "-c", _SCRAPE_PROBE], cwd=repo,
+                       env=env, capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0 and r.stdout.split()[-1] == "ok", \
+        r.stderr[-3000:]
+
+
+def test_capture_trace_on_the_card(dev):
+    """The admin plane's torch.profiler session while a queue flushes on
+    the card: a Chrome trace comes back (the device time by kernel name is
+    whatever CUPTI gave the profiler, reported, not required)."""
+    import json
+    import os
+    import shutil
+    import threading
+    from minio_tpu_torch.erasure.bitrot import HIGHWAY_KEY
+    from minio_tpu_torch.obs import device as pdev
+    from minio_tpu_torch.ops.rs_torch import get_codec
+    from minio_tpu_torch.runtime.dispatch import DispatchQueue
+    codec = get_codec(4, 2, device=dev)
+    cases = [_encode_hashed_case(codec, 500 + s) for s in range(16)]
+    q = DispatchQueue(dev, max_batch=4, max_delay=0.001)
+    stop = threading.Event()
+
+    def load():
+        while not stop.is_set():
+            for f in [q.encode_hashed(codec, w, HIGHWAY_KEY, 4096, 0)
+                      for w, _, _ in cases]:
+                f.result(timeout=120)
+
+    t = threading.Thread(target=load)
+    t.start()
+    try:
+        out = pdev.capture_trace(0.5)
+    finally:
+        stop.set()
+        t.join(timeout=120)
+        q.stop()
+    assert not t.is_alive()
+    try:
+        with open(os.path.join(out["logdir"], "trace.json")) as f:
+            assert json.load(f)["traceEvents"]
+        assert isinstance(out["device_seconds_by_name"], dict)
+        share = out["device_busy_share"]
+        assert share is not None and 0.0 <= share <= 1.0
+        assert out["device_idle_share"] == pytest.approx(1.0 - share)
+    finally:
+        shutil.rmtree(out["logdir"], ignore_errors=True)

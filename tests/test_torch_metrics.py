@@ -1,0 +1,365 @@
+"""The port's metrics and admin observability planes (minio_tpu_torch.obs.
+metrics, minio_tpu_torch.server.admin) on the CPU, held to the JAX
+package's server after the same signed requests: the port's exposition
+passes the naming lint of tests/test_obs_naming.py, every family both
+servers emit has the same TYPE and label names, and the families only one
+side emits are pinned here with the reason for each. Then the admin ops
+the port serves (trace tree with the kernel span linked to its request,
+timeline, device, top/api, qos, info) and the ones it answers 501."""
+import json
+import os
+import re
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+sys.path.insert(0, os.path.dirname(__file__))
+from s3client import S3Client  # noqa: E402
+
+AK, SK = "mtak", "mt-secret-key"
+SEED = 20261017
+NAME_RE = re.compile(r"^minio_tpu_[a-z0-9]+(_[a-z0-9]+)*$")
+HIST_SUFFIXES = ("_bucket", "_count", "_sum")
+
+_NOT_PORTED = {
+    "bucket analytics (obs/bucketstats)": (
+        "minio_tpu_bucket_requests_latency_seconds",
+        "minio_tpu_bucket_requests_total",
+        "minio_tpu_bucket_requests_ttfb_seconds",
+        "minio_tpu_bucket_stats_evictions_total",
+        "minio_tpu_bucket_stats_folds_total",
+        "minio_tpu_bucket_stats_tracked",
+        "minio_tpu_bucket_traffic_received_bytes_total",
+        "minio_tpu_bucket_traffic_sent_bytes_total",
+        "minio_tpu_bucket_usage_live_bytes",
+        "minio_tpu_bucket_usage_live_objects",
+        "minio_tpu_bucket_usage_live_versions",
+        "minio_tpu_bucket_slo_bad_total"),
+    "the data scanner's usage snapshot": (
+        "minio_tpu_cluster_usage_object_total",
+        "minio_tpu_cluster_usage_total_bytes"),
+    "the auto-heal monitor's healing trackers": (
+        "minio_tpu_heal_disks_healing",),
+    "disk health trackers and hedged reads": (
+        "minio_tpu_disk_health_ewma_seconds", "minio_tpu_disk_state",
+        "minio_tpu_hedge_threshold_seconds"),
+    "the durability plane's health part and crash recovery": (
+        "minio_tpu_durability_fsync_flushed_total",
+        "minio_tpu_durability_fsync_mode",
+        "minio_tpu_durability_fsync_pending",
+        "minio_tpu_durability_recovery_runs_total"),
+    "the QoS scheduler (spill to the CPU, deadline sizing, lane model)": (
+        "minio_tpu_lane_backlog_seconds",
+        "minio_tpu_lane_deadline_cuts_total",
+        "minio_tpu_lane_queued_bytes", "minio_tpu_qos_class_items_total",
+        "minio_tpu_qos_deadline_misses_total",
+        "minio_tpu_qos_device_queued_bytes",
+        "minio_tpu_qos_lane_diverts_total",
+        "minio_tpu_qos_spilled_batches_total",
+        "minio_tpu_qos_spilled_items_total",
+        "minio_tpu_qos_spill_reason_total",
+        "minio_tpu_device_lane_queued_bytes"),
+    "input donation (the port donates no buffers)": (
+        "minio_tpu_device_obs_ledger_donated_total",),
+    "the native PUT and GET routes": (
+        "minio_tpu_pipeline_get_blocks_total",
+        "minio_tpu_pipeline_zero_copy_bytes_total"),
+    "the profiler": (
+        "minio_tpu_profiler_dropped_total", "minio_tpu_profiler_enabled",
+        "minio_tpu_profiler_hz", "minio_tpu_profiler_lockwait_samples_total",
+        "minio_tpu_profiler_overhead_ratio",
+        "minio_tpu_profiler_role_samples_total",
+        "minio_tpu_profiler_running", "minio_tpu_profiler_samples_total",
+        "minio_tpu_profiler_stacks", "minio_tpu_profiler_subsystem_share",
+        "minio_tpu_lock_wait_seconds", "minio_tpu_lock_wait_sites"),
+    "the SLO plane": (
+        "minio_tpu_slo_availability_objective",
+        "minio_tpu_slo_availability_ratio", "minio_tpu_slo_breach",
+        "minio_tpu_slo_burn_rate", "minio_tpu_slo_enabled",
+        "minio_tpu_slo_latency_objective", "minio_tpu_slo_latency_ratio",
+        "minio_tpu_slo_latency_threshold_seconds",
+        "minio_tpu_slo_requests_total", "minio_tpu_slo_window_breaches",
+        "minio_tpu_slo_window_errors", "minio_tpu_slo_window_requests",
+        "minio_tpu_slo_worst_breach_seconds"),
+    "the workloads group (the port has no scan-lane or cipher switch)": (
+        "minio_tpu_workloads_scan_lane", "minio_tpu_workloads_sse_cipher"),
+}
+#: families the JAX server may emit and the port does not, with the reason
+JAX_ONLY = {fam: f"not ported: {why}" for why, fams in _NOT_PORTED.items()
+            for fam in fams}
+#: families only the port emits, with the reason
+PORT_ONLY = {
+    "minio_tpu_device_obs_first_launches_total":
+        "first launches per (op, shape) stand in for the JAX package's "
+        "per-signature compile rows",
+    "minio_tpu_device_obs_stream_occupancy_ratio":
+        "the streams' occupancy by the flushes' CUDA-event intervals (on a "
+        "card only)",
+}
+#: the JAX server on its dispatch routes, as the port's only routes
+DISPATCH_ENV = {"MINIO_TPU_DISPATCH_MODE": "cpu",
+                "MINIO_TPU_PUT_PATH": "dispatch",
+                "MINIO_TPU_GET_PATH": "dispatch"}
+
+
+def _sample_name(line: str) -> str:
+    cut = len(line)
+    for sep in ("{", " "):
+        i = line.find(sep)
+        if i != -1:
+            cut = min(cut, i)
+    return line[:cut]
+
+
+def lint(text: str) -> dict[str, tuple[str, frozenset]]:
+    """tests/test_obs_naming.py's lint over one exposition; returns
+    {family: (type, label names)}."""
+    lines = [ln for ln in text.splitlines() if ln.strip()]
+    assert lines
+    helps: dict[str, int] = {}
+    types: dict[str, tuple[int, str]] = {}
+    samples: list[tuple[int, str, str]] = []
+    for i, ln in enumerate(lines):
+        if ln.startswith("# HELP "):
+            helps.setdefault(ln.split()[2], i)
+            continue
+        if ln.startswith("# TYPE "):
+            fam = ln.split()[2]
+            assert fam not in types, f"duplicate # TYPE for {fam}"
+            assert ln.split()[3] in ("gauge", "counter", "histogram",
+                                     "summary", "untyped"), ln
+            types[fam] = (i, ln.split()[3])
+            continue
+        assert not ln.startswith("#"), f"unknown comment line: {ln}"
+        samples.append((i, _sample_name(ln), ln))
+    hist = {n[:-len("_bucket")] for _, n, _ in samples
+            if n.endswith("_bucket")}
+
+    def family(name: str) -> str:
+        for suf in HIST_SUFFIXES:
+            if name.endswith(suf) and name[:-len(suf)] in hist:
+                return name[:-len(suf)]
+        return name
+
+    fams: dict[str, set] = {}
+    for i, name, ln in samples:
+        fam = family(name)
+        assert NAME_RE.match(fam), f"not snake_case/minio_tpu_: {name}"
+        assert fam in types and fam in helps, f"{name} lacks TYPE/HELP"
+        assert types[fam][0] < i and helps[fam] < i, name
+        labels = set(re.findall(r'([a-z_]+)="', ln.split(" ", 1)[0]
+                                if "{" in ln.split(" ", 1)[0] else ""))
+        labels.discard("le")
+        labels.discard("quantile")
+        fams.setdefault(fam, set()).update(labels)
+    return {f: (types[f][1], frozenset(fams.get(f, ())))
+            for f in types if f in fams}
+
+
+def _server(pkg: str, root):
+    if pkg == "port":
+        from minio_tpu_torch.objectlayer import ErasureObjects
+        from minio_tpu_torch.server import S3Server
+        from minio_tpu_torch.storage import XLStorage
+        obj = ErasureObjects([XLStorage(str(root / f"d{i}"))
+                              for i in range(6)], default_parity=2,
+                             block_size=1 << 16, device="cpu")
+        srv = S3Server(obj, "127.0.0.1", 0, access_key=AK, secret_key=SK,
+                       device="cpu")
+    else:
+        from minio_tpu.objectlayer import ErasureObjects
+        from minio_tpu.server import S3Server
+        from minio_tpu.storage import XLStorage
+        obj = ErasureObjects([XLStorage(str(root / f"d{i}"))
+                              for i in range(6)], default_parity=2,
+                             block_size=1 << 16)
+        srv = S3Server(obj, "127.0.0.1", 0, access_key=AK, secret_key=SK)
+    srv.start_background()
+    return srv
+
+
+BODY = np.random.default_rng(SEED).integers(0, 256, 150_001,
+                                            dtype=np.uint8).tobytes()
+
+
+def _drive(srv) -> S3Client:
+    """The same signed requests on either server: a bucket, a PUT, a GET,
+    a ranged GET, a miss, a listing, a HEAD."""
+    c = S3Client(srv.endpoint(), AK, SK)
+    assert c.request("PUT", "/mb").status_code == 200
+    assert c.request("PUT", "/mb/o", body=BODY).status_code == 200
+    assert c.request("GET", "/mb/o").content == BODY
+    assert c.request("GET", "/mb/o", headers={"Range": "bytes=7-70000"}
+                     ).content == BODY[7:70001]
+    assert c.request("GET", "/mb/missing").status_code == 404
+    assert c.request("GET", "/mb").status_code == 200
+    assert c.request("HEAD", "/mb/o").status_code == 200
+    return c
+
+
+#: both servers' scrapes in a fresh interpreter: families appear as
+#: earlier tests in a process leave state (windows, counters, queues), so
+#: the comparison runs where only these requests have been made
+_PROBE = r"""
+import json, pathlib, sys
+import jax
+jax.config.update("jax_platforms", "cpu")
+sys.path.insert(0, sys.argv[1])
+import test_torch_metrics as t
+out = {}
+for pkg in ("jax", "port"):
+    srv = t._server(pkg, pathlib.Path(sys.argv[2]) / pkg)
+    c = t._drive(srv)
+    out[pkg] = {scope: c.request("GET", f"/minio/v2/metrics/{scope}",
+                                 query={"attribution": "1"}).content.decode()
+                for scope in ("node", "cluster")}
+    srv.shutdown()
+print(json.dumps(out))
+"""
+
+
+@pytest.fixture(scope="module")
+def scrapes(tmp_path_factory):
+    """Each server's node and cluster scrapes (attribution on) after the
+    same requests, from a fresh interpreter (the JAX server on its
+    dispatch routes), and an in-process port server driven alike for the
+    admin tests."""
+    import pathlib
+    import subprocess
+    root = tmp_path_factory.mktemp("metrics")
+    here = pathlib.Path(__file__).resolve().parent
+    env = dict(os.environ, **DISPATCH_ENV, JAX_PLATFORMS="cpu",
+               PYTHONPATH=str(here.parent))
+    r = subprocess.run([sys.executable, "-c", _PROBE, str(here),
+                        str(root / "fresh")], env=env, capture_output=True,
+                       text=True, timeout=600)
+    assert r.returncode == 0, r.stderr[-3000:]
+    out = json.loads(r.stdout.splitlines()[-1])
+    srv = _server("port", root / "port")
+    out["srv"], out["client"] = srv, _drive(srv)
+    yield out
+    srv.shutdown()
+
+
+@pytest.mark.parametrize("scope", ["node", "cluster"])
+def test_port_exposition_passes_the_naming_lint(scrapes, scope):
+    fams = lint(scrapes["port"][scope])
+    for need in ("minio_tpu_kernel_op_latency_seconds",
+                 "minio_tpu_lane_flushes_total",
+                 "minio_tpu_dispatch_batches_total",
+                 "minio_tpu_device_hbm_used",
+                 "minio_tpu_qos_admission_inflight",
+                 "minio_tpu_disk_latency_seconds",
+                 "minio_tpu_stage_share_of_wall",
+                 "minio_tpu_requests_total"):
+        assert need in fams, need
+    if scope == "cluster":
+        assert "minio_tpu_cluster_disk_online_total" in fams
+
+
+@pytest.mark.parametrize("scope", ["node", "cluster"])
+def test_shared_families_have_the_same_type_and_labels(scrapes, scope):
+    """Every family both servers emit has the same TYPE and label names;
+    every family one side lacks is pinned with its reason."""
+    jf, pf = lint(scrapes["jax"][scope]), lint(scrapes["port"][scope])
+    for fam in sorted(set(jf) & set(pf)):
+        assert pf[fam] == jf[fam], fam
+    assert set(jf) - set(pf) <= set(JAX_ONLY), \
+        sorted(set(jf) - set(pf) - set(JAX_ONLY))
+    assert set(pf) - set(jf) <= set(PORT_ONLY), \
+        sorted(set(pf) - set(jf) - set(PORT_ONLY))
+    # the data path's families are on both sides
+    for fam in ("minio_tpu_kernel_op_latency_seconds",
+                "minio_tpu_lane_flushes_total",
+                "minio_tpu_dispatch_batches_total",
+                "minio_tpu_device_busy_ratio",
+                "minio_tpu_qos_class_latency_seconds",
+                "minio_tpu_pipeline_etag_total"):
+        assert fam in jf and fam in pf, fam
+
+
+def test_scrape_never_initialises_cuda(scrapes):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the card tests check this")
+    assert not torch.cuda.is_initialized()
+    assert "minio_tpu_device_hbm_bytes_in_use" not in scrapes["port"]["node"]
+
+
+def _admin(c, op, **query):
+    return c.request("GET", f"/minio/admin/v3/{op}", query=query or None)
+
+
+def test_trace_tree_holds_the_kernel_span_of_its_request(scrapes):
+    """A slow PUT's tree, fetched by its request id: the root, the object
+    layer's span, storage spans and kernel spans whose links name the
+    request's spans."""
+    c = scrapes["client"]
+    r = c.request("PUT", "/mb/traced", body=BODY)
+    rid = r.headers["x-amz-request-id"]
+    tree = _admin(c, "trace", trace_id=rid)
+    if tree.status_code == 404:
+        pytest.fail("the PUT's trace was not kept (it took "
+                    f"{r.elapsed.total_seconds()} s)")
+    t = tree.json()
+    names = [s["name"] for s in t["spans"]]
+    assert "s3.putobject" in names and "objectlayer.put_object" in names
+    assert any(n.startswith("storage.") for n in names)
+    kernels = [s for s in t["spans"] if s["name"].startswith("kernel.")]
+    assert kernels
+    ids = {s["span_id"] for s in t["spans"]}
+    for k in kernels:
+        assert {ln["trace_id"] for ln in k["links"]} == {rid}
+        assert {ln["span_id"] for ln in k["links"]} <= ids
+    assert len(t["tree"]) == 1 and t["tree"][0]["name"] == "s3.putobject"
+    slow = _admin(c, "trace", slow="1").json()
+    assert rid in {e["trace_id"] for e in slow}
+
+
+def test_trace_stream_and_filters(scrapes):
+    c = scrapes["client"]
+    r = _admin(c, "trace", count="3", timeout="0.2", type="http,storage")
+    assert r.status_code == 200
+    events = [json.loads(ln) for ln in r.content.splitlines() if ln]
+    assert 1 <= len(events) <= 3
+    assert {e["trace_type"] for e in events} <= {"http", "storage"}
+    assert _admin(c, "trace", type="nope").status_code == 400
+
+
+def test_timeline_device_top_qos_and_info(scrapes):
+    c = scrapes["client"]
+    tl = _admin(c, "timeline", attribution="1").json()
+    assert tl["enabled"] and tl["events"]
+    assert set(tl["utilization"]["lanes"]) <= {"bulk", "interactive"}
+    assert tl["utilization"]["lanes"]["bulk"]["flushes"] >= 1
+    assert {"put", "get"} <= set(tl["attribution"])
+    chrome = _admin(c, "timeline", fmt="chrome").json()
+    assert any(e["ph"] == "X" for e in chrome["traceEvents"])
+    dev = _admin(c, "device").json()
+    assert dev["ledger_balanced"] and dev["card"] == ""
+    assert dev["compile"]["first_launches_total"] >= 1
+    assert all(r["roofline_ratio"] is None for r in dev["roofline"].values())
+    top = _admin(c, "top/api").json()
+    assert top["s3.PUT"]["calls"] >= 1 and "p99_ms" in top["s3.GET"]
+    qos = _admin(c, "qos").json()
+    assert qos["admission"]["max_requests"] == 256
+    assert qos["classes"]["interactive"]["last_minute"] >= 1
+    info = _admin(c, "info").json()
+    assert info["disks_online"] == 6 and info["backend"] == "Erasure"
+    assert _admin(c, "storageinfo").json()["disks_online"] == 6
+
+
+@pytest.mark.parametrize("op", ["list-users", "heal/mb", "get-config",
+                                "service", "profile", "kms/status"])
+def test_unported_admin_ops_answer_not_implemented(scrapes, op):
+    r = _admin(scrapes["client"], op)
+    assert r.status_code == 501
+    assert b"<Code>NotImplemented</Code>" in r.content
+
+
+def test_admin_needs_a_signature(scrapes):
+    import requests
+    r = requests.get(scrapes["srv"].endpoint() + "/minio/admin/v3/info",
+                     timeout=30)
+    assert r.status_code == 403

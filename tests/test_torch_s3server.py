@@ -665,8 +665,9 @@ def test_unported_planes_answer_not_implemented(tmp_path):
             ("GET", "/b/o", {"retention": ""}, {}),
             ("PUT", "/b/o", {"legal-hold": ""}, {}),
             ("POST", "/b/o", {"restore": ""}, {}),
-            ("GET", "/minio/admin/v3/info", {}, {}),
-            ("GET", "/minio/v2/metrics/cluster", {}, {}),
+            ("GET", "/minio/admin/v3/list-users", {}, {}),
+            ("GET", "/minio/admin/v3/get-config", {}, {}),
+            ("POST", "/minio/webrpc", {}, {}),
             ("PUT", "/b/s3", {}, {"x-amz-server-side-encryption":
                                   "AES256"}),
             ("PUT", "/lockb", {}, {"x-amz-bucket-object-lock-enabled":
