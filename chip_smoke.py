@@ -41,7 +41,7 @@ Phases, each printing one JSON line:
    detected with the GET still exact, and erasure_heal of all 64 objects
    with the healed files byte-identical to the originals. One object's
    first block is also checked against the host reference math.
-6. SSE path (HighwayHash256S, the default bitrot algorithm) — 128 SSE-C
+6. SSE path (HighwayHash256S, the default bitrot algorithm) — 64 SSE-C
    ChaCha20-Poly1305 objects of 4 MiB (every second one 333 bytes short,
    so it ends in a short package), each under its own customer key made
    from --seed, at 16+4 / 1 MiB / 16 KiB chunks: PUT through
@@ -120,9 +120,35 @@ Phases, each printing one JSON line:
    with max_requests=4 and MINIO_TPU_QOS_MAX_WAIT_MS=20, every object
    stored exact; and the object layer's PUT and GET of the 64 with every
    plane off and on (MINIO_TPU_TIMELINE, MINIO_TPU_DEVICE_OBS,
-   MINIO_TPU_TRACE_SPANS): a discarded warm-up turn, then three blocks of
-   off, on, on, off, with each block's on/off ratio and their spread. K1,
+   MINIO_TPU_TRACE_SPANS): a discarded warm-up turn, then one block of
+   off, on, on, off, with its on/off ratio and each setting's spread. K1,
    K2 and K5 must launch.
+11. background path — the background heal plane over the S3 server
+   (S3Server over one pool of two 16+4 sets, 40 disk directories, 1 MiB
+   blocks, HighwayHash256S, start_background_services(): the MRF, the data
+   scanner, the auto-heal monitor): 256 objects of 4 MiB under two levels
+   of prefixes in 4 buckets and 64 of 100 KiB, from --seed. A normal
+   scanner cycle whose usage snapshot, per-prefix trees and size classes
+   equal the script's own count, as GET /minio/admin/v3/datausageinfo
+   serves them, and the scrape's heal-plane families; 8 PUTs to one
+   bucket, after which the next cycle walks that bucket only (the change
+   tracker); a flipped byte in 16 shard files, which the deep cycle queues
+   to the MRF and the MRF heals (verify_file then passes); two drives of
+   each set wiped, their healing trackers set and the monitor kicked: its
+   global heal of all 328 objects from 128 workers, the per-object heal
+   wall p50/p99, every shard on the replaced drives verified and the
+   trackers cleared; one drive's root renamed away until its health
+   tracker trips, 16 PUTs to its set, the root renamed back: the probe
+   re-onlines it, on_disk_state sets its tracker and the monitor heals the
+   16 onto it (the time from re-online to healed); an admin heal sequence
+   of one bucket over signed HTTP, polled by its token, and
+   bg-heal-status; a restart (a second server over the same directories
+   after a crash's staging is left on every disk: startup recovery's
+   counts, the first server's usage and tracker loaded); and the in-process
+   PUT and GET of 64 x 4 MiB with MINIO_TPU_HEALTH off and on (each turn
+   on a set built under its setting; a discarded warm-up turn, three ABBA
+   blocks, each block's on/off ratio, the median and spread). K1, K2 and
+   K5 must launch.
 
 Each sub-phase of a path reports, beside its wall and GiB/s, the streams'
 occupancy (``stream_occupancy``: the union of the flushes' CUDA-event
@@ -156,6 +182,7 @@ import json
 import os
 import shutil
 import socket
+import statistics
 import subprocess
 import sys
 import threading
@@ -182,6 +209,9 @@ ENCODE_GEOMETRIES = ((K, M), (8, 4), (K + M - 2, 2))
 BLOCK = 1 << 20
 CHUNK = 16384
 N_OBJECTS = 128
+#: the SSE path's objects: cut from 128 when the background path came, to
+#: keep the script near 750 s
+SSE_OBJECTS = 64
 #: the MUR3X256S path's objects: cut from 128 so that the whole script,
 #: the select path included, stays near four minutes
 MUR3_OBJECTS = 64
@@ -2315,10 +2345,28 @@ class _S3Client:
         one after an aws-chunked body). ``expect`` sends the headers with
         ``Expect: 100-continue`` and the body only after the server's 100
         (or after 1 s without an answer), as the AWS SDKs send a PUT: a
-        refusal then arrives before the body is sent."""
+        refusal then arrives before the body is sent. A GET or HEAD whose
+        kept-alive connection the server closed while it idled (the
+        server's idle timeout) is sent again once on a new connection, as
+        the SDKs do."""
+        import http.client
+        c = self._conn()
+        reused = c.sock is not None and method in ("GET", "HEAD")
+        try:
+            return self._exchange(c, method, url, body, headers, close,
+                                  expect)
+        except (http.client.RemoteDisconnected, ConnectionResetError,
+                BrokenPipeError):
+            if not reused:
+                raise
+            self._drop()
+            return self._exchange(self._conn(), method, url, body, headers,
+                                  close, expect)
+
+    def _exchange(self, c, method: str, url: str, body: bytes,
+                  headers: dict, close: bool, expect: bool) -> tuple:
         import select
         t0 = time.monotonic()
-        c = self._conn()
         if not expect:
             c.request(method, url, body=body, headers=headers)
         else:
@@ -2872,11 +2920,12 @@ def phase_s3server(device, table: dict, sizes: dict, seed: int) -> dict:
 
 #: the obs path: admission's gate for the burst, its bounded wait, the
 #: burst's PUTs, and the planes' off/on turns: one discarded warm-up turn
-#: after the burst, then three ABBA blocks
+#: after the burst, then one ABBA block (cut from three when the
+#: background path came, to keep the script near 750 s)
 OBS_MAX_REQUESTS = 4
 OBS_MAX_WAIT_MS = 20
 OBS_WARMUP = "on"
-OBS_TURNS = ("off", "on", "on", "off") * 3
+OBS_TURNS = ("off", "on", "on", "off")
 #: the admin plane's torch.profiler session over a GET load, seconds
 OBS_TRACE_S = 3.0
 #: each plane's own switch, set to 0 for an "off" turn
@@ -3311,7 +3360,7 @@ def phase_obs(device, n_objects: int, obj_bytes: int, card: str,
         "on_over_off_by_block": ratios,
         "on_over_off": {w: mean_of(walls, "on", w) / mean_of(walls, "off", w)
                         for w in keys},
-        "on_over_off_median": {w: sorted(r)[len(r) // 2]
+        "on_over_off_median": {w: statistics.median(r)
                                for w, r in ratios.items()}}
     check(dev_obs.ledger_balanced(), "ledger unbalanced after the turns")
 
@@ -3325,6 +3374,564 @@ def phase_obs(device, n_objects: int, obj_bytes: int, card: str,
                       "highwayhash256_chunks"):
             check(launches[kname] > 0,
                   f"kernel {kname} never launched on the obs path")
+    shutil.rmtree(root, ignore_errors=True)
+    return result
+
+
+#: the background path: BG_BUCKETS hold BG_BIG objects of OBJECT_BYTES
+#: under two levels of prefixes and BG_SMALL of OL_SMALL_BYTES; BG_NEW more
+#: land in the first bucket between two normal cycles, BG_CORRUPT shard
+#: files get a flipped byte before the deep cycle, two drives of each set
+#: (BG_LOST, never the first, which holds the tracker and the MRF journal)
+#: are wiped for the global heal, one drive (BG_TRIP: set 1, slot 7) trips
+#: while BG_TRIP_PUTS objects land on its set; the wrapper's cost is the
+#: in-process PUT and GET of BG_WRAP objects with MINIO_TPU_HEALTH off and
+#: on, a warm-up turn then three ABBA blocks
+BG_BUCKETS = ("logs", "media", "backup", "data")
+BG_BIG = 256
+BG_SMALL = 64
+BG_NEW = 8
+BG_CORRUPT = 16
+BG_LOST = (3, 12)
+BG_TRIP = (1, 7)
+BG_TRIP_PUTS = 16
+BG_WRAP = 64
+BG_WARMUP = "on"
+BG_TURNS = ("off", "on", "on", "off") * 3
+#: the usage tree's size classes: label, exclusive upper bound
+BG_SIZE_CLASSES = (("LESS_THAN_1024_B", 1 << 10),
+                   ("BETWEEN_1024_B_AND_1_MB", 1 << 20),
+                   ("BETWEEN_1_MB_AND_10_MB", 10 << 20),
+                   ("BETWEEN_10_MB_AND_64_MB", 64 << 20),
+                   ("BETWEEN_64_MB_AND_128_MB", 128 << 20),
+                   ("BETWEEN_128_MB_AND_512_MB", 512 << 20),
+                   ("GREATER_THAN_512_MB", None))
+#: the scrape's heal-plane families
+BG_FAMILIES = ("minio_tpu_cluster_usage_object_total",
+               "minio_tpu_bucket_usage_total_bytes",
+               "minio_tpu_heal_disks_healing", "minio_tpu_disk_state",
+               "minio_tpu_disk_health_ewma_seconds",
+               "minio_tpu_durability_fsync_mode",
+               "minio_tpu_durability_recovery_runs_total",
+               "minio_tpu_scanner_cycles_total",
+               "minio_tpu_scanner_objects_scanned_total",
+               "minio_tpu_scanner_bytes_scanned_total")
+
+
+def expected_usage(sizes: dict, depth: int) -> dict:
+    """The usage document the scanner must write for objects of these
+    sizes ({(bucket, name): bytes}), computed from the script's own data:
+    per bucket its objects, bytes and versions (one each), the folders
+    down to ``depth`` levels, and the size classes."""
+    out: dict = {}
+    for (bucket, name), n in sorted(sizes.items()):
+        e = out.setdefault(bucket, {
+            "objects": 0, "size": 0, "versions": 0, "prefixes": {},
+            "histogram": {label: 0 for label, _ in BG_SIZE_CLASSES}})
+        e["objects"] += 1
+        e["size"] += n
+        e["versions"] += 1
+        folders = name.split("/")[:-1]
+        for d in range(1, min(depth, len(folders)) + 1):
+            p = e["prefixes"].setdefault("/".join(folders[:d]) + "/", {
+                "objects": 0, "size": 0, "versions": 0})
+            p["objects"] += 1
+            p["size"] += n
+            p["versions"] += 1
+        label = next(lb for lb, hi in BG_SIZE_CLASSES
+                     if hi is None or n < hi)
+        e["histogram"][label] += 1
+    return out
+
+
+def _env(values: dict):
+    """Set environment variables; returns their old values for _restore."""
+    old = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    return old
+
+
+def _restore(old: dict) -> None:
+    for k, v in old.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
+
+
+def phase_background(device, sizes: dict, card: str, seed: int) -> dict:
+    """The background heal plane over the S3 server (module docstring,
+    step 11): the data scanner's normal, tracker-skipping and deep cycles,
+    the auto-heal monitor's global heal after a drive replacement, a health
+    trip healed onto the re-onlined drive, an admin heal sequence, a
+    restart, and the health wrapper's cost."""
+    import json as _json
+    import uuid
+    import numpy as np
+    from minio_tpu_torch.erasure.streaming import PreallocSink
+    from minio_tpu_torch.objectlayer import ErasureSets, ServerPools
+    from minio_tpu_torch.objectlayer.metadata import hash_order
+    from minio_tpu_torch.obs import metrics as mx
+    from minio_tpu_torch.runtime.dispatch import global_queue
+    from minio_tpu_torch.scanner import autoheal, usage
+    from minio_tpu_torch.scanner.scanner import DEEP_SCAN_EVERY
+    from minio_tpu_torch.scanner.tracker import UpdateTracker, global_tracker
+    from minio_tpu_torch.server import S3Server
+    from minio_tpu_torch.storage import health
+    from minio_tpu_torch.storage.xlstorage import META_BUCKET, XLStorage
+
+    n_big, big_bytes = sizes["big"]
+    n_small, small_bytes = sizes["small"]
+    n_disks = OL_SETS * (K + M)
+    root = _disk_root("background")
+    disk_dirs = [os.path.join(root, f"d{i:02d}") for i in range(n_disks)]
+    gen = np.random.default_rng(seed + 5)
+    dep = str(uuid.UUID(bytes=gen.bytes(16)))
+    q = global_queue(device)
+    # a tripped drive is probed every second
+    old_env = _env({"MINIO_TPU_HEALTH_COOLDOWN_S": "1"})
+
+    def build():
+        sets = ErasureSets([XLStorage(d) for d in disk_dirs], OL_SETS,
+                           K + M, dep, default_parity=M, block_size=BLOCK,
+                           device=device)
+        return sets, ServerPools([sets])
+
+    t0 = time.monotonic()
+    sets, pool = build()
+    srv = S3Server(pool, "127.0.0.1", 0, access_key=S3_ACCESS_KEY,
+                   secret_key=S3_SECRET_KEY, region=S3_REGION, device=device)
+    srv.start_background()
+    srv.start_background_services()
+    client = _S3Client(srv.port)
+    result = {"deployment": f"1 pool x {OL_SETS} sets x {K + M} drives",
+              "disks": n_disks, "geometry": f"{K}+{M}", "block": BLOCK,
+              "card": card, "setup_s": time.monotonic() - t0,
+              "health_wrapper": type(sets.sets[0].disks[0]).__name__,
+              "cut": "one process over local disk directories; the "
+                     "scanner's cycles driven by the script"}
+    check(result["health_wrapper"] == "DiskHealthCheck",
+          "the sets' disks ride no health tracker")
+
+    def run(label, fn, jobs, nbytes, kernels=(), threads=OL_PUT_THREADS):
+        _reset(q)
+        before = read_launches()
+        with _HashClocks() as hashes:
+            t0 = time.monotonic()
+            with ThreadPoolExecutor(max_workers=threads) as ex:
+                res = list(ex.map(fn, jobs))
+            wall = time.monotonic() - t0
+        row = _phase_row(q, nbytes, wall, hashes)
+        after = read_launches()
+        row["launches"] = {k: after[k] - before.get(k, 0) for k in after}
+        result[label] = row
+        if device.type == "cuda":
+            for name in kernels:
+                check(row["launches"][name] > 0,
+                      f"kernel {name} never launched in background {label}")
+        return res
+
+    def scanned() -> float:
+        return mx.counters_snapshot().get(
+            "minio_tpu_scanner_objects_scanned_total", 0.0)
+
+    def wait_for(cond, what, timeout=600.0):
+        deadline = time.monotonic() + timeout
+        while not cond():
+            check(time.monotonic() < deadline, f"timed out: {what}")
+            time.sleep(0.01)
+
+    # the data: big objects under two levels of prefixes, small ones under
+    # one, spread over the buckets
+    bodies: dict = {}
+    for j in range(n_big):
+        b = BG_BUCKETS[j % len(BG_BUCKETS)]
+        bodies[(b, f"y{j % 4}/m{j % 3}/obj-{j:04d}")] = gen.bytes(big_bytes)
+    for j in range(n_small):
+        b = BG_BUCKETS[j % len(BG_BUCKETS)]
+        bodies[(b, f"small/s-{j:04d}")] = gen.bytes(small_bytes)
+
+    def put(key):
+        data = bodies[key]
+        pool.put_object(key[0], key[1], io.BytesIO(data), len(data))
+        return True
+
+    def sizes_of() -> dict:
+        return {k: len(v) for k, v in bodies.items()}
+
+    reset_launches()
+    for b in BG_BUCKETS:
+        pool.make_bucket(b)
+    keys = sorted(bodies)
+    run("put", put, keys, sum(map(len, bodies.values())),
+        ("gf_encode_batched", "highwayhash256_chunks"))
+
+    # 1. a normal cycle: the snapshot, the trees and the histograms equal
+    # what the script computes; the admin op serves the same
+    sc = srv.scanner
+    t0 = time.monotonic()
+    n0 = scanned()
+    snap = sc.scan_cycle()
+    want1 = expected_usage(sizes_of(), 1)
+    check(not snap["deep"], "the first cycle is deep")
+    check(snap["objects_total"] == len(bodies)
+          and snap["size_total"] == sum(map(len, bodies.values())),
+          f"usage totals {snap['objects_total']} {snap['size_total']}")
+    check(snap["buckets"] == want1, "the usage snapshot differs from the "
+          "script's own count")
+    st, _h, data = client.request("GET", "/minio/admin/v3/datausageinfo",
+                                  query={"depth": "2"})
+    check(st == 200, f"datausageinfo: HTTP {st}")
+    doc = _json.loads(data)
+    check(doc["buckets"] == expected_usage(sizes_of(), 2),
+          "datausageinfo's trees differ from the script's own count")
+    result["normal_cycle"] = {"wall_s": time.monotonic() - t0,
+                              "objects_scanned": scanned() - n0,
+                              "objects_total": snap["objects_total"],
+                              "size_total": snap["size_total"],
+                              "prefixes_depth2": sum(
+                                  len(e["prefixes"])
+                                  for e in doc["buckets"].values())}
+    st, _h, data = client.request("GET", "/minio/v2/metrics/cluster")
+    check(st == 200, f"metrics scrape: HTTP {st}")
+    fams = lint_exposition(data.decode())
+    missing = [f for f in BG_FAMILIES if f not in fams]
+    check(not missing, f"scrape lacks {missing}")
+    line = next(ln for ln in data.decode().splitlines()
+                if ln.startswith("minio_tpu_cluster_usage_object_total "))
+    check(float(line.split()[1]) == len(bodies), f"scrape: {line}")
+    result["scrape"] = {"families": len(fams), "lint": "passed",
+                        "required": list(BG_FAMILIES)}
+
+    # 2. the tracker skip: new objects in one bucket; the next normal cycle
+    # walks that bucket only
+    new = {(BG_BUCKETS[0], f"new/n-{j:02d}"): gen.bytes(big_bytes)
+           for j in range(sizes["new"])}
+    bodies.update(new)
+    run("put_new", put, sorted(new), len(new) * big_bytes,
+        ("gf_encode_batched",))
+    t0 = time.monotonic()
+    n0 = scanned()
+    snap = sc.scan_cycle()
+    walked = scanned() - n0
+    in_bucket = sum(1 for b, _n in bodies if b == BG_BUCKETS[0])
+    check(walked == in_bucket, f"the cycle after the PUTs walked {walked} "
+          f"objects, the written bucket holds {in_bucket}")
+    check(snap["buckets"] == expected_usage(sizes_of(), 1),
+          "the second snapshot differs from the script's own count")
+    result["tracker_skip"] = {"wall_s": time.monotonic() - t0,
+                              "objects_scanned": walked,
+                              "objects_total": snap["objects_total"],
+                              "buckets_reused": len(BG_BUCKETS) - 1}
+
+    # 3. the deep cycle: a flipped byte in BG_CORRUPT shard files; the
+    # deep verify queues each to the MRF, which heals it
+    mrf = srv.mrf
+    queued: list = []
+    add = mrf.add_partial
+
+    def record(b, o, v="", scan_mode="normal"):
+        queued.append((b, o, scan_mode))
+        add(b, o, v, scan_mode=scan_mode)
+
+    mrf.add_partial = record
+    corrupt = []
+    for key in keys[:sizes["corrupt"]]:
+        b, name = key
+        s = sets.get_hashed_set_index(name)
+        i = hash_order(f"{b}/{name}", K + M).index(1)
+        d = sets.sets[s].disks[i]
+        obj = os.path.join(disk_dirs[s * (K + M) + i], b, name)
+        ddir = next(e for e in os.listdir(obj) if e != "xl.meta")
+        with open(os.path.join(obj, ddir, "part.1"), "r+b") as f:
+            f.seek(32 + 1000)
+            c = f.read(1)
+            f.seek(32 + 1000)
+            f.write(bytes([c[0] ^ 0x5A]))
+        corrupt.append((key, d))
+    healed0, failed0 = mrf.healed, mrf.failed
+    sc.cycle = DEEP_SCAN_EVERY - 1
+
+    def deep(_):
+        snap = sc.scan_cycle()
+        wait_for(lambda: mrf.healed - healed0 >= len(corrupt)
+                 and mrf.stats()["queued"] == 0, "the MRF heals")
+        return snap
+
+    (snap,) = run("deep_cycle", deep, [0], 0,
+                  ("highwayhash256_chunks", "gf_matmul_batched"), threads=1)
+    mrf.add_partial = add
+    check(snap["deep"], "the deep cycle was not deep")
+    want = sorted((k[0], k[1], "deep") for k, _d in corrupt)
+    check(sorted(queued) == want, f"the deep cycle queued {queued}")
+    check(mrf.failed == failed0, f"MRF failures: {mrf.stats()}")
+    for (b, name), d in corrupt:
+        d.verify_file(b, name, d.read_version(b, name))
+    result["deep_cycle"].update(
+        corrupted=len(corrupt), queued=len(queued),
+        mrf_healed=mrf.healed - healed0, verified=len(corrupt),
+        janitor=sc.janitor.last_stats)
+
+    # 4. drive replacement: two drives of each set wiped, their healing
+    # trackers set, the monitor kicked; the global heal from 128 workers
+    mon = srv.autoheal
+    timed = _TimedHeals(pool)
+    mon.healer.obj = timed
+    wiped = []
+    for s in range(OL_SETS):
+        for i in BG_LOST:
+            path = disk_dirs[s * (K + M) + i]
+            shutil.rmtree(path)
+            XLStorage(path)  # a fresh drive's empty layout
+            d = sets.sets[s].disks[i]
+            autoheal.set_healing_tracker(d, {"reason": "replaced"})
+            wiped.append((s, d))
+    passes0 = mon.heal_passes
+    healed_before = mon.healer.objects_healed
+
+    def global_heal(_):
+        mon.kick()
+        wait_for(lambda: mon.heal_passes > passes0
+                 and all(autoheal.get_healing_tracker(d) is None
+                         for _s, d in wiped), "the global heal")
+        return True
+
+    total = sum(map(len, bodies.values()))
+    run("global_heal", global_heal, [0], total,
+        ("highwayhash256_chunks", "gf_matmul_batched"), threads=1)
+    lat = list(timed.walls.values())
+    healed = mon.healer.objects_healed - healed_before
+    check(healed == len(bodies) and mon.healer.objects_failed == 0,
+          f"global heal: {healed} healed, {mon.healer.objects_failed} "
+          f"failed of {len(bodies)}")
+
+    def verify(key):
+        b, name = key
+        s = sets.get_hashed_set_index(name)
+        for ws, d in wiped:
+            if ws == s:
+                d.verify_file(b, name, d.read_version(b, name))
+        return True
+
+    # verify_file hashes on the host (the native engine), not on K5
+    run("verify_replaced", verify, sorted(bodies), 0)
+    result["global_heal"].update(
+        objects=len(bodies), objects_healed=healed,
+        heal_workers=mon.healer.concurrency,
+        heal_p50_ms=_percentile(lat, 0.50) * 1e3,
+        heal_p99_ms=_percentile(lat, 0.99) * 1e3,
+        heal_max_ms=max(lat) * 1e3, wiped_drives=len(wiped),
+        trackers_cleared=True)
+
+    # 5. a health trip: one drive's root renamed away until its tracker
+    # trips; PUTs to its set keep write quorum; renamed back, the probe
+    # re-onlines it, on_disk_state sets its tracker and the monitor heals
+    # the new objects onto it (the MRF is kept out of this step)
+    s, i = BG_TRIP
+    tripped = sets.sets[s].disks[i]
+    path = disk_dirs[s * (K + M) + i]
+    partial: list = []
+    layers = srv._erasure_layers()
+    for layer in layers:
+        layer.on_partial = lambda b, o, v="", scan_mode="normal": \
+            partial.append(o)
+    os.rename(path, path + ".away")
+    calls = 0
+    while tripped.health_state() == "ok":
+        calls += 1
+        try:
+            tripped.disk_info()
+        except Exception:  # noqa: BLE001 — the missing root's error
+            pass
+    trip = {}
+    j = 0
+    while len(trip) < sizes["trip"]:
+        name = f"trip/t-{j:03d}"
+        if sets.get_hashed_set_index(name) == s:
+            trip[(BG_BUCKETS[1], name)] = gen.bytes(big_bytes)
+        j += 1
+    bodies.update(trip)
+    run("put_tripped", put, sorted(trip), len(trip) * big_bytes,
+        ("gf_encode_batched",))
+    check(len(set(partial)) == len(trip),
+          f"{len(set(partial))} partial PUTs, want {len(trip)}")
+    timed.walls.clear()
+    passes0 = mon.heal_passes
+
+    def reonline(_):
+        t0 = time.monotonic()
+        os.rename(path + ".away", path)
+        wait_for(lambda: tripped.health_state() == "ok", "the re-online",
+                 60)
+        t_ok = time.monotonic()
+        wait_for(lambda: mon.heal_passes > passes0
+                 and autoheal.get_healing_tracker(tripped) is None,
+                 "the heal onto the re-onlined drive")
+        for b, name in trip:
+            tripped.verify_file(b, name, tripped.read_version(b, name))
+        return t_ok - t0, time.monotonic() - t_ok
+
+    ((to_online, to_healed),) = run("trip_heal", reonline, [0], 0,
+                                    ("gf_matmul_batched",), threads=1)
+    for layer in layers:
+        layer.on_partial = mrf.add_partial
+    result["trip_heal"].update(
+        disk=tripped.endpoint(), disk_info_calls_to_trip=calls,
+        trips=tripped.trips, puts=len(trip),
+        rename_to_reonline_s=to_online, reonline_to_healed_s=to_healed,
+        objects_walked=len(timed.walls))
+
+    # 6. an admin heal sequence of one bucket over signed HTTP, polled by
+    # its token
+    def admin_heal(_):
+        st, _h, data = client.request(
+            "GET", f"/minio/admin/v3/heal/{BG_BUCKETS[2]}")
+        check(st == 200, f"admin heal: HTTP {st} {data[:200]!r}")
+        seq = _json.loads(data)
+        polls = 0
+        while seq["status"] == "running":
+            time.sleep(0.1)
+            polls += 1
+            st, _h, data = client.request(
+                "GET", f"/minio/admin/v3/heal/{BG_BUCKETS[2]}",
+                query={"clientToken": seq["clientToken"]})
+            check(st == 200, f"heal poll: HTTP {st}")
+            seq = _json.loads(data)
+        return seq, polls
+
+    ((seq, polls),) = run("admin_heal", admin_heal, [0], 0, threads=1)
+    in_bucket = sum(1 for b, _n in bodies if b == BG_BUCKETS[2])
+    check(seq["status"] == "done" and seq["scanned"] == in_bucket
+          and seq["healed"] == in_bucket and seq["failed"] == 0,
+          f"admin heal: {seq}")
+    st, _h, data = client.request("GET", "/minio/admin/v3/bg-heal-status")
+    bg = _json.loads(data)
+    check(st == 200 and bg["autoheal"]["heal_passes"] >= 2,
+          f"bg-heal-status: {bg}")
+    result["admin_heal"].update(
+        bucket=BG_BUCKETS[2], polls=polls,
+        sequence={k: seq[k] for k in ("status", "scanned", "healed",
+                                      "failed")},
+        bg_heal_status=bg)
+
+    # 7. a restart: the first server stops, a crash leaves staging behind,
+    # a second server over the same directories recovers it and loads the
+    # first's tracker and usage
+    last_usage = sc.last_usage
+    generation = global_tracker().generation
+    client.close()
+    srv.shutdown()
+    for d in disk_dirs:
+        stranded = os.path.join(d, META_BUCKET, "tmp", "crashed-put",
+                                "part.1")
+        os.makedirs(os.path.dirname(stranded))
+        with open(stranded, "wb") as f:
+            f.write(b"stranded by a crash")
+    before = mx.counters_snapshot()
+    t0 = time.monotonic()
+    sets2, pool2 = build()
+    srv2 = S3Server(pool2, "127.0.0.1", 0, access_key=S3_ACCESS_KEY,
+                    secret_key=S3_SECRET_KEY, region=S3_REGION,
+                    device=device)
+    srv2.start_background()
+    srv2.start_background_services()
+    restart_s = time.monotonic() - t0
+    after = mx.counters_snapshot()
+
+    def delta(key):
+        return after.get(key, 0.0) - before.get(key, 0.0)
+
+    recovered = delta("minio_tpu_durability_recovered_tmp_total")
+    runs = delta('minio_tpu_durability_recovery_runs_total{phase="startup"}')
+    check(recovered >= n_disks and runs == OL_SETS,
+          f"startup recovery swept {recovered} entries in {runs} runs")
+    check(not any(os.listdir(os.path.join(d, META_BUCKET, "tmp"))
+                  for d in disk_dirs), "tmp staging left after the restart")
+    check(usage.load_usage(pool2) == last_usage,
+          "the second server's usage is not the first's")
+    loaded = UpdateTracker()
+    loaded.attach_persistence(
+        os.path.join(disk_dirs[0], META_BUCKET, "tracker.bin"))
+    check(loaded.generation == generation,
+          f"tracker generation {loaded.generation}, want {generation}")
+    client2 = _S3Client(srv2.port)
+    st, _h, data = client2.request("GET", "/minio/admin/v3/datausageinfo",
+                                   query={"depth": "1"})
+    check(st == 200 and _json.loads(data)["buckets"] ==
+          last_usage["buckets"], "the second server serves other usage")
+    client2.close()
+    srv2.shutdown()
+    result["restart"] = {"wall_s": restart_s,
+                         "startup_recovery": {
+                             "runs": runs, "tmp_swept": recovered,
+                             "uploads_expired": delta(
+                                 "minio_tpu_durability_expired_uploads"
+                                 "_total")},
+                         "tracker_generation": generation,
+                         "usage_objects": last_usage["objects_total"]}
+
+    # 8. the health wrapper's cost: the object layer's PUT and GET with
+    # MINIO_TPU_HEALTH off and on, each turn on a set built under its
+    # setting, a warm-up turn then ABBA blocks
+    wrap = {("wrap", f"w-{j:03d}"): gen.bytes(big_bytes)
+            for j in range(sizes["wrap"])}
+    walls = []
+    for mode in (BG_WARMUP, *BG_TURNS):
+        old = _env({"MINIO_TPU_HEALTH": "0" if mode == "off" else "1"})
+        try:
+            wsets, wpool = build()
+        finally:
+            _restore(old)
+        kind = type(wsets.sets[0].disks[0])
+        check((kind is health.DiskHealthCheck) == (mode == "on"),
+              f"MINIO_TPU_HEALTH {mode} built {kind.__name__} disks")
+        if not walls:
+            wpool.make_bucket("wrap")
+        row = {"health": mode}
+        for what in ("put", "get"):
+            def one(key, what=what):
+                if what == "put":
+                    wpool.put_object(key[0], key[1], io.BytesIO(wrap[key]),
+                                     len(wrap[key]))
+                    return True
+                sink = PreallocSink()
+                wpool.get_object(key[0], key[1], sink)
+                return sink.getbuffer() == wrap[key]
+
+            t0 = time.monotonic()
+            with ThreadPoolExecutor(max_workers=S3_THREADS) as ex:
+                good = list(ex.map(one, sorted(wrap)))
+            row[f"{what}_wall_s"] = time.monotonic() - t0
+            check(all(good), f"{what} with the wrapper {mode} not exact")
+        walls.append(row)
+    warmup, walls = walls[0], walls[1:]
+    wkeys = ("put_wall_s", "get_wall_s")
+
+    def mean_of(rows, mode, w):
+        vals = [r[w] for r in rows if r["health"] == mode]
+        return sum(vals) / len(vals)
+
+    blocks = [walls[i:i + 4] for i in range(0, len(walls), 4)]
+    ratios = {w: [mean_of(b, "on", w) / mean_of(b, "off", w)
+                  for b in blocks] for w in wkeys}
+    result["wrapper_on_off"] = {
+        "objects": len(wrap), "object_bytes": big_bytes,
+        "threads": S3_THREADS, "warmup_dropped": warmup, "turns": walls,
+        "on_over_off_by_block": ratios,
+        "on_over_off_median": {w: statistics.median(r)
+                               for w, r in ratios.items()},
+        "on_over_off_spread": {w: [min(r), max(r)]
+                               for w, r in ratios.items()}}
+    _restore(old_env)
+
+    launches = read_launches()
+    result["launches"] = launches
+    result["launch_sizes"] = read_launch_sizes()
+    if device.type == "cuda":
+        for kname in ("gf_matmul_batched", "gf_encode_batched",
+                      "highwayhash256_chunks"):
+            check(launches[kname] > 0,
+                  f"kernel {kname} never launched on the background path")
     shutil.rmtree(root, ignore_errors=True)
     return result
 
@@ -3356,6 +3963,9 @@ def main() -> int:
         return 2
     rehearsal = args.cpu_rehearsal
     device = torch.device("cpu" if rehearsal else "cuda")
+    # the servers' scanners never cycle on their own timer: the background
+    # path drives its cycles, and no other path's walls take one
+    os.environ["MINIO_TPU_SCANNER_INTERVAL_S"] = "86400"
     # the rehearsal's lineitem rows (~48,000) still fill the four scan
     # blocks of its kernels phase
     scale, n_sel = (0.008, 8) if rehearsal else (SELECT_SCALE, SELECT_OBJECTS)
@@ -3378,6 +3988,15 @@ def main() -> int:
          "csv": S3_CSV, "parts": S3_PARTS}
     # the obs path: objects and their bytes
     obs_sizes = (4, 1 << 20) if rehearsal else (S3_BIG, OBJECT_BYTES)
+    # the background path: big and small objects (count, bytes), the
+    # objects PUT between two cycles, the corrupted shards, the PUTs while
+    # a drive is tripped, the wrapper's objects
+    bg_sizes = {"big": (8, int(1.1 * 2**20)), "small": (4, OL_SMALL_BYTES),
+                "new": 2, "corrupt": 2, "trip": 2, "wrap": 4} \
+        if rehearsal else \
+        {"big": (BG_BIG, OBJECT_BYTES), "small": (BG_SMALL, OL_SMALL_BYTES),
+         "new": BG_NEW, "corrupt": BG_CORRUPT, "trip": BG_TRIP_PUTS,
+         "wrap": BG_WRAP}
     phase = "build"
     try:
         phase_build(rehearsal)
@@ -3401,7 +4020,8 @@ def main() -> int:
             res["cut"] = f"{n_obj} objects of {obj_bytes} bytes"
         emit({"phase": "main_path", "card": card, **res})
         phase = "sse_path"
-        sres = phase_sse(device, n_obj, sse_bytes, args.seed)
+        sres = phase_sse(device, n_obj if rehearsal else SSE_OBJECTS,
+                         sse_bytes, args.seed)
         if rehearsal:
             sres["cut"] = f"{n_obj} objects of {sse_bytes} bytes"
         emit({"phase": "sse_path", "card": card, **sres})
@@ -3426,9 +4046,15 @@ def main() -> int:
         if rehearsal:
             obsres["cut"] += f"; {obs_sizes[0]} objects of {obs_sizes[1]}"
         emit({"phase": "obs_path", **obsres})
+        phase = "background_path"
+        bgres = phase_background(device, bg_sizes, card, args.seed)
+        if rehearsal:
+            bgres["cut"] += f"; {bg_sizes}"
+        emit({"phase": "background_path", **bgres})
         paths = {"mur3x256s_path": res, "sse_hh256s_path": sres,
                  "select_path": selres, "objectlayer_path": olres,
-                 "s3server_path": s3res, "obs_path": obsres}
+                 "s3server_path": s3res, "obs_path": obsres,
+                 "background_path": bgres}
         for name, row in rows.items():
             by_path = {p: r["launches"][name] for p, r in paths.items()}
             row["launches"] = sum(by_path.values())

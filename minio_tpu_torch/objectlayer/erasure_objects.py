@@ -19,9 +19,17 @@ collector (``obs.attribution.observed``: the standing per-op stage
 report); heals pin their rebuilds to the interactive lane, feed the
 ``heal_shard`` latency window and publish a ``heal.shard`` scanner trace.
 
+Every disk rides a health tracker (``storage.health.wrap_disks``: N
+consecutive errors or timeouts trip it to a fast-failing DiskNotFound, a
+cooldown probe re-onlines it and the set forwards the transition to its
+``on_disk_state`` hook); building a set runs the startup crash recovery
+(``scanner.janitor.startup_recovery``: all tmp staging swept, aged
+multipart uploads expired), so build every set over a directory before
+traffic starts on it; PUT, delete and bucket delete mark the scanner's
+change tracker, and a bucket delete drops its usage tree.
+
 What the JAX package's engine also does and the port does not yet: the
-disk health trackers, the startup crash recovery, the bucket-usage feed,
-the scanner's change tracker and the QoS lane affinity. The
+per-bucket usage feed (``obs/bucketstats``) and the QoS lane affinity. The
 ``on_partial``, ``on_disk_state`` and ``ns_lock`` hooks are plain
 attributes, as in the JAX package.
 """
@@ -29,6 +37,7 @@ from __future__ import annotations
 
 import contextlib
 import io
+import logging
 import time
 import uuid
 from dataclasses import replace
@@ -45,7 +54,11 @@ from ..obs import latency as _lat
 from ..obs import metrics as _mx
 from ..obs import spans as _spans
 from ..obs import trace as _trc
+from ..scanner import usage as _usage
+from ..scanner.janitor import startup_recovery
+from ..scanner.tracker import global_tracker
 from ..storage.datatypes import ErasureInfo, FileInfo, ObjectPartInfo
+from ..storage.health import wrap_disks
 from ..storage.xlmeta import XLMeta
 from ..storage.xlstorage import META_BUCKET, META_TMP, new_tmp_id
 from ..utils import errors
@@ -75,6 +88,8 @@ DEFAULT_BLOCK_SIZE = 4 << 20
 #: keep the host MD5.
 PIPELINE_ETAG_MODE = "fused"
 PIPELINE_ETAG_MIN_BYTES = 1 << 20
+
+log = logging.getLogger(__name__)
 
 BITROT_KEY = "x-minio-internal-bitrot"
 ACTUAL_SIZE_KEY = "x-minio-internal-actual-size"
@@ -124,7 +139,19 @@ class ErasureObjects(MultipartMixin, ObjectLayer):
                  block_size: int = DEFAULT_BLOCK_SIZE,
                  bitrot_algo: BitrotAlgorithm | None = None,
                  set_index: int = 0, pool_index: int = 0, device=None):
-        self._disks = list(disks)
+        # every disk rides a health tracker: N consecutive errors or
+        # timeouts trip it to fast-fail DiskNotFound (quorum math then
+        # routes around it at once), a cooldown probe re-onlines it
+        self._disks = wrap_disks(list(disks))
+        for d in self._disks:
+            if d is not None and hasattr(d, "state_listeners"):
+                # replace, don't accumulate: a set rebuilt over wrapped
+                # disks must not leave the old set's listener behind
+                d.state_listeners = [
+                    fn for fn in d.state_listeners
+                    if getattr(fn, "__func__", None)
+                    is not ErasureObjects._on_disk_state]
+                d.state_listeners.append(self._on_disk_state)
         n = len(disks)
         if n < 2:
             raise ValueError("erasure set needs >= 2 disks")
@@ -145,13 +172,22 @@ class ErasureObjects(MultipartMixin, ObjectLayer):
         #: MRF hook — called with (bucket, object, version_id) when an op
         #: detects a partial/degraded state (cmd/erasure-object.go:1132).
         self.on_partial = None
-        #: called with (disk, "ok"|"faulty") on health transitions (no
-        #: health trackers are ported yet, so nothing calls it)
+        #: called with (disk, "ok"|"faulty") on health-tracker transitions:
+        #: the server wires an auto-heal nudge here so a re-onlined disk
+        #: gets the objects it missed rebuilt
         self.on_disk_state = None
         #: namespace lock map (dist.dsync.NSLockMap) — None in library use
         self.ns_lock = None
         #: persisted-listing coordinator (reference cmd/metacache.go:42)
         self.metacache = MetacacheStore(self)
+        # startup crash recovery: reclaim the tmp staging a previous
+        # process stranded and expire aged multipart uploads,
+        # O(tmp + multipart); the scanner's janitor owns the namespace-wide
+        # reconcile
+        try:
+            startup_recovery(self)
+        except Exception:  # noqa: BLE001 — never blocks a boot, but logged
+            log.exception("startup recovery failed")
 
     def _rrs_parity(self) -> int:
         """REDUCED_REDUNDANCY's parity for this set."""
@@ -205,6 +241,15 @@ class ErasureObjects(MultipartMixin, ObjectLayer):
     @property
     def disks(self) -> list:
         return list(self._disks)
+
+    def _on_disk_state(self, disk, state: str):
+        """Health-tracker transition fan-in: forwards to the server's hook
+        (the auto-heal nudge on re-online)."""
+        if self.on_disk_state is not None:
+            try:
+                self.on_disk_state(disk, state)
+            except Exception:  # noqa: BLE001 — hooks are best-effort
+                log.exception("on_disk_state hook failed")
 
     def _signal_read_faults(self, bucket, object, version_id, errs,
                             extra_degraded: bool = False):
@@ -314,6 +359,11 @@ class ErasureObjects(MultipartMixin, ObjectLayer):
         if err is not None:
             raise to_object_err(err, bucket)
         self.metacache.on_write(bucket)
+        # drop stale accounting: a recreated bucket must not serve the
+        # deleted namespace's usage tree, nor the scanner's clean-bucket
+        # skip reuse its snapshot entry
+        _usage.delete_tree(self, bucket)
+        global_tracker().mark(bucket, "")
 
     # --- put ---------------------------------------------------------------
 
@@ -470,6 +520,7 @@ class ErasureObjects(MultipartMixin, ObjectLayer):
         if any(e is not None for e in errs):
             self._cleanup_tmp(tmp_id)  # reclaim tmp on the failed minority
             self._notify_partial(bucket, object, fi.version_id)
+        global_tracker().mark(bucket, object)
         self.metacache.on_write(bucket)
         return ObjectInfo.from_file_info(fi, bucket, object, opts.versioned)
 
@@ -699,6 +750,7 @@ class ErasureObjects(MultipartMixin, ObjectLayer):
         opts = opts or ObjectOptions()
         check_names(bucket, object)
         self.get_bucket_info(bucket)
+        global_tracker().mark(bucket, object)
         self.metacache.on_write(bucket)
         disks = self.disks
         write_quorum = len(disks) // 2 + 1

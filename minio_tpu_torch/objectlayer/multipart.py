@@ -14,6 +14,7 @@ from dataclasses import replace
 from ..erasure import Erasure, new_bitrot_writer
 from ..erasure.codec import ceil_div
 from ..erasure.streaming import erasure_encode
+from ..scanner.tracker import global_tracker
 from ..storage.datatypes import ErasureInfo, FileInfo, ObjectPartInfo
 from ..storage.xlstorage import META_MULTIPART, META_TMP, new_tmp_id
 from ..utils import errors, msgpack
@@ -381,6 +382,7 @@ class MultipartMixin:
                 d.delete_path(META_MULTIPART, upath, recursive=True)
             except errors.StorageError:
                 pass
+        global_tracker().mark(bucket, object)
         self.metacache.on_write(bucket)
         return ObjectInfo.from_file_info(fi, bucket, object, opts.versioned)
 

@@ -13,13 +13,20 @@ Two layers:
   reads, so a scrape storm cannot hammer /proc or statvfs.
 
 Only the groups whose subsystem the port has: software, capacity,
-dispatch, device (the flight recorder's lanes), lane, pipeline, kernel,
-disk_latency, qos (admission and the class windows), device_obs, heal (the
-MRF) and process, plus the stage attribution families on
-``?attribution=1``. The groups of planes the port has not (usage, bucket
-analytics, replication, cache, notification, ILM, disk health, the
-durability plane's health part, SLO, profiler, locks) are absent, not
-faked. The names are the JAX package's, so one dashboard reads both
+device (the flight recorder's lanes), usage (the data scanner's snapshot:
+one row per bucket, unfolded, since the port has no bucket analytics to
+fold by), dispatch, disk_latency, kernel, qos (admission and the class
+windows), lane, pipeline, disk_health (the health trackers' states),
+durability (the fsync policy and flusher), device_obs, process and heal
+(the auto-heal trackers and the MRF), plus the stage attribution families
+on ``?attribution=1``. The scanner's counters
+(``minio_tpu_scanner_{cycles,objects_scanned,bytes_scanned}_total``), the
+janitor's and the quarantine's (``minio_tpu_durability_*``) and the health
+trackers' (``minio_tpu_disk_{trips,reonline}_total``) ride the counter
+store. The groups of planes the port has not (bucket analytics,
+replication, cache, notification, ILM, workloads, SLO, profiler, locks)
+are absent, not faked, as are the fault-injection and hedged-read
+families. The names are the JAX package's, so one dashboard reads both
 servers; the port adds ``minio_tpu_device_obs_stream_occupancy_ratio``
 (the share of the last minute the flushes' CUDA-event intervals cover on
 the card's streams, which the JAX package does not measure; the streams'
@@ -192,6 +199,29 @@ def _g_capacity(server) -> list[str]:
             "# TYPE minio_tpu_cluster_capacity_raw_free_bytes gauge",
             f"minio_tpu_cluster_capacity_raw_free_bytes {free}",
         ]
+    return lines
+
+
+def _g_usage(server) -> list[str]:
+    """Scanner-derived usage (reference getBucketUsageMetrics)."""
+    from ..scanner.usage import load_usage
+    usage = load_usage(server.obj)
+    lines = [
+        "# TYPE minio_tpu_cluster_usage_object_total gauge",
+        f"minio_tpu_cluster_usage_object_total "
+        f"{usage.get('objects_total', 0)}",
+        "# TYPE minio_tpu_cluster_usage_total_bytes gauge",
+        f"minio_tpu_cluster_usage_total_bytes {usage.get('size_total', 0)}",
+        "# TYPE minio_tpu_bucket_usage_total_bytes gauge",
+        "# TYPE minio_tpu_bucket_usage_object_total gauge",
+    ]
+    for b, st in sorted(usage.get("buckets", {}).items()):
+        lines.append(
+            f'minio_tpu_bucket_usage_total_bytes{{bucket="{_esc(b)}"}} '
+            f'{st.get("size", 0)}')
+        lines.append(
+            f'minio_tpu_bucket_usage_object_total{{bucket="{_esc(b)}"}} '
+            f'{st.get("objects", 0)}')
     return lines
 
 
@@ -426,20 +456,70 @@ def _g_process(server) -> list[str]:
 
 
 def _g_heal(server) -> list[str]:
-    """The MRF heal queue (reference getHealingMetrics, its MRF part).
-    The per-disk healing trackers belong to the auto-heal monitor, not
-    ported; heal-op counters ride the store."""
+    """Heal detail (reference getHealingMetrics): the per-disk healing
+    trackers and the MRF queue; heal-op counters ride the store."""
+    from ..scanner.autoheal import get_healing_tracker
+    healing = objects_healed = items_failed = 0
+    for d in _all_disks(server.obj):
+        t = get_healing_tracker(d)
+        if t is not None:
+            healing += 1
+            objects_healed += t.get("objects_healed", 0)
+            items_failed += t.get("objects_failed", 0)
+    lines = ["# TYPE minio_tpu_heal_disks_healing gauge",
+             f"minio_tpu_heal_disks_healing {healing}"]
+    if healing:
+        lines += [
+            "# TYPE minio_tpu_heal_tracker_objects_healed gauge",
+            f"minio_tpu_heal_tracker_objects_healed {objects_healed}",
+            "# TYPE minio_tpu_heal_tracker_items_failed gauge",
+            f"minio_tpu_heal_tracker_items_failed {items_failed}",
+        ]
     mrf = getattr(server, "mrf", None)
-    if mrf is None:
+    if mrf is not None:
+        st = mrf.stats()
+        lines += [
+            "# TYPE minio_tpu_heal_mrf_queued gauge",
+            f"minio_tpu_heal_mrf_queued {st['queued']}",
+            "# TYPE minio_tpu_heal_mrf_healed_total counter",
+            f"minio_tpu_heal_mrf_healed_total {st['healed']}",
+            "# TYPE minio_tpu_heal_mrf_failed_total counter",
+            f"minio_tpu_heal_mrf_failed_total {st['failed']}",
+        ]
+    return lines
+
+
+def _g_disk_health(server) -> list[str]:
+    """The disk health trackers' states and latency EWMAs
+    (storage/health.py); their trip and re-online counters ride the
+    store."""
+    rows = [(d.endpoint(), d.health_stats()) for d in _all_disks(server.obj)
+            if hasattr(d, "health_stats")]
+    if not rows:
         return []
-    st = mrf.stats()
+    lines = ["# TYPE minio_tpu_disk_state gauge",
+             "# TYPE minio_tpu_disk_health_ewma_seconds gauge"]
+    for ep, st in rows:
+        lines.append(f'minio_tpu_disk_state{{disk="{_esc(ep)}",'
+                     f'state="{_esc(st["state"])}"}} 1')
+        lines.append(f'minio_tpu_disk_health_ewma_seconds{{disk="{_esc(ep)}"}}'
+                     f' {st["ewma_ms"] / 1e3:.6f}')
+    return lines
+
+
+def _g_durability(server) -> list[str]:
+    """Durability plane: the effective fsync policy and the batched
+    flusher's state (the counters: recovered tmp, quarantines, orphan data
+    dirs, expired uploads, recovery runs, ride the store)."""
+    from ..storage import durability as dur
+    st = dur.status()
     return [
-        "# TYPE minio_tpu_heal_mrf_queued gauge",
-        f"minio_tpu_heal_mrf_queued {st['queued']}",
-        "# TYPE minio_tpu_heal_mrf_healed_total counter",
-        f"minio_tpu_heal_mrf_healed_total {st['healed']}",
-        "# TYPE minio_tpu_heal_mrf_failed_total counter",
-        f"minio_tpu_heal_mrf_failed_total {st['failed']}",
+        "# TYPE minio_tpu_durability_fsync_mode gauge",
+        f'minio_tpu_durability_fsync_mode{{mode="{st["fsync"]}"}} 1',
+        "# TYPE minio_tpu_durability_fsync_pending gauge",
+        f"minio_tpu_durability_fsync_pending {st['pending']}",
+        "# TYPE minio_tpu_durability_fsync_flushed_total counter",
+        f"minio_tpu_durability_fsync_flushed_total {st['flushed_total']}",
     ]
 
 
@@ -685,6 +765,7 @@ _GROUPS = [
     # device lanes read in-memory flight-recorder accounting —
     # interval 0 so a lane's busy ratio is live on every scrape
     MetricsGroup("device", "node", _g_device, interval=0),
+    MetricsGroup("usage", "cluster", _g_usage),
     MetricsGroup("dispatch", "node", _g_dispatch),
     # latency groups read in-memory windows — interval 0 keeps scrapes
     # (and tests driving heals) fresh at negligible cost
@@ -693,6 +774,10 @@ _GROUPS = [
     MetricsGroup("qos", "node", _g_qos, interval=0),
     MetricsGroup("lane", "node", _g_lane, interval=0),
     MetricsGroup("pipeline", "node", _g_pipeline, interval=0),
+    # disk health reads in-memory tracker state: interval 0 so a trip is
+    # visible on the very next scrape
+    MetricsGroup("disk_health", "node", _g_disk_health, interval=0),
+    MetricsGroup("durability", "node", _g_durability, interval=0),
     # the device plane's ledger is the leak gate: live per scrape
     MetricsGroup("device_obs", "node", _g_device_obs, interval=0),
     MetricsGroup("process", "node", _g_process),

@@ -7,15 +7,20 @@ Ops: ``info``, ``storageinfo``, ``trace`` (the live JSON-line stream,
 ``?trace_id=`` for one stored span tree, ``?slow=1`` for the slow-trace
 store), ``timeline`` (the flight recorder, ``?attribution=1``,
 ``?fmt=chrome``), ``top/api``, ``device`` (the device plane,
-``?trace=<seconds>`` for one torch.profiler session) and ``qos``. Every
-other admin op (IAM, config, heal, tier, KMS, replication, fault and
-profiling, the service signals) answers ``501 NotImplemented`` in the
-reference's error XML: those planes are not ported. The ``?peers=1``
-fan-outs wait for the port of ``dist/``'s RPC plane.
+``?trace=<seconds>`` for one torch.profiler session), ``qos``, the heal
+sequences (``heal[/bucket[/prefix]]``: start one, or poll it with
+``?clientToken=``, stop it with ``&forceStop=1``), ``datausageinfo``
+(``?depth=``: the scanner's snapshot with per-prefix breakdowns) and
+``bg-heal-status`` (the auto-heal monitor's and the MRF's stats). Every
+other admin op (IAM, config, tier, KMS, replication, fault and profiling,
+the service signals) answers ``501 NotImplemented`` in the reference's
+error XML: those planes are not ported. The ``?peers=1`` fan-outs wait for
+the port of ``dist/``'s RPC plane.
 """
 from __future__ import annotations
 
 import json
+import time
 
 from ..objectlayer import datatypes as dt
 from .auth import AuthError
@@ -64,7 +69,47 @@ def _dispatch_admin(h, op: str) -> None:
         # latency percentiles
         from ..qos import qos_status
         return _json(h, qos_status(h.s3))
+    if op == "heal" or op.startswith("heal/"):
+        return _heal(h, op)
+    if op == "datausageinfo":
+        from ..scanner.usage import data_usage_info
+        try:
+            depth = int(h.q("depth", "2"))
+        except ValueError:
+            depth = 2
+        return _json(h, data_usage_info(h.s3.obj, depth))
+    if op == "bg-heal-status":
+        from ..scanner import background_heal_stats
+        return _json(h, background_heal_stats(h.s3))
     h._not_implemented(f"admin {op} is not implemented")
+
+
+def _heal(h, op: str) -> None:
+    """Heal sequences (reference admin-heal-ops.go): a call starts a
+    background sequence (or re-attaches to the running one of the same
+    path) and returns its token and snapshot; ``?clientToken=<t>`` polls
+    it, ``&forceStop=1`` stops it."""
+    parts = op.split("/")  # heal[/bucket[/prefix...]]
+    bucket = parts[1] if len(parts) > 1 else ""
+    prefix = "/".join(parts[2:]) if len(parts) > 2 else ""
+    mgr = h.s3._heal_seqs
+    token = h.q("clientToken")
+    if token:
+        seq = mgr.get(token)
+        if seq is None:
+            return h._error("InvalidArgument", "unknown heal token", 400)
+        if h.q("forceStop") == "1":
+            seq.stop()
+        return _json(h, seq.summary())
+    try:
+        seq = mgr.start(bucket, prefix, dry_run=h.has_q("dryRun"))
+    except ValueError as e:
+        return h._error("XMinioHealOverlappingPaths", str(e), 409)
+    # give short sequences a moment so small heals return complete
+    deadline = time.monotonic() + 2.0
+    while seq.status == "running" and time.monotonic() < deadline:
+        time.sleep(0.05)
+    _json(h, seq.summary())
 
 
 def _device(h) -> None:

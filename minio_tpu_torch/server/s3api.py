@@ -14,7 +14,10 @@ bucket, location, ListObjects V1/V2, list versions, versioning, bucket
 tagging, DeleteObjects, the hard quota check), the object handlers (PUT,
 GET, ranged GET, HEAD, conditional requests, delete, copy, object
 tagging, the six multipart handlers, SSE-C, SelectObjectContent), the
-health endpoints and the MRF heal queue that degraded reads feed.
+health endpoints, and the background plane: the MRF heal queue that
+degraded reads feed, the data scanner and its usage snapshot (which the
+quota check reads), and fresh-disk auto-heal
+(``start_background_services``).
 
 The observability and admission planes (``obs/``, ``qos/``): every
 request passes admission control (``qos.admission``: a bounded-wait
@@ -24,7 +27,7 @@ opens a root span whose id is its ``x-amz-request-id``, and is counted,
 timed and published on the trace stream. ``/minio/v2/metrics/{cluster,
 node}`` and ``/minio/metrics`` serve the Prometheus exposition
 (``?attribution=1`` adds the stage families), ``/minio/admin/`` the
-admin observability ops (``server/admin.py``).
+admin observability, heal and usage ops (``server/admin.py``).
 
 Every API whose plane is not ported answers S3's ``501 NotImplemented``
 in the reference's error XML: STS, federation and internal RPC, the
@@ -41,6 +44,7 @@ import base64
 import binascii
 import hashlib
 import json
+import logging
 import os
 import socket
 import threading
@@ -56,6 +60,8 @@ from ..obs import spans as _sp
 from ..obs import trace as _trc
 from ..objectlayer import ObjectOptions
 from ..objectlayer import datatypes as dt
+from ..scanner import usage as usage_mod
+from ..scanner.healseq import HealSequenceManager
 from ..utils import errors
 from ..utils.device import resolve_device
 from ..utils.hashreader import (BadDigestError, HashReader,
@@ -75,10 +81,9 @@ META_ACTUAL_SIZE = "x-minio-internal-actual-size"
 #: internal metadata of an object transitioned to a tier
 #: (minio_tpu/bucket/transition.py)
 META_TIER = "x-minio-internal-transition-tier"
-#: the data-usage snapshot the scanner writes (minio_tpu/scanner/usage.py)
-USAGE_PATH = "data-usage/usage.json"
-
 _HOST_ID = ""
+
+log = logging.getLogger("minio_tpu_torch.server")
 
 
 def host_id() -> str:
@@ -113,7 +118,12 @@ class S3Server:
         self.address = address
         self.port = port
         self._httpd: ThreadingHTTPServer | None = None
+        #: the background plane (start_background_services)
         self.mrf = None
+        self.scanner = None
+        self.autoheal = None
+        #: the admin heal sequences, by client token
+        self._heal_seqs = HealSequenceManager(objlayer)
         #: admission control: a request that cannot get a slot within the
         #: bounded wait (or whose class token bucket is empty) is answered
         #: 503 SlowDown + Retry-After instead of parking a handler thread
@@ -203,25 +213,51 @@ class S3Server:
         return t
 
     def start_background_services(self):
-        """The background plane as far as it is ported: the MRF heal
-        queue, persisted to ``.minio.sys/mrf.json`` on the first disk, fed
-        by every erasure set's ``on_partial`` (a degraded or bitrot-hit
-        read queues a heal). The data scanner, auto-heal monitor and
-        lifecycle of the JAX package wait for their slice. Idempotent."""
+        """The background plane (reference cmd/server-main.go:508-514
+        initAutoHeal / initDataScanner + MRF): the MRF heal queue,
+        persisted to ``.minio.sys/mrf.json`` on the first disk and fed by
+        every erasure set's ``on_partial`` (a degraded or bitrot-hit read
+        queues a heal); the data scanner (a cycle every
+        ``MINIO_TPU_SCANNER_INTERVAL_S`` seconds, default 300 as in the JAX
+        package: usage accounting, the deep scan's findings to the MRF, the
+        durability janitor); the auto-heal monitor over every
+        disk (a disk carrying a healing tracker gets a global heal). Every
+        set's ``on_disk_state`` is wired so that a health-tracked disk that
+        re-onlines gets a healing tracker and kicks the monitor, and the
+        objects written while it was down are rebuilt. The lifecycle and
+        replication of the JAX package are not ported. Idempotent."""
         if self.mrf is not None:
             return
+        from ..obs.metrics import _all_disks
+        from ..scanner.autoheal import AutoHealMonitor, set_healing_tracker
         from ..scanner.mrf import MRFHealer
+        from ..scanner.scanner import DataScanner
         from ..storage.xlstorage import META_BUCKET
         self.mrf = MRFHealer(self.obj)
-        layers = self._erasure_layers()
-        disk = next((d for layer in layers for d in layer.disks
-                     if d is not None), None)
+        disks = _all_disks(self.obj)
+        disk = next((d for d in disks if getattr(d, "root", "")), None)
         if disk is not None:
             self.mrf.attach_persistence(
                 os.path.join(disk.root, META_BUCKET, "mrf.json"))
         self.mrf.start()
-        for layer in layers:
+        self.scanner = DataScanner(
+            self.obj, interval_s=float(os.environ.get(
+                "MINIO_TPU_SCANNER_INTERVAL_S", "300")),
+            mrf=self.mrf).start()
+        self.autoheal = AutoHealMonitor(self.obj, disks).start()
+
+        def disk_state(disk, state, srv=self):
+            if state == "ok" and srv.autoheal is not None:
+                try:
+                    set_healing_tracker(disk)
+                except Exception:  # noqa: BLE001 — disk may still be sick
+                    log.warning("healing tracker not set on %s",
+                                disk.endpoint(), exc_info=True)
+                srv.autoheal.kick()
+
+        for layer in self._erasure_layers():
             layer.on_partial = self.mrf.add_partial
+            layer.on_disk_state = disk_state
 
     def _erasure_layers(self) -> list:
         """Every ErasureObjects under any ObjectLayer shape (one set, a
@@ -237,8 +273,9 @@ class S3Server:
         return [obj] if hasattr(obj, "on_partial") else []
 
     def shutdown(self):
-        if self.mrf is not None:
-            self.mrf.stop()
+        for svc in (self.scanner, self.autoheal, self.mrf):
+            if svc is not None:
+                svc.stop()
         if self._httpd is not None:
             self._httpd.shutdown()
             self._httpd.server_close()
@@ -1162,11 +1199,7 @@ class _S3Handler(BaseHTTPRequestHandler):
             return
         cached = getattr(self.s3, "_usage_cache", None)
         if cached is None or _t.monotonic() - cached[0] > 10.0:
-            try:
-                usage = json.loads(self.s3.obj.get_config(USAGE_PATH))
-            except (errors.StorageError, ValueError):
-                usage = {}
-            cached = (_t.monotonic(), usage)
+            cached = (_t.monotonic(), usage_mod.load_usage(self.s3.obj))
             self.s3._usage_cache = cached
         used = cached[1].get("buckets", {}).get(self.bucket, {}).get(
             "size", 0)

@@ -183,6 +183,13 @@ def flusher() -> _Flusher:
     return _flusher
 
 
+def status() -> dict:
+    """Live durability-plane state (the metrics' durability group)."""
+    return {"fsync": fsync_mode(),
+            "pending": _flusher.pending_count(),
+            "flushed_total": _flusher.flushed}
+
+
 def durable_replace(tmp: str, dst: str, mode: str | None = None) -> None:
     """Commit ``tmp`` over ``dst`` under the fsync policy. Raises OSError
     exactly like ``os.replace``."""

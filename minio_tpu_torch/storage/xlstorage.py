@@ -31,6 +31,7 @@ import uuid
 from typing import Iterator
 
 from ..obs import latency as _lat
+from ..obs import metrics as _mx
 from ..obs import spans as _spans
 from ..obs import trace as _trc
 from ..utils import errors
@@ -449,6 +450,7 @@ class XLStorage(StorageAPI):
                 durable_replace(src, dst)
             except OSError:
                 return False
+        _mx.inc("minio_tpu_durability_quarantined_meta_total")
         return True
 
     def _store_meta(self, volume: str, path: str, meta: XLMeta) -> None:
@@ -614,6 +616,8 @@ class XLStorage(StorageAPI):
                     swept += 1
                 except OSError:
                     continue  # raced with a concurrent commit/clean
+            if swept:
+                _mx.inc("minio_tpu_durability_recovered_tmp_total", swept)
             return swept
 
     @staticmethod
@@ -677,6 +681,9 @@ class XLStorage(StorageAPI):
                     out["orphan_ddirs"] += 1
             for t in trash:
                 shutil.rmtree(t, ignore_errors=True)
+            if out["orphan_ddirs"]:
+                _mx.inc("minio_tpu_durability_orphan_ddirs_total",
+                        out["orphan_ddirs"])
             if not out["has_meta"]:
                 # journal-less slot: fold the dir away so walks stop yielding a
                 # phantom object — immediately when empty, after age_s when

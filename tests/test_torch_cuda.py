@@ -10,8 +10,9 @@ at B = 1, 16 and 128, the edge-case block and the edge blocks of the chip
 smoke (a row longer than a tile and its halo, no newline, wide rows), also
 with tiles forced small so that many rows cross tiles, and one select_scan
 flush and one select through the CUDA queue; the object layer and the S3
-server (signed requests over HTTP, the MRF healing lost drives) on the
-card against the CPU, file for file. Marked ``cuda``: they skip on hosts
+server (signed requests over HTTP, the MRF healing lost drives) and the
+auto-heal monitor's global heal on the card against the CPU, file for
+file. Marked ``cuda``: they skip on hosts
 without a CUDA card. On the card:
 
     MINIO_TPU_TEST_ON_DEVICE=1 MINIO_TPU_LOCKRANK=0 \
@@ -797,6 +798,58 @@ def test_s3server_on_card_matches_cpu(dev, tmp_path, monkeypatch):
     assert card[0][-1][2] == OL_BODIES["o1048583"][65530:70001]
     for name in ("gf_encode_batched", "gf_matmul_batched", "chacha20_xor",
                  "highwayhash256_chunks", "scan_codes"):
+        assert launched[name] > 0, name
+
+
+def _global_heal_run(root, device) -> dict:
+    """Objects PUT through one 16+4 / 1 MiB set on ``device`` (None = the
+    card), two drives wiped with their healing trackers set, the auto-heal
+    monitor's global heal; returns every file of the set."""
+    import os
+    import shutil
+    from minio_tpu_torch.objectlayer import ErasureObjects
+    from minio_tpu_torch.scanner.autoheal import (AutoHealMonitor,
+                                                  get_healing_tracker,
+                                                  set_healing_tracker)
+    from minio_tpu_torch.storage.xlstorage import XLStorage
+    dirs = [os.path.join(str(root), f"d{i:02d}") for i in range(20)]
+    ol = ErasureObjects([XLStorage(d) for d in dirs], default_parity=4,
+                        block_size=1 << 20, device=device)
+    ol.make_bucket("b")
+    for name, data in OL_BODIES.items():
+        ol.put_object("b", f"p/{name}", io.BytesIO(data), len(data))
+    for i in (3, 11):
+        shutil.rmtree(os.path.join(dirs[i], "b"))
+        set_healing_tracker(ol.disks[i])
+    mon = AutoHealMonitor(ol, ol.disks, interval_s=9999)
+    assert mon.check_and_heal()
+    assert mon.healer.objects_healed == len(OL_BODIES)
+    assert all(get_healing_tracker(d) is None for d in ol.disks)
+    files = {}
+    for d, _sub, names in os.walk(str(root)):
+        if ".minio.sys" in d:
+            continue
+        for n in names:
+            with open(os.path.join(d, n), "rb") as f:
+                files[os.path.relpath(os.path.join(d, n), str(root))] = \
+                    f.read()
+    return files
+
+
+def test_global_heal_on_card_matches_cpu(dev, tmp_path, monkeypatch):
+    """The auto-heal monitor's global heal on the card (rebuilds on K1,
+    verifies and digests on K5) leaves the same files as on the CPU."""
+    from minio_tpu_torch.ops import hh_cuda, rs_cuda
+    _pin_object_ids(monkeypatch)
+    rs_cuda.reset_launches()
+    hh_cuda.reset_launches()
+    card = _global_heal_run(tmp_path / "card", None)
+    launched = {**rs_cuda.launches, **hh_cuda.launches}
+    _pin_object_ids(monkeypatch)
+    host = _global_heal_run(tmp_path / "cpu", "cpu")
+    assert card == host
+    for name in ("gf_encode_batched", "gf_matmul_batched",
+                 "highwayhash256_chunks"):
         assert launched[name] > 0, name
 
 

@@ -37,19 +37,7 @@ _NOT_PORTED = {
         "minio_tpu_bucket_usage_live_objects",
         "minio_tpu_bucket_usage_live_versions",
         "minio_tpu_bucket_slo_bad_total"),
-    "the data scanner's usage snapshot": (
-        "minio_tpu_cluster_usage_object_total",
-        "minio_tpu_cluster_usage_total_bytes"),
-    "the auto-heal monitor's healing trackers": (
-        "minio_tpu_heal_disks_healing",),
-    "disk health trackers and hedged reads": (
-        "minio_tpu_disk_health_ewma_seconds", "minio_tpu_disk_state",
-        "minio_tpu_hedge_threshold_seconds"),
-    "the durability plane's health part and crash recovery": (
-        "minio_tpu_durability_fsync_flushed_total",
-        "minio_tpu_durability_fsync_mode",
-        "minio_tpu_durability_fsync_pending",
-        "minio_tpu_durability_recovery_runs_total"),
+    "hedged reads": ("minio_tpu_hedge_threshold_seconds",),
     "the QoS scheduler (spill to the CPU, deadline sizing, lane model)": (
         "minio_tpu_lane_backlog_seconds",
         "minio_tpu_lane_deadline_cuts_total",
@@ -276,8 +264,14 @@ def test_shared_families_have_the_same_type_and_labels(scrapes, scope):
                 "minio_tpu_dispatch_batches_total",
                 "minio_tpu_device_busy_ratio",
                 "minio_tpu_qos_class_latency_seconds",
-                "minio_tpu_pipeline_etag_total"):
+                "minio_tpu_pipeline_etag_total",
+                "minio_tpu_disk_state", "minio_tpu_durability_fsync_mode",
+                "minio_tpu_durability_recovery_runs_total"):
         assert fam in jf and fam in pf, fam
+    if scope == "cluster":
+        for fam in ("minio_tpu_cluster_usage_object_total",
+                    "minio_tpu_heal_disks_healing"):
+            assert fam in jf and fam in pf, fam
 
 
 def test_scrape_never_initialises_cuda(scrapes):
@@ -350,7 +344,7 @@ def test_timeline_device_top_qos_and_info(scrapes):
     assert _admin(c, "storageinfo").json()["disks_online"] == 6
 
 
-@pytest.mark.parametrize("op", ["list-users", "heal/mb", "get-config",
+@pytest.mark.parametrize("op", ["list-users", "fault", "get-config",
                                 "service", "profile", "kms/status"])
 def test_unported_admin_ops_answer_not_implemented(scrapes, op):
     r = _admin(scrapes["client"], op)
