@@ -1,7 +1,8 @@
-"""SSE core for the SSE-C scheme and the ChaCha20-Poly1305 package cipher —
-the port of minio_tpu/crypto/sse.py (reference cmd/crypto/sse-c.go,
-metadata.go and the DARE stream the reference gets from sio, re-designed
-there as explicit AEAD packages).
+"""SSE core — the port of minio_tpu/crypto/sse.py (reference
+cmd/crypto/sse-c.go, sse-s3.go, sse-kms.go, metadata.go and the DARE stream
+the reference gets from sio, re-designed there as explicit AEAD packages):
+header parsing for SSE-C, SSE-S3 and SSE-KMS, the sealed per-object key
+(OEK envelope), and the package stream under either package cipher.
 
 Stream format, byte-identical to the JAX package: plaintext split into
 PKG_SIZE packages; package i is ``AEAD(OEK).seal(nonce_i, pkg, aad_i)`` =
@@ -9,23 +10,43 @@ ciphertext || 16-byte tag with ``nonce_i = base_iv[0:8] || BE32(seq0+i)``
 and ``aad_i = "minio-tpu-sse-v1" || BE32(seq0+i)``. Encrypted length =
 plain + 16*ceil(plain/PKG_SIZE).
 
-Every keystream comes from the dispatch op ``sse_xor`` of the queue of the
-caller's device: one ChaCha20 kernel launch (ops/chacha_cuda.py, K4) per
-flush over many objects on the card, the plain PyTorch version on the
-CPU. That holds for the full packages of a PUT or GET block (FLUSH_PKGS
-of them), for a short tail package and for the 32-byte OEK envelope (both
-zero-padded to whole 64-byte blocks). The Poly1305 tags stay on the host
-(numpy limbs), as in the JAX package.
+Two package ciphers share that framing, as in the JAX package:
 
-Not ported here: the AES-256-GCM package cipher (it needs the
-``cryptography`` wheel) and the SSE-S3 / SSE-KMS schemes (they need a KMS);
-both raise NotImplementedError. Metrics feeds wait for the port of obs/.
+- **ChaCha20-Poly1305**: every keystream comes from the dispatch op
+  ``sse_xor`` of the queue of the caller's device: one ChaCha20 kernel
+  launch (ops/chacha_cuda.py, K4) per flush over many objects on the card,
+  the plain PyTorch version on the CPU. That holds for the full packages of
+  a PUT or GET block (FLUSH_PKGS of them), for a short tail package and for
+  the 32-byte OEK envelope (both zero-padded to whole 64-byte blocks). The
+  Poly1305 tags stay on the host (numpy limbs), as in the JAX package.
+- **AES-256-GCM**: on the host, as the JAX package runs it (there through
+  the ``cryptography`` wheel's AES-NI), on the port's own engine
+  (native/aesgcm.cpp): one native call per block of FLUSH_PKGS packages,
+  the interpreter lock released. Its envelope and the KMS's data-key seal
+  use the same engine (crypto/aesgcm.py).
+
+The package cipher of NEW objects is ``default_cipher()``, read from
+``MINIO_TPU_SSE_CIPHER``: ``aes-gcm`` (also ``aes``, ``aes256-gcm``),
+``chacha20`` (also ``chacha``, ``chacha20-poly1305``) or ``auto``. In the
+port ``auto`` means ChaCha20-Poly1305, whose keystream runs on the card:
+that is the JAX package's rule for a build without the ``cryptography``
+wheel, and the port never has the wheel. An object's own cipher is
+recorded in its internal metadata (META_CIPHER; absent = AES-256-GCM, the
+legacy objects), so objects under either cipher read back whatever the
+setting. Metrics feeds of the ``workloads`` group wait for the config
+plane.
+
+SSE-S3 seals the OEK under a data key of the process KMS (crypto/kms.py,
+``get_kms``); SSE-KMS under a data key of a named master key, bound to
+the object path and the caller's canonical JSON context.
 """
 from __future__ import annotations
 
 import base64
 import hashlib
 import hmac
+import json
+import os
 import secrets
 import struct
 from concurrent.futures import Future
@@ -33,8 +54,11 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from .. import native
 from ..utils import errors
 from . import chacha20poly1305 as ccp
+from . import kms as _kms
+from .aesgcm import AESGCM, InvalidTag
 
 PKG_SIZE = 64 << 10
 TAG = 16
@@ -52,15 +76,21 @@ META_SCHEME = "x-minio-internal-sse-scheme"          # "C" | "S3" | "KMS"
 META_SEALED = "x-minio-internal-sse-sealed-key"      # b64 sealed OEK
 META_IV = "x-minio-internal-sse-iv"                  # b64 12-byte base IV
 META_KEY_MD5 = "x-minio-internal-sse-c-key-md5"      # SSE-C key fingerprint
+META_KMS_BLOB = "x-minio-internal-sse-kms-blob"      # S3/KMS sealed data key
+META_KMS_KEY_ID = "x-minio-internal-sse-kms-key-id"  # SSE-KMS master key id
+META_KMS_CONTEXT = "x-minio-internal-sse-kms-context"  # b64 JSON context
 META_PLAIN_SIZE = "x-minio-internal-sse-plain-size"
 META_CIPHER = "x-minio-internal-sse-cipher"  # package cipher; absent = GCM
 
-_NO_GCM = ("the AES-256-GCM package cipher is not ported: it needs the "
-           "'cryptography' wheel, which the port may not depend on; "
-           "objects written with " + CIPHER_CHACHA20 + " are readable")
-_NO_KMS = ("SSE-S3 and SSE-KMS are not ported: they need a KMS (LocalKMS "
-           "seals data keys with AES-GCM from the 'cryptography' wheel); "
-           "only SSE-C is")
+
+def default_cipher() -> str:
+    """The package cipher for NEW objects, from ``MINIO_TPU_SSE_CIPHER``
+    (the JAX package's ``workloads.sse_cipher``); ``auto`` and anything
+    unknown give ChaCha20-Poly1305 (the module docstring says why)."""
+    v = (os.environ.get("MINIO_TPU_SSE_CIPHER", "") or "auto").lower()
+    if v in ("aes-gcm", "aes", "aes256-gcm"):
+        return CIPHER_AESGCM
+    return CIPHER_CHACHA20
 
 
 def cipher_of(meta: dict) -> str:
@@ -70,9 +100,11 @@ def cipher_of(meta: dict) -> str:
 
 @dataclass
 class SSEInfo:
-    scheme: str                    # "C" (the only scheme ported)
+    scheme: str                    # "C", "S3" or "KMS"
     key: bytes = b""               # SSE-C: client key (never persisted)
     key_md5: str = ""
+    kms_key_id: str = ""           # SSE-KMS: requested master key id
+    kms_context: str = ""          # SSE-KMS: canonical JSON context
 
 
 def parse_sse_headers(hdr, bucket: str, object: str) -> SSEInfo | None:
@@ -96,10 +128,39 @@ def parse_sse_headers(hdr, bucket: str, object: str) -> SSEInfo | None:
             raise errors.SSEKeyMD5Mismatch(bucket, object)
         return SSEInfo(scheme="C", key=key, key_md5=md5_b64)
     if sse:
-        if sse in ("AES256", "aws:kms"):
-            raise NotImplementedError(_NO_KMS)
+        if sse == "AES256":
+            return SSEInfo(scheme="S3")
+        if sse == "aws:kms":
+            key_id = hdr.get(
+                "x-amz-server-side-encryption-aws-kms-key-id", "")
+            ctx_b64 = hdr.get("x-amz-server-side-encryption-context", "")
+            ctx = ""
+            if ctx_b64:
+                # cmd/crypto/sse-kms.go ParseHTTP: context is b64 JSON;
+                # re-serialize with sorted keys so the stored form is
+                # canonical and unseal can't fail on key-order drift.
+                try:
+                    parsed = json.loads(base64.b64decode(ctx_b64,
+                                                         validate=True))
+                    if not isinstance(parsed, dict):
+                        raise ValueError
+                    ctx = json.dumps(parsed, sort_keys=True,
+                                     separators=(",", ":"))
+                except ValueError:  # binascii.Error, JSON and UTF-8 too
+                    raise errors.InvalidSSEContext(bucket, object) \
+                        from None
+            return SSEInfo(scheme="KMS", kms_key_id=key_id,
+                           kms_context=ctx)
         raise errors.InvalidEncryptionAlgo(bucket, object)
     return None
+
+
+def sse_kms_context(bucket: str, object: str, user_ctx: str) -> str:
+    """The KMS context string for an SSE-KMS object: the object path plus
+    the caller's canonical JSON context (cmd/crypto/sse-kms.go binds both
+    into the sealed blob so a blob replayed on another object — or with a
+    different context — fails to unseal)."""
+    return f"{bucket}/{object}|{user_ctx}"
 
 
 def _kek(scheme_key: bytes, bucket: str, object: str) -> bytes:
@@ -152,26 +213,27 @@ def _open_one(queue, key: bytes, nonce: bytes, aad: bytes, sealed) -> bytes:
 def seal_object_key(oek: bytes, scheme_key: bytes, bucket: str,
                     object: str, cipher: str = CIPHER_CHACHA20,
                     device=None) -> bytes:
-    """Seal the OEK under the path-bound KEK with the ChaCha20-Poly1305
-    envelope (nonce || 32 bytes || tag), its keystream from the queue of
-    ``device`` (None = the CUDA card)."""
-    if cipher != CIPHER_CHACHA20:
-        raise NotImplementedError(_NO_GCM)
+    """Seal the OEK under the path-bound KEK (nonce || 32 bytes || tag).
+    The envelope AEAD follows the object's package cipher: ChaCha20-
+    Poly1305 with its keystream from the queue of ``device`` (None = the
+    CUDA card), or AES-256-GCM on the host engine."""
     nonce = secrets.token_bytes(12)
     kek = _kek(scheme_key, bucket, object)
-    return nonce + _seal_one(_queue(device), kek, nonce, _AAD, oek)
+    if cipher == CIPHER_CHACHA20:
+        return nonce + _seal_one(_queue(device), kek, nonce, _AAD, oek)
+    return nonce + AESGCM(kek).encrypt(nonce, oek, _AAD)
 
 
 def unseal_object_key(sealed: bytes, scheme_key: bytes, bucket: str,
                       object: str, cipher: str = CIPHER_CHACHA20,
                       device=None) -> bytes:
-    if cipher != CIPHER_CHACHA20:
-        raise NotImplementedError(_NO_GCM)
     kek = _kek(scheme_key, bucket, object)
     try:
-        return _open_one(_queue(device), kek, sealed[:12], _AAD,
-                         sealed[12:])
-    except ccp.BadTag:
+        if cipher == CIPHER_CHACHA20:
+            return _open_one(_queue(device), kek, sealed[:12], _AAD,
+                             sealed[12:])
+        return AESGCM(kek).decrypt(sealed[:12], sealed[12:], _AAD)
+    except (ccp.BadTag, InvalidTag):
         raise errors.SSEKeyMismatch(bucket, object) from None
 
 
@@ -199,6 +261,29 @@ def _aad(seq: int) -> bytes:
 class _TagError(Exception):
     """Internal: package AEAD verification failed (mapped to
     SSEDecryptError by the stream wrappers, which know bucket/key)."""
+
+
+class _GCMPackages:
+    """AES-256-GCM package lane on the host engine: a block of packages is
+    sealed or opened in ONE native call (nonces and AADs derived there as
+    ``_nonce``/``_aad`` derive them); an open checks every tag before it
+    decrypts any package."""
+
+    name = CIPHER_AESGCM
+
+    def __init__(self, oek: bytes, base_iv: bytes):
+        self._oek = oek
+        self.base_iv = base_iv
+
+    def seal_block(self, seq0: int, pkgs: list) -> list:
+        return native.aesgcm_seal_pkgs(self._oek, self.base_iv, seq0, pkgs)
+
+    def open_block(self, seq0: int, cts: list) -> list:
+        bad, out = native.aesgcm_open_pkgs(self._oek, self.base_iv, seq0,
+                                           cts)
+        if bad >= 0:
+            raise _TagError
+        return out
 
 
 class _ChaChaPackages:
@@ -275,12 +360,13 @@ class _ChaChaPackages:
 
 
 def package_cipher(cipher: str, oek: bytes, base_iv: bytes, device=None):
-    """The package AEAD lane for a cipher wire name (META_CIPHER), riding
-    the dispatch queue of ``device`` (None = the CUDA card)."""
+    """The package AEAD lane for a cipher wire name (META_CIPHER): the
+    ChaCha20 lane rides the dispatch queue of ``device`` (None = the CUDA
+    card), the AES-GCM lane the host engine."""
     if cipher == CIPHER_CHACHA20:
         return _ChaChaPackages(oek, base_iv, _queue(device))
     if cipher == CIPHER_AESGCM:
-        raise NotImplementedError(_NO_GCM)
+        return _GCMPackages(oek, base_iv)
     raise ValueError(f"unknown SSE package cipher {cipher!r}")
 
 
@@ -449,61 +535,118 @@ def _read_full(stream, n: int) -> bytes:
     return b"".join(chunks)
 
 
-# --- the SSE-C branches of the S3 handler's PUT and GET set-up -------------
+# --- the S3 handler's PUT and GET set-up ------------------------------------
+
+
+def _kms_generate(kms, ctx: str, bucket: str, object: str,
+                  key_id: str = ""):
+    """generate_key with a KMS outage surfaced as a retryable 503
+    (matching the read path) instead of a generic 500."""
+    try:
+        return kms.generate_key(ctx, key_id=key_id)
+    except _kms.KMSUnreachable as e:
+        raise errors.KMSNotAvailable(bucket, object, extra=str(e)) from None
+
+
+def _kms_unseal(blob: bytes, ctx: str, bucket: str, object: str,
+                key_id: str = "") -> bytes:
+    """The data key of an SSE-S3/KMS object: an outage is a 503, any other
+    failure (a rotated or deleted master key, a wrong context) the 403 of
+    a key mismatch."""
+    try:
+        return _kms.get_kms().unseal(blob, ctx, key_id=key_id)
+    except _kms.KMSUnreachable as e:
+        # transient KMS outage — not a wrong-key condition
+        raise errors.KMSNotAvailable(bucket, object, extra=str(e)) from None
+    except Exception:  # noqa: BLE001 — rotated/deleted master key
+        raise errors.SSEKeyMismatch(bucket, object) from None
 
 
 def encrypt_setup(sse: SSEInfo, stream, size: int, user_defined: dict,
                   bucket: str, object: str, device=None):
-    """Envelope set-up for an SSE-C PUT — the SSE-C branch of
-    minio_tpu/server/s3api.py S3Handler._encrypt_setup (cmd/encryption-v1.go
-    EncryptRequest): a random OEK sealed under the customer key; the
+    """Envelope set-up for a PUT — minio_tpu/server/s3api.py
+    S3Handler._encrypt_setup (cmd/encryption-v1.go EncryptRequest): a
+    random OEK sealed under the customer key (SSE-C) or a KMS data key
+    (SSE-S3, SSE-KMS), under the package cipher ``default_cipher()``; the
     internal metadata records everything a reader needs except the secret
     itself. Returns (cipher stream, encrypted size, response headers)."""
-    if sse.scheme != "C":
-        raise NotImplementedError(_NO_KMS)
     oek = secrets.token_bytes(32)
     base_iv = secrets.token_bytes(12)
-    cipher = CIPHER_CHACHA20
+    cipher = default_cipher()
     user_defined[META_SCHEME] = sse.scheme
     user_defined[META_IV] = base64.b64encode(base_iv).decode()
     user_defined[META_PLAIN_SIZE] = str(size)
     user_defined[META_CIPHER] = cipher
-    sealed = seal_object_key(oek, sse.key, bucket, object, cipher=cipher,
+    if sse.scheme == "C":
+        key = sse.key
+        user_defined[META_KEY_MD5] = sse.key_md5
+        resp = {"x-amz-server-side-encryption-customer-algorithm": "AES256",
+                "x-amz-server-side-encryption-customer-key-MD5": sse.key_md5}
+    elif sse.scheme == "KMS":
+        kms = _kms.get_kms()
+        key_id = sse.kms_key_id or kms.key_id
+        ctx = sse_kms_context(bucket, object, sse.kms_context)
+        key, blob = _kms_generate(kms, ctx, bucket, object, key_id)
+        user_defined[META_KMS_BLOB] = base64.b64encode(blob).decode()
+        user_defined[META_KMS_KEY_ID] = key_id
+        if sse.kms_context:
+            user_defined[META_KMS_CONTEXT] = base64.b64encode(
+                sse.kms_context.encode()).decode()
+        resp = {"x-amz-server-side-encryption": "aws:kms",
+                "x-amz-server-side-encryption-aws-kms-key-id": key_id}
+    else:
+        key, blob = _kms_generate(_kms.get_kms(), f"{bucket}/{object}",
+                                  bucket, object)
+        user_defined[META_KMS_BLOB] = base64.b64encode(blob).decode()
+        resp = {"x-amz-server-side-encryption": "AES256"}
+    sealed = seal_object_key(oek, key, bucket, object, cipher=cipher,
                              device=device)
-    user_defined[META_KEY_MD5] = sse.key_md5
     user_defined[META_SEALED] = base64.b64encode(sealed).decode()
-    resp = {"x-amz-server-side-encryption-customer-algorithm": "AES256",
-            "x-amz-server-side-encryption-customer-key-MD5": sse.key_md5}
     return (EncryptReader(stream, oek, base_iv, cipher=cipher,
                           device=device), enc_size(size), resp)
 
 
 def sse_read_ctx(internal: dict, hdr, bucket: str, object: str, size: int,
                  device=None):
-    """For an encrypted object: unseal the OEK with this request's customer
-    key and return (oek, base_iv, plain_size, response headers, package
-    cipher); None for plaintext objects — the SSE-C branch of
-    minio_tpu/server/s3api.py S3Handler._sse_read_ctx (cmd/encryption-v1.go
-    DecryptRequest). A wrong key MD5 is refused before any package is read
-    or opened. ``internal`` is the object's internal metadata, ``size`` its
-    stored size; the envelope opens on the queue of ``device`` (None = the
+    """For an encrypted object: unseal the OEK and return (oek, base_iv,
+    plain_size, response headers, package cipher); None for plaintext
+    objects — minio_tpu/server/s3api.py S3Handler._sse_read_ctx
+    (cmd/encryption-v1.go DecryptRequest). SSE-C needs this request's
+    customer key (a wrong key MD5 is refused before any package is read or
+    opened); SSE-S3 and SSE-KMS unseal their data key through the KMS.
+    ``internal`` is the object's internal metadata, ``size`` its stored
+    size; a ChaCha20 envelope opens on the queue of ``device`` (None = the
     CUDA card)."""
     scheme = internal.get(META_SCHEME, "")
     if not scheme:
         return None
-    if scheme != "C":
-        raise NotImplementedError(_NO_KMS)
     sealed = base64.b64decode(internal.get(META_SEALED, ""))
     base_iv = base64.b64decode(internal.get(META_IV, ""))
     plain_size = plain_size_of(internal, size)
     cipher = cipher_of(internal)
-    req = parse_sse_headers(hdr, bucket, object)
-    if req is None or req.scheme != "C":
-        raise errors.SSEEncryptedObject(bucket, object)
-    if req.key_md5 != internal.get(META_KEY_MD5, ""):
-        raise errors.SSEKeyMismatch(bucket, object)
-    oek = unseal_object_key(sealed, req.key, bucket, object, cipher=cipher,
+    if scheme == "C":
+        req = parse_sse_headers(hdr, bucket, object)
+        if req is None or req.scheme != "C":
+            raise errors.SSEEncryptedObject(bucket, object)
+        if req.key_md5 != internal.get(META_KEY_MD5, ""):
+            raise errors.SSEKeyMismatch(bucket, object)
+        key = req.key
+        resp = {"x-amz-server-side-encryption-customer-algorithm": "AES256",
+                "x-amz-server-side-encryption-customer-key-MD5": req.key_md5}
+    elif scheme == "KMS":
+        blob = base64.b64decode(internal.get(META_KMS_BLOB, ""))
+        key_id = internal.get(META_KMS_KEY_ID, "")
+        stored_ctx = ""
+        if internal.get(META_KMS_CONTEXT, ""):
+            stored_ctx = base64.b64decode(internal[META_KMS_CONTEXT]).decode()
+        key = _kms_unseal(blob, sse_kms_context(bucket, object, stored_ctx),
+                          bucket, object, key_id)
+        resp = {"x-amz-server-side-encryption": "aws:kms",
+                "x-amz-server-side-encryption-aws-kms-key-id": key_id}
+    else:
+        blob = base64.b64decode(internal.get(META_KMS_BLOB, ""))
+        key = _kms_unseal(blob, f"{bucket}/{object}", bucket, object)
+        resp = {"x-amz-server-side-encryption": "AES256"}
+    oek = unseal_object_key(sealed, key, bucket, object, cipher=cipher,
                             device=device)
-    resp = {"x-amz-server-side-encryption-customer-algorithm": "AES256",
-            "x-amz-server-side-encryption-customer-key-MD5": req.key_md5}
     return oek, base_iv, plain_size, resp, cipher

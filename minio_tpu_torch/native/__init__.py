@@ -3,7 +3,8 @@ use and loaded through ctypes — the port of minio_tpu/native/__init__.py.
 
 ``pipeline.cpp`` includes ``gf256_simd.cpp``, ``highwayhash.cpp``,
 ``mur3.cpp`` and ``md5_simd.cpp`` (verbatim copies of the JAX package's
-sources), so one library serves:
+sources) and is linked with ``aesgcm.cpp`` (the port's own: the JAX package
+takes AES-GCM from the ``cryptography`` wheel), so one library serves:
 
 - the CPU GF(256) codec (``cpu_encode``: the salvage route of a failed
   flush on a CPU queue),
@@ -11,7 +12,11 @@ sources), so one library serves:
   bitrot digest of the port's paths — tail blocks, host-verified reads —
   and the CPU queue's salvage route's hashes),
 - the fused per-block calls ``put_block`` / ``get_block`` /
-  ``verify_framed`` (split+encode+hash+frame, verify+assemble).
+  ``verify_framed`` (split+encode+hash+frame, verify+assemble),
+- AES-256-GCM with AES-NI and PCLMULQDQ (``aesgcm_*``: the SSE package
+  cipher AES256-GCM, one call per block of packages, its OEK envelope and
+  the KMS's data-key seal). A CPU without those instructions gets
+  ``AESUnavailable`` at the first call, never a portable AES.
 
 Every entry point releases the interpreter lock (plain ``ctypes.CDLL``
 calls), so concurrent requests hash on as many cores as the host has.
@@ -40,7 +45,9 @@ _DIR = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_DIR)), "build",
                          "minio_tpu_torch")
 _SOURCES = ("pipeline.cpp", "gf256_simd.cpp", "highwayhash.cpp", "mur3.cpp",
-            "md5_simd.cpp")
+            "md5_simd.cpp", "aesgcm.cpp")
+#: the translation units g++ links into the library
+_UNITS = ("pipeline.cpp", "aesgcm.cpp")
 #: the g++ flag ladder: the first set that compiles is kept
 FLAG_LADDER = (("-O3", "-march=native"), ("-O3", "-mavx2"), ("-O3",))
 
@@ -88,7 +95,7 @@ def library_path() -> str:
 
 
 def _compile(out: str) -> tuple:
-    """Build pipeline.cpp into ``out`` (atomically: a temp file renamed, so
+    """Build the units into ``out`` (atomically: a temp file renamed, so
     concurrent processes never load a half-written library); returns the
     flags that compiled."""
     os.makedirs(BUILD_DIR, exist_ok=True)
@@ -96,7 +103,8 @@ def _compile(out: str) -> tuple:
     last = ""
     for flags in FLAG_LADDER:
         r = subprocess.run(["g++", *flags, "-shared", "-fPIC",
-                            os.path.join(_DIR, "pipeline.cpp"), "-o", tmp],
+                            *(os.path.join(_DIR, u) for u in _UNITS),
+                            "-o", tmp],
                            capture_output=True)
         if r.returncode == 0:
             os.replace(tmp, out)
@@ -174,6 +182,13 @@ def _load_locked() -> ctypes.CDLL:
         "md5_multi_segments": ([u32p, vpp, lp, ip, ci], None),
         "md5_init_state": ([u32p], None),
         "md5_finish": ([u32p, cp, cl, ctypes.c_ulonglong, c_u8p], None),
+        "aesgcm_cpu_ok": ([], ci),
+        "aesgcm_seal": ([cp, cp, cp, cl, cp, cl, cp], None),
+        "aesgcm_open": ([cp, cp, cp, cl, cp, cl, cp], ci),
+        "aesgcm_seal_pkgs": ([cp, cp, ctypes.c_uint32, vpp, lp, ci, vpp],
+                             None),
+        "aesgcm_open_pkgs": ([cp, cp, ctypes.c_uint32, vpp, lp, ci, vpp],
+                             ci),
     }
     for name, (argtypes, restype) in sigs.items():
         fn = getattr(lib, name)
@@ -380,3 +395,95 @@ def verify_framed(framed, plen: int, chunk: int, key: bytes,
         raise ValueError("verify_framed: span shorter than its framing")
     return lib.mt_verify_framed(arr.ctypes.data_as(_u8p), plen, chunk,
                                 _key(key), algo)
+
+
+class AESUnavailable(RuntimeError):
+    """This CPU lacks AES-NI or PCLMULQDQ: the AES-256-GCM engine has no
+    portable fallback (a table-driven AES leaks timing)."""
+
+
+def _aes_lib() -> ctypes.CDLL:
+    lib = load_native()
+    if not lib.aesgcm_cpu_ok():
+        raise AESUnavailable(
+            "AES-256-GCM needs AES-NI, PCLMULQDQ and SSE4.1, which this CPU "
+            "lacks; objects sealed with AES256-GCM cannot be read or "
+            "written here (ChaCha20-Poly1305 objects can)")
+    return lib
+
+
+def _aes_args(key: bytes, nonce: bytes) -> None:
+    if len(key) != 32:
+        raise ValueError("AES-256-GCM keys are 32 bytes")
+    if len(nonce) != 12:
+        raise ValueError("AES-256-GCM nonces are 12 bytes")
+
+
+def _buf(data) -> np.ndarray:
+    """A uint8 view of any C-contiguous buffer (bytes, memoryview, array)."""
+    return np.frombuffer(memoryview(data).cast("B"), dtype=np.uint8)
+
+
+def aesgcm_seal(key: bytes, nonce: bytes, aad: bytes, data) -> bytes:
+    """AES-256-GCM seal: ciphertext || 16-byte tag."""
+    lib = _aes_lib()
+    _aes_args(key, nonce)
+    src = _buf(data)
+    out = ctypes.create_string_buffer(src.size + 16)
+    lib.aesgcm_seal(bytes(key), bytes(nonce), bytes(aad), len(aad),
+                    src.ctypes.data_as(ctypes.c_char_p), src.size, out)
+    return out.raw
+
+
+def aesgcm_open(key: bytes, nonce: bytes, aad: bytes, sealed) -> bytes | None:
+    """AES-256-GCM open of ciphertext || tag; None when the tag does not
+    verify (then nothing was decrypted)."""
+    lib = _aes_lib()
+    _aes_args(key, nonce)
+    src = _buf(sealed)
+    if src.size < 16:
+        return None
+    out = ctypes.create_string_buffer(max(src.size - 16, 1))
+    rc = lib.aesgcm_open(bytes(key), bytes(nonce), bytes(aad), len(aad),
+                         src.ctypes.data_as(ctypes.c_char_p), src.size - 16,
+                         out)
+    return None if rc else out.raw[:src.size - 16]
+
+
+def _pkg_call(fn, key: bytes, base_iv: bytes, seq0: int, bufs: list,
+              out_lens: list):
+    """(return value, [out views]) of a package entry: every input is
+    passed by pointer, every output lands in one array."""
+    if len(key) != 32 or len(base_iv) < 8:
+        raise ValueError("AES-256-GCM packages take a 32-byte key and a "
+                         "base IV of at least 8 bytes")
+    arrs, ptrs, lens = _ptrs(bufs)
+    out = np.empty(sum(out_lens), dtype=np.uint8)
+    offs = [int(o) for o in np.cumsum([0, *out_lens])[:-1]]
+    dst = (ctypes.c_void_p * len(arrs))(*[out.ctypes.data + o for o in offs])
+    rc = fn(bytes(key), bytes(base_iv[:8]), seq0 & 0xFFFFFFFF, ptrs, lens,
+            len(arrs), dst)
+    views = [memoryview(out[o:o + n]) for o, n in zip(offs, out_lens)]
+    return rc, views
+
+
+def aesgcm_seal_pkgs(key: bytes, base_iv: bytes, seq0: int,
+                     pkgs: list) -> list:
+    """Seal a block of SSE packages in one call (nonces and AADs derived
+    from ``base_iv[:8]`` and the sequence numbers ``seq0 + i``): a
+    memoryview per package, ciphertext || tag."""
+    lib = _aes_lib()
+    _, views = _pkg_call(lib.aesgcm_seal_pkgs, key, base_iv, seq0, pkgs,
+                         [len(p) + 16 for p in pkgs])
+    return views
+
+
+def aesgcm_open_pkgs(key: bytes, base_iv: bytes, seq0: int,
+                     sealed: list) -> tuple[int, list]:
+    """Open a block of sealed SSE packages in one call: (-1, plaintext
+    views) when every tag verifies, else (index of the first failing
+    package, []) with nothing decrypted."""
+    lib = _aes_lib()
+    rc, views = _pkg_call(lib.aesgcm_open_pkgs, key, base_iv, seq0, sealed,
+                          [max(len(c) - 16, 0) for c in sealed])
+    return (-1, views) if rc < 0 else (rc, [])

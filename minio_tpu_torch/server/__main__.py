@@ -6,7 +6,9 @@ erasure set or several sets of 4-16 drives, and several ellipses arguments
 form one pool each. The erasure work runs on the CUDA card unless
 ``--device cpu`` is given; without a card that fails at start. Root
 credentials: MINIO_TPU_ROOT_USER/_PASSWORD (MINIO_ROOT_USER/_PASSWORD also
-honored; default minioadmin/minioadmin).
+honored; default minioadmin/minioadmin). The admin ``service`` op
+restarts the server (the same ``python -m minio_tpu_torch.server``
+command line, re-executed) or stops it.
 
 Not ported, each with the ROADMAP item it waits for: the one-disk FS mode,
 ``http://`` distributed endpoints and multi-address listeners (Queue 1
@@ -104,6 +106,7 @@ def main(argv=None):
     from . import S3Server
     srv = S3Server(obj, host or "0.0.0.0", port, args.region,
                    access_key=ak, secret_key=sk, device=device)
+    install_service_hook(srv, argv if argv is not None else sys.argv[1:])
     srv.start_background_services()
     print(f"{banner} on {device}; listening on {args.address}",
           file=sys.stderr)
@@ -113,6 +116,20 @@ def main(argv=None):
         pass
     finally:
         srv.shutdown()
+
+
+def install_service_hook(srv, argv: list) -> None:
+    """``mc admin service restart/stop`` (reference cmd/service.go, JAX
+    ``_install_service_hook``): restart re-executes ``python -m
+    minio_tpu_torch.server`` with the same arguments, so configuration and
+    environment changes load; stop exits at once."""
+    def service_signal(action: str):
+        if action == "restart":
+            os.execv(sys.executable, [sys.executable, "-m",
+                                      "minio_tpu_torch.server", *argv])
+        os._exit(0)
+
+    srv.on_service_signal = service_signal
 
 
 if __name__ == "__main__":

@@ -1,7 +1,7 @@
-"""Admin API, the port of the observability ops of
-minio_tpu/server/admin.py (reference cmd/admin-router.go subset). Routes
-live under /minio/admin/v3/... and require the root credentials, signed
-with SigV4 like any S3 request.
+"""Admin API, the port of the ops of minio_tpu/server/admin.py whose planes
+are ported (reference cmd/admin-router.go subset). Routes live under
+/minio/admin/v3/... and require the root credentials, signed with SigV4
+like any S3 request.
 
 Ops: ``info``, ``storageinfo``, ``trace`` (the live JSON-line stream,
 ``?trace_id=`` for one stored span tree, ``?slow=1`` for the slow-trace
@@ -11,11 +11,18 @@ store), ``timeline`` (the flight recorder, ``?attribution=1``,
 sequences (``heal[/bucket[/prefix]]``: start one, or poll it with
 ``?clientToken=``, stop it with ``&forceStop=1``), ``datausageinfo``
 (``?depth=``: the scanner's snapshot with per-prefix breakdowns) and
-``bg-heal-status`` (the auto-heal monitor's and the MRF's stats). Every
-other admin op (IAM, config, tier, KMS, replication, fault and profiling,
-the service signals) answers ``501 NotImplemented`` in the reference's
-error XML: those planes are not ported. The ``?peers=1`` fan-outs wait for
-the port of ``dist/``'s RPC plane.
+``bg-heal-status`` (the auto-heal monitor's and the MRF's stats),
+``set-bucket-quota`` / ``get-bucket-quota`` (``?bucket=``, the hard quota
+the PUT path checks), ``durability`` (the fsync policy and flusher, the
+crash-point catalogue, the ``minio_tpu_durability_*`` counters, the
+janitor's last sweep), ``service`` (``?action=restart|stop`` through the
+server's ``on_service_signal`` hook, which the CLI installs), and the KMS's
+``kms/status``, ``kms/key/create`` and ``kms/key/status`` (``?key-id=``).
+Every other admin op (IAM, config, tier, replication, fault, profiling and
+locks, the SLO plane and the health snapshot, bucket analytics and logs,
+update) answers ``501 NotImplemented`` in the reference's error XML: those
+planes are not ported. The ``?peers=1`` fan-outs wait for the port of
+``dist/``'s RPC plane.
 """
 from __future__ import annotations
 
@@ -81,7 +88,89 @@ def _dispatch_admin(h, op: str) -> None:
     if op == "bg-heal-status":
         from ..scanner import background_heal_stats
         return _json(h, background_heal_stats(h.s3))
+    if op.startswith("service"):
+        return _service(h)
+    if op == "set-bucket-quota":
+        body = json.loads(h._read_body() or b"{}")
+        bucket = h.q("bucket")
+        h.s3.obj.get_bucket_info(bucket)
+        h.s3.bucket_meta.update(bucket, quota=int(body.get("quota", 0)))
+        return _json(h, {})
+    if op == "get-bucket-quota":
+        meta = h.s3.bucket_meta.get(h.q("bucket"))
+        return _json(h, {"quota": meta.quota, "quotatype": "hard"})
+    if op == "durability":
+        return _durability(h)
+    if op == "kms/status":
+        from ..crypto import get_kms
+        return _json(h, get_kms().info())
+    if op == "kms/key/create":
+        from ..crypto import KMSError, get_kms
+        key_id = h.q("key-id")
+        if not key_id:
+            return h._error("InvalidArgument", "missing key-id", 400)
+        try:
+            get_kms().create_key(key_id)
+        except KMSError as e:
+            return h._error("XMinioKMSError", str(e), 500)
+        return _json(h, {})
+    if op == "kms/key/status":
+        return _kms_key_status(h)
     h._not_implemented(f"admin {op} is not implemented")
+
+
+def _service(h) -> None:
+    """Service signals (reference cmd/service.go): restart re-executes the
+    process, stop exits. The answer goes out first; the server's
+    ``on_service_signal`` hook (the CLI's, or None: acknowledged, nothing
+    done) runs 0.2 s later so the socket can flush."""
+    action = h.q("action", "restart")
+    if action not in ("restart", "stop"):
+        return h._error("InvalidArgument",
+                        f"unknown service action {action!r}", 400)
+    hook = h.s3.on_service_signal
+    h._send(200, b"{}", "application/json")
+    if hook is not None:
+        import threading
+        threading.Timer(0.2, hook, args=(action,)).start()
+
+
+def _durability(h) -> None:
+    """The durability plane: the fsync policy and flusher state, the
+    crash-point catalogue, the recovery/quarantine/purge counters and the
+    janitor's last sweep."""
+    from ..obs.metrics import counters_snapshot
+    from ..storage import durability
+    from ..storage.xlstorage import WRITE_STEPS
+    janitor = getattr(h.s3.scanner, "janitor", None)
+    counters = {k: v for k, v in counters_snapshot().items()
+                if k.startswith("minio_tpu_durability_")}
+    _json(h, {**durability.status(), "write_steps": list(WRITE_STEPS),
+              "counters": counters,
+              "last_sweep": getattr(janitor, "last_stats", {}) or {}})
+
+
+def _kms_key_status(h) -> None:
+    """Round-trip check of a KMS master key (reference
+    cmd/admin-handlers.go KMSKeyStatusHandler): generate a data key under
+    the key id, unseal it back, and report each step's outcome."""
+    from ..crypto import get_kms
+    kms = get_kms()
+    key_id = h.q("key-id") or kms.key_id
+    status: dict = {"key-id": key_id}
+    try:
+        dk, blob = kms.generate_key("admin-kms-check", key_id=key_id)
+        status["encryption-err"] = ""
+    except Exception as e:  # noqa: BLE001 — reported, not raised
+        status["encryption-err"] = str(e)
+        return _json(h, status)
+    try:
+        dk2 = kms.unseal(blob, "admin-kms-check", key_id=key_id)
+        status["decryption-err"] = "" if dk2 == dk else \
+            "decrypted key does not match generated key"
+    except Exception as e:  # noqa: BLE001
+        status["decryption-err"] = str(e)
+    _json(h, status)
 
 
 def _heal(h, op: str) -> None:

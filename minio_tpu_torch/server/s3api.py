@@ -6,14 +6,17 @@ auth, XML responses.
 Threaded stdlib HTTP server: request concurrency maps to the dispatch
 queue's batching, so the blocks of many in-flight PUTs and GETs coalesce
 into single kernel launches on the card (K2 encode and K5 hashes on PUT,
-K5 verify and K1 rebuild on GET and heal, K4 for SSE-C, K6 for
-SelectObjectContent).
+K5 verify and K1 rebuild on GET and heal, K4 for the ChaCha20 SSE
+package cipher, K6 for SelectObjectContent; the AES-256-GCM package
+cipher runs on the host's native engine).
 
 What came over: the bucket handlers (list buckets, put/head/delete
 bucket, location, ListObjects V1/V2, list versions, versioning, bucket
 tagging, DeleteObjects, the hard quota check), the object handlers (PUT,
 GET, ranged GET, HEAD, conditional requests, delete, copy, object
-tagging, the six multipart handlers, SSE-C, SelectObjectContent), the
+tagging, the six multipart handlers, SSE-C, SSE-S3 and SSE-KMS over the
+process KMS (``crypto/kms.py``, configured with the root secret at
+construction), SelectObjectContent), the
 health endpoints, and the background plane: the MRF heal queue that
 degraded reads feed, the data scanner and its usage snapshot (which the
 quota check reads), and fresh-disk auto-heal
@@ -34,9 +37,9 @@ in the reference's error XML: STS, federation and internal RPC, the
 other admin ops and the console plane, POST policy uploads,
 notifications, bucket policies, lifecycle, replication, object lock
 (retention, legal hold, lock-enabled buckets), restore and transitioned
-objects, SSE-S3 and SSE-KMS, and compressed objects (the port never
-compresses; an object the JAX package stored compressed is refused,
-never served as raw deflate). The audit log, the SLO plane and the
+objects, and compressed objects (the port never compresses; an object
+the JAX package stored compressed is refused, never served as raw
+deflate). The audit log, the SLO plane and the
 profiler are not ported."""
 from __future__ import annotations
 
@@ -101,6 +104,8 @@ class S3Server:
     server. ``device`` is where the handlers' own device work runs (the
     SSE-C keystreams, the Select scan): the CUDA card unless the caller
     passes ``device="cpu"``; give the object layer the same device.
+    The process KMS (SSE-S3, SSE-KMS) derives its fallback master key from
+    ``secret_key`` unless the environment configures one (crypto/kms.py).
     ``max_requests`` is the admission gate's concurrency."""
 
     def __init__(self, objlayer, address: str = "0.0.0.0", port: int = 9000,
@@ -113,7 +118,12 @@ class S3Server:
             "MINIO_ROOT_USER", "minioadmin")
         self.secret_key = secret_key or os.environ.get(
             "MINIO_ROOT_PASSWORD", "minioadmin")
+        from ..crypto import kms as _kms_mod
+        _kms_mod.configure(self.secret_key)
         self.bucket_meta = bucket_metadata.BucketMetadataSys(objlayer)
+        #: the admin ``service`` op's hook (action "restart" or "stop");
+        #: the CLI installs one, None acknowledges and does nothing
+        self.on_service_signal = None
         self.verifier = SigV4Verifier(self.lookup_secret, region)
         self.address = address
         self.port = port
@@ -556,7 +566,8 @@ class _S3Handler(BaseHTTPRequestHandler):
         except (BadDigestError, SHA256MismatchError) as e:
             self._error("BadDigest", str(e), 400)
         except NotImplementedError as e:
-            # SSE-S3/KMS, the AES-GCM package cipher, compressed objects
+            # a plane the port does not have (compressed objects are
+            # refused before this, by _refuse_unported)
             self._not_implemented(str(e))
         except BrokenPipeError:
             # client went away mid-response; the half-written reply makes
@@ -1037,8 +1048,10 @@ class _S3Handler(BaseHTTPRequestHandler):
 
     def _sse_read_ctx(self, oi):
         """(oek, base_iv, plain_size, response headers, package cipher)
-        of an SSE-C object, unsealed with this request's key (a wrong key
-        MD5 403s before any package is read); None for a plain object."""
+        of an encrypted object, unsealed with this request's SSE-C key (a
+        wrong key MD5 403s before any package is read) or through the KMS
+        (an outage 503s, a wrong master key 403s); None for a plain
+        object."""
         from ..crypto import sse_read_ctx
         return sse_read_ctx(oi.internal, self.hdr, self.bucket, self.key,
                             oi.size, device=self.s3.device)

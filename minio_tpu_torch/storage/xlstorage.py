@@ -143,6 +143,20 @@ class _FileReadAt:
 
 
 #: instruments of ``_OpSpan`` that raised (counted, logged, never fatal)
+#: the crash-point catalogue of the commit protocol, the JAX package's
+#: (the admin ``durability`` op lists it); the injection points at these
+#: steps wait for the port of the fault plane
+WRITE_STEPS = (
+    "pre_replace",        # tmp written, about to become visible
+    "post_replace",       # rename landed, fsync policy applied
+    "pre_data_rename",    # rename_data: before the dataDir moves
+    "post_data_rename",   # dataDir visible, xl.meta not yet updated
+    "pre_meta_write",     # version journal about to be rewritten
+    "post_meta_write",    # journal committed, tmp/purge cleanup pending
+    "pre_rename_file",    # rename_file commit (multipart part promote)
+    "pre_append",         # append_file about to mutate in place
+)
+
 _obs_errors = 0
 _obs_errors_lock = threading.Lock()
 log = logging.getLogger(__name__)

@@ -224,3 +224,16 @@ class SSEEncryptedObject(ObjectAPIError):
 class SSEDecryptError(ObjectAPIError):
     code = "XMinioSSEDecryptFailure"
     http_status = 400
+
+
+class InvalidSSEContext(ObjectAPIError):
+    """Malformed x-amz-server-side-encryption-context (must be base64 of
+    a JSON object — cmd/crypto/sse-kms.go ParseHTTP)."""
+    code = "InvalidArgument"
+    http_status = 400
+
+
+class KMSNotAvailable(ObjectAPIError):
+    """External KMS unreachable — retryable, distinct from key mismatch."""
+    code = "ServiceUnavailable"
+    http_status = 503

@@ -14,6 +14,7 @@ from minio_tpu.ops import fused as jfused
 from minio_tpu.ops import rs_jax
 from minio_tpu_torch.erasure.bitrot import HIGHWAY_KEY
 from minio_tpu_torch.ops import fused, rs_cuda, rs_torch
+from minio_tpu_torch.runtime import dispatch
 from minio_tpu_torch.runtime.dispatch import DispatchQueue
 
 K, M = 4, 2
@@ -111,12 +112,16 @@ def test_guards():
         fused.verify_fn_for(HIGHWAY_KEY, 4096, 1024, 2)
 
 
-def test_dispatch_ops_match_direct_calls(setup):
+def test_dispatch_ops_match_direct_calls(setup, monkeypatch):
     """Every queue op, flushed as one batch, gives the direct results."""
     words, _, trs, masks = setup
     digs = _digests(words)
     digs[2, 1, 0] ^= 1
-    q = DispatchQueue(device="cpu", max_delay=0.5)
+    # each lane flushes a bucket when its B-th item arrives, never on a
+    # timer: the coalescing does not depend on the host's load
+    monkeypatch.setattr(dispatch, "INTERACTIVE_DELAY_S", 3600.0)
+    q = DispatchQueue(device="cpu", max_batch=B, max_delay=3600.0,
+                      interactive_batch=B)
     try:
         futs = {
             "encode": [q.encode(trs, words[b]) for b in range(B)],
@@ -154,7 +159,8 @@ def test_dispatch_ops_match_direct_calls(setup):
 
 def test_dispatch_coalesces_concurrent_threads(setup):
     words, _, trs, _ = setup
-    q = DispatchQueue(device="cpu", max_delay=0.5)
+    # the bucket flushes when the 12th item arrives, never on a timer
+    q = DispatchQueue(device="cpu", max_batch=12, max_delay=3600.0)
     out = [None] * 12
     barrier = threading.Barrier(12)
 

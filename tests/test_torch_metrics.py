@@ -345,7 +345,7 @@ def test_timeline_device_top_qos_and_info(scrapes):
 
 
 @pytest.mark.parametrize("op", ["list-users", "fault", "get-config",
-                                "service", "profile", "kms/status"])
+                                "top/locks", "profile", "slo"])
 def test_unported_admin_ops_answer_not_implemented(scrapes, op):
     r = _admin(scrapes["client"], op)
     assert r.status_code == 501

@@ -38,6 +38,7 @@ import requests
 import torch
 
 from minio_tpu.bucket import metadata as jmeta
+from minio_tpu.crypto import kms as jkms
 from minio_tpu.objectlayer import ErasureObjects as JObjects
 from minio_tpu.objectlayer import multipart as jmp
 from minio_tpu.server import S3Server as JServer
@@ -46,6 +47,7 @@ from minio_tpu.server.auth import (EMPTY_SHA256, UNSIGNED_PAYLOAD,
                                    presign_v4, signing_key, string_to_sign)
 from minio_tpu.storage import XLStorage as JXLStorage
 from minio_tpu_torch.bucket import metadata as pmeta
+from minio_tpu_torch.crypto import kms as pkms
 from minio_tpu_torch.objectlayer import ErasureObjects
 from minio_tpu_torch.objectlayer import multipart as pmp
 from minio_tpu_torch.server import S3Server
@@ -104,9 +106,11 @@ class Keys:
 def pinned(monkeypatch):
     """Pin the ids and times both packages persist (see
     test_torch_objectlayer.Pin), the bucket records' creation time, and
-    the SSE-C object keys; the JAX server writes ChaCha20-Poly1305 SSE
-    objects (the port's package cipher) and runs Select without its scan
-    lane; a non-final multipart part may be 64 KiB here."""
+    the SSE object keys, IVs and KMS data keys; both servers write
+    ChaCha20-Poly1305 SSE objects (the port's default package cipher)
+    unless a test sets ``MINIO_TPU_SSE_CIPHER`` again, and resolve their
+    KMS afresh from the root secret; the JAX server runs Select without
+    its scan lane; a non-final multipart part may be 64 KiB here."""
     pin = Pin(monkeypatch)
     for mod in (jmeta, pmeta):
         cls = dataclasses.make_dataclass(
@@ -121,6 +125,10 @@ def pinned(monkeypatch):
         monkeypatch.setattr(mod, "MIN_PART_SIZE", 64 << 10)
     monkeypatch.setenv("MINIO_TPU_SSE_CIPHER", "chacha20-poly1305")
     monkeypatch.setenv("MINIO_TPU_SCAN", "off")
+    for var in [v for v in os.environ if v.startswith("MINIO_TPU_KMS_")]:
+        monkeypatch.delenv(var)
+    for mod in (jkms, pkms):
+        monkeypatch.setattr(mod, "_kms", None)
     orig = pin.reset
 
     def reset():
@@ -560,11 +568,15 @@ def sse_select_script(s: Server):
 
 
 def quota_script(s: Server):
-    """The hard quota: set on the bucket record directly (the admin API
-    that sets it is not ported), checked against the usage snapshot."""
+    """The hard quota: set and read back through the admin ops, checked
+    against the usage snapshot."""
     c = s.cl
     c.put_bucket("q")
-    s.srv.bucket_meta.update("q", quota=1500)
+    yield "set quota", c.request(
+        "PUT", "/minio/admin/v3/set-bucket-quota", query={"bucket": "q"},
+        body=b'{"quota": 1500}')
+    yield "get quota", c.request("GET", "/minio/admin/v3/get-bucket-quota",
+                                 query={"bucket": "q"})
     yield "put under quota", c.put_object("q", "a", b"x" * 1000)
     yield "put over quota", c.put_object("q", "b", b"x" * 2000)
     r = c.request("POST", "/q/mp", query={"uploads": ""})
@@ -575,13 +587,112 @@ def quota_script(s: Server):
     c.request("DELETE", "/q/mp", query={"uploadId": uid})
 
 
+def _kms_of(s: Server):
+    return pkms if s.pkg == "port" else jkms
+
+
+def _dead_endpoint() -> str:
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        return f"http://127.0.0.1:{sk.getsockname()[1]}"
+
+
+KMS_CTX = base64.b64encode(b'{"tenant": "t1", "app": ["a", 2]}').decode()
+SSE_S3 = {"x-amz-server-side-encryption": "AES256"}
+SSE_KMS = {"x-amz-server-side-encryption": "aws:kms"}
+SSE_KMS_KEY = {**SSE_KMS,
+               "x-amz-server-side-encryption-aws-kms-key-id": "tenant-key",
+               "x-amz-server-side-encryption-context": KMS_CTX}
+
+
+def sse_kms_script(s: Server):
+    """SSE-S3 and SSE-KMS under the process KMS (a LocalKMS derived from
+    the root secret): PUT, GET, ranged GET, HEAD and Select, what is not
+    wired in either package, a rotated master key (403) and a KMS outage
+    (503), and the admin KMS ops."""
+    c = s.cl
+    kms = _kms_of(s)
+    c.put_bucket("kms")
+    plain = body(70_000, 4)
+    yield "s3 put", c.put_object("kms", "s3", plain, headers=SSE_S3)
+    yield "s3 put short", c.put_object("kms", "s3-short", b"tiny",
+                                       headers=SSE_S3)
+    yield "kms put default key", c.put_object("kms", "k", plain,
+                                              headers=SSE_KMS)
+    yield "kms put key and context", c.put_object("kms", "kc", plain,
+                                                  headers=SSE_KMS_KEY)
+    yield "kms put bad context", c.put_object(
+        "kms", "bad", b"abc", headers={
+            **SSE_KMS, "x-amz-server-side-encryption-context": "e30"})
+    yield "kms put context not an object", c.put_object(
+        "kms", "bad", b"abc", headers={
+            **SSE_KMS, "x-amz-server-side-encryption-context":
+                base64.b64encode(b"[1]").decode()})
+    for key in ("s3", "s3-short", "k", "kc"):
+        yield f"get {key}", c.get_object("kms", key)
+        yield f"head {key}", c.head_object("kms", key)
+    for rng in ("bytes=65530-70000", "bytes=-7", "bytes=0-0"):
+        yield f"s3 range {rng}", c.get_object("kms", "s3",
+                                              headers={"Range": rng})
+        yield f"kms range {rng}", c.get_object("kms", "kc",
+                                               headers={"Range": rng})
+    yield "s3 get with sse-c headers", c.get_object("kms", "s3",
+                                                    headers=SSE)
+    yield "s3 copy refused", c.request(
+        "PUT", "/kms/copy", headers={"x-amz-copy-source": "/kms/s3"})
+    yield "kms multipart refused", c.request(
+        "POST", "/kms/mp", query={"uploads": ""}, headers=SSE_KMS)
+    yield "list", c.request("GET", "/kms", query={"list-type": "2"})
+    c.put_bucket("sel")
+    yield "put csv s3", c.put_object("sel", "e.csv", CSV, headers=SSE_S3)
+    yield "put csv kms", c.put_object("sel", "k.csv", CSV,
+                                      headers=SSE_KMS_KEY)
+    for key in ("e.csv", "k.csv"):
+        yield f"select {key}", c.request(
+            "POST", f"/sel/{key}", query={"select": "", "select-type": "2"},
+            body=SELECT)
+    # a second master key: every S3/KMS read is a key mismatch
+    kms.set_kms(kms.LocalKMS(hashlib.sha256(b"another master").digest()))
+    yield "s3 get other master", c.get_object("kms", "s3")
+    yield "kms head other master", c.head_object("kms", "kc")
+    # the KMS unreachable: reads and writes answer 503
+    kms.set_kms(kms.KESClient([DEAD_KES], "k"))
+    yield "kms get outage", c.get_object("kms", "kc")
+    yield "s3 put outage", c.put_object("kms", "o2", b"x", headers=SSE_S3)
+    yield "kms put outage", c.put_object("kms", "o3", b"x",
+                                         headers=SSE_KMS)
+    kms.set_kms(None)
+    yield "s3 get after", c.get_object("kms", "s3")
+    admin = "/minio/admin/v3/"
+    yield "kms status", c.request("GET", admin + "kms/status")
+    yield "kms key create", c.request("POST", admin + "kms/key/create",
+                                      query={"key-id": "new-key"})
+    yield "kms key create no id", c.request("POST",
+                                            admin + "kms/key/create")
+    yield "kms key status default", c.request("GET",
+                                              admin + "kms/key/status")
+    yield "kms key status named", c.request(
+        "GET", admin + "kms/key/status", query={"key-id": "tenant-key"})
+
+
+#: the module's dead KES endpoint (one port for both servers, so their
+#: outage messages agree)
+DEAD_KES = _dead_endpoint()
+
 SCRIPTS = {"buckets": buckets_script, "objects": objects_script,
            "versioning_multipart": versioning_multipart_script,
-           "sse_select": sse_select_script, "quota": quota_script}
+           "sse_select": sse_select_script, "quota": quota_script,
+           "sse_kms_aes_gcm": sse_kms_script,
+           "sse_kms_chacha20": sse_kms_script}
+#: the package cipher a script's servers write (MINIO_TPU_SSE_CIPHER)
+SCRIPT_CIPHER = {"sse_kms_aes_gcm": "aes-gcm"}
 
 
 @pytest.mark.parametrize("script", list(SCRIPTS))
-def test_same_requests_same_responses_and_trees(tmp_path, pinned, script):
+def test_same_requests_same_responses_and_trees(tmp_path, pinned, script,
+                                                monkeypatch):
+    monkeypatch.setenv("MINIO_TPU_SSE_CIPHER",
+                       SCRIPT_CIPHER.get(script, "chacha20-poly1305"))
     out = run_both(pinned, tmp_path, SCRIPTS[script])
     assert_same(out, tmp_path)
     statuses = {label: resp[0] for label, resp in out["port"]}
@@ -595,6 +706,25 @@ def test_same_requests_same_responses_and_trees(tmp_path, pinned, script):
     if script == "sse_select":
         assert statuses["select"] == statuses["select sse"] == 200
         assert statuses["sse get wrong key"] == 403
+    if script.startswith("sse_kms"):
+        replies = dict(out["port"])
+        for key in ("s3", "s3-short", "k", "kc"):
+            assert statuses[f"get {key}"] == statuses[f"head {key}"] == 200
+        assert replies["get kc"][2] == body(70_000, 4)
+        assert statuses["s3 range bytes=65530-70000"] == 206
+        assert statuses["select e.csv"] == statuses["select k.csv"] == 200
+        assert statuses["kms put bad context"] == 400
+        assert statuses["s3 get other master"] == 403
+        assert statuses["kms get outage"] == statuses["kms put outage"] == 503
+        assert b"<Code>ServiceUnavailable</Code>" in \
+            replies["kms get outage"][2]
+        assert statuses["kms status"] == statuses["kms key create"] == 200
+        assert b'"encryption-err": ""' in replies["kms key status named"][2]
+        want = "AES256-GCM" if script == "sse_kms_aes_gcm" else \
+            "CHACHA20-POLY1305"
+        metas = [f for f in tree(tmp_path / "port") if f.endswith("xl.meta")]
+        assert metas and all(want.encode() in tree(tmp_path / "port")[f]
+                             for f in metas if "/kms/" in f)
 
 
 def test_each_server_serves_the_others_tree(tmp_path, pinned):
@@ -647,6 +777,98 @@ def test_each_server_serves_the_others_tree(tmp_path, pinned):
     assert replies["port"] == replies["jax"]
 
 
+def test_each_server_reads_the_others_default_cipher_sse(tmp_path, pinned,
+                                                         monkeypatch):
+    """The JAX server with no ``MINIO_TPU_SSE_CIPHER`` (so AES-256-GCM, the
+    ``cryptography`` wheel being here) writes SSE-C, SSE-S3 and SSE-KMS
+    objects; the port, told ``aes-gcm``, writes the same. The trees are
+    byte-identical, and each server reads the other's objects with the
+    writer's own status, headers and plaintext."""
+    plain = body(70_000, 5)
+    objects = {"c": SSE, "s3": SSE_S3, "kms": SSE_KMS_KEY}
+
+    def reads(c):
+        for key, hdr in objects.items():
+            get_hdr = SSE if hdr is SSE else {}
+            yield f"get {key}", c.get_object("b", key, headers=get_hdr)
+            yield f"head {key}", c.head_object("b", key, headers=get_hdr)
+            yield f"range {key}", c.get_object(
+                "b", key, headers={**get_hdr, "Range": "bytes=65000-66000"})
+
+    def write(s: Server):
+        if s.pkg == "jax":
+            monkeypatch.delenv("MINIO_TPU_SSE_CIPHER", raising=False)
+        else:
+            monkeypatch.setenv("MINIO_TPU_SSE_CIPHER", "aes-gcm")
+        c = s.cl
+        c.put_bucket("b")
+        for key, hdr in objects.items():
+            yield f"put {key}", c.put_object("b", key, plain, headers=hdr)
+        yield from reads(c)
+
+    out = run_both(pinned, tmp_path, write)
+    assert_same(out, tmp_path)
+    metas = [f for f, b in tree(tmp_path / "jax").items()
+             if f.endswith("xl.meta") and "/b/" in f]
+    assert metas and all(b"AES256-GCM" in tree(tmp_path / "jax")[f]
+                         for f in metas)
+    own = dict(out["jax"])
+    assert own["get kms"][2] == plain and own["range c"][0] == 206
+    for reader, writer in (("port", "jax"), ("jax", "port")):
+        s = Server(reader, tmp_path / writer)
+        try:
+            got = [(label, norm(r)) for label, r in reads(s.cl)]
+        finally:
+            s.close()
+        for label, resp in got:
+            assert resp == own[label], (reader, writer, label)
+
+
+def test_admin_durability_and_service_ops_match_jax(tmp_path, monkeypatch):
+    """``durability`` answers the JAX server's JSON (its counters and the
+    flusher's totals are each package's own process totals, which other
+    tests in the process move: their names are compared, not values);
+    ``service`` acknowledges, then calls the server's hook with the
+    action; the CLI's hook re-executes the same command line or exits."""
+    got = {}
+    for pkg in ("jax", "port"):
+        s = Server(pkg, tmp_path / pkg)
+        calls = []
+        s.srv.on_service_signal = calls.append
+        try:
+            c = s.cl
+            replies = [norm(c.request("POST", "/minio/admin/v3/service",
+                                      query={"action": a}))
+                       for a in ("restart", "stop", "bogus")]
+            dur = c.request("GET", "/minio/admin/v3/durability")
+            deadline = time.monotonic() + 10
+            while len(calls) < 2 and time.monotonic() < deadline:
+                time.sleep(0.05)
+        finally:
+            s.close()
+        doc = dur.json()
+        assert all(k.startswith("minio_tpu_durability_")
+                   for k in doc.pop("counters"))
+        totals = {k: doc.pop(k) for k in ("pending", "flushed_total")}
+        assert all(isinstance(v, int) and v >= 0 for v in totals.values())
+        got[pkg] = (replies, dur.status_code, doc, sorted(calls))
+    assert got["port"] == got["jax"]
+    assert got["port"][3] == ["restart", "stop"]
+    assert [r[0] for r in got["port"][0]] == [200, 200, 400]
+    from minio_tpu_torch.server import __main__ as cli
+    seen = []
+    monkeypatch.setattr(cli.os, "execv", lambda *a: seen.append(a))
+    monkeypatch.setattr(cli.os, "_exit", lambda code: seen.append(code))
+    srv = type("Srv", (), {})()
+    cli.install_service_hook(srv, ["--device", "cpu", "/d{1...4}"])
+    srv.on_service_signal("restart")
+    srv.on_service_signal("stop")
+    assert seen[0] == (sys.executable, [sys.executable, "-m",
+                                        "minio_tpu_torch.server",
+                                        "--device", "cpu", "/d{1...4}"])
+    assert seen[-1] == 0
+
+
 def test_unported_planes_answer_not_implemented(tmp_path):
     """What the port does not have answers S3's 501 NotImplemented in the
     error XML shape; a compressed or tiered object written by the JAX
@@ -668,8 +890,7 @@ def test_unported_planes_answer_not_implemented(tmp_path):
             ("GET", "/minio/admin/v3/list-users", {}, {}),
             ("GET", "/minio/admin/v3/get-config", {}, {}),
             ("POST", "/minio/webrpc", {}, {}),
-            ("PUT", "/b/s3", {}, {"x-amz-server-side-encryption":
-                                  "AES256"}),
+            ("GET", "/b", {"encryption": ""}, {}),
             ("PUT", "/lockb", {}, {"x-amz-bucket-object-lock-enabled":
                                    "true"}),
         ]

@@ -295,23 +295,53 @@ def test_header_errors_match_jax(hdr):
 
 
 def test_unported_schemes_and_cipher_raise():
-    for value in ("AES256", "aws:kms"):
-        with pytest.raises(NotImplementedError, match="KMS"):
-            sse.parse_sse_headers({"x-amz-server-side-encryption": value},
-                                  "b", "o")
-    with pytest.raises(NotImplementedError, match="cryptography"):
-        sse.EncryptReader(io.BytesIO(b""), OEK, IV, sse.CIPHER_AESGCM,
-                          device="cpu")
-    assert sse.cipher_of({}) == sse.CIPHER_AESGCM
+    """The schemes and the cipher this test once found unported: the
+    SSE-S3 and SSE-KMS headers parse as the JAX package parses them (a
+    malformed KMS context raises its error), the AES-256-GCM package
+    stream is the JAX package's bytes, and an untagged object is still
+    AES-GCM. An unknown cipher name raises in both."""
+    ctx = base64.b64encode(b'{"b": 2, "a": [1]}').decode()
+    for hdr in ({"x-amz-server-side-encryption": "AES256"},
+                {"x-amz-server-side-encryption": "aws:kms"},
+                {"x-amz-server-side-encryption": "aws:kms",
+                 "x-amz-server-side-encryption-aws-kms-key-id": "k1",
+                 "x-amz-server-side-encryption-context": ctx}):
+        got = sse.parse_sse_headers(hdr, "b", "o")
+        want = jsse.parse_sse_headers(hdr, "b", "o")
+        assert (got.scheme, got.key, got.key_md5, got.kms_key_id,
+                got.kms_context) == (want.scheme, want.key, want.key_md5,
+                                     want.kms_key_id, want.kms_context)
+    assert got.kms_context == '{"a":[1],"b":2}'
+    for bad in ("not b64!", base64.b64encode(b"[1, 2]").decode(),
+                base64.b64encode(b"{oops").decode()):
+        hdr = {"x-amz-server-side-encryption": "aws:kms",
+               "x-amz-server-side-encryption-context": bad}
+        with pytest.raises(dt.ObjectAPIError) as want:
+            jsse.parse_sse_headers(hdr, "b", "o")
+        with pytest.raises(errors.InvalidSSEContext) as got:
+            sse.parse_sse_headers(hdr, "b", "o")
+        assert (got.value.code, got.value.http_status) == \
+            (want.value.code, want.value.http_status)
+    plain = plain_of(PKG + 9, 5)
+    assert sse.EncryptReader(io.BytesIO(plain), OEK, IV, sse.CIPHER_AESGCM,
+                             device="cpu").read() == \
+        jsse.EncryptReader(io.BytesIO(plain), OEK, IV,
+                           jsse.CIPHER_AESGCM).read()
+    assert sse.cipher_of({}) == jsse.cipher_of({}) == sse.CIPHER_AESGCM
+    with pytest.raises(ValueError, match="unknown SSE package cipher"):
+        sse.package_cipher("ROT13", OEK, IV, device="cpu")
     for a, b in ((errors.SSEEncryptedObject, dt.SSEEncryptedObject),
-                 (errors.SSEDecryptError, dt.SSEDecryptError)):
+                 (errors.SSEDecryptError, dt.SSEDecryptError),
+                 (errors.InvalidSSEContext, dt.InvalidSSEContext),
+                 (errors.KMSNotAvailable, dt.KMSNotAvailable)):
         assert (a.code, a.http_status) == (b.code, b.http_status)
 
 
 def test_sse_xor_op_batches_objects_under_their_own_keys():
     """Three objects' packages, each under its own key, share one flush;
     each result is its own copy; shared nonce words are enforced."""
-    q = DispatchQueue(device="cpu", max_delay=0.5)
+    # the bucket flushes when the third item arrives, never on a timer
+    q = DispatchQueue(device="cpu", max_batch=3, max_delay=3600.0)
     rng = np.random.default_rng(6)
     items = []
     for j in range(3):
