@@ -139,9 +139,21 @@ Phases, each printing one JSON line:
    with max_requests=4 and MINIO_TPU_QOS_MAX_WAIT_MS=20, every object
    stored exact; and the object layer's PUT and GET of the 64 with every
    plane off and on (MINIO_TPU_TIMELINE, MINIO_TPU_DEVICE_OBS,
-   MINIO_TPU_TRACE_SPANS): a discarded warm-up turn, then one block of
-   off, on, on, off, with its on/off ratio and each setting's spread. K1,
-   K2 and K5 must launch.
+   MINIO_TPU_TRACE_SPANS, MINIO_TPU_PROFILER): a discarded warm-up turn,
+   then one block of off, on, on, off, with its on/off ratio and each
+   setting's spread. The config, profiler, lock and SLO planes: first
+   the config registry over admin (set-config-kv of the interactive
+   budget and profiler.hz, read back with source "stored", the history
+   listed and its oldest snapshot restored, the defaults back); each
+   load's window of the always-on
+   profiler (``profile_window``: role, subsystem, class and op shares,
+   observed over nominal pass rate, the sampler's cost, the dispatcher
+   threads' top leaf frames); after the burst, the port's lockrank
+   installed, a second server over the same drives and one PUT and GET
+   load of the 64 through it, with the contended lock sites, the
+   lock-wait share and any cycle or held-across-flush report; last, the
+   admin slo, health, healthinfo and profile bodies. K1, K2 and K5 must
+   launch.
 11. background path — the background heal plane over the S3 server
    (S3Server over one pool of two 16+4 sets, 40 disk directories, 1 MiB
    blocks, HighwayHash256S, start_background_services(): the MRF, the data
@@ -3286,9 +3298,13 @@ OBS_WARMUP = "on"
 OBS_TURNS = ("off", "on", "on", "off")
 #: the admin plane's torch.profiler session over a GET load, seconds
 OBS_TRACE_S = 3.0
-#: each plane's own switch, set to 0 for an "off" turn
+#: each plane's own switch, set to 0 for an "off" turn (the sampling
+#: profiler's among them)
 OBS_SWITCHES = ("MINIO_TPU_TIMELINE", "MINIO_TPU_DEVICE_OBS",
-                "MINIO_TPU_TRACE_SPANS")
+                "MINIO_TPU_TRACE_SPANS", "MINIO_TPU_PROFILER")
+#: the config round trip over admin: the keys set, and their values
+OBS_CONFIG = {("qos", "interactive_budget_ms"): "150",
+              ("profiler", "hz"): "23"}
 #: families the obs path's scrape must hold: kernel, lane, dispatch,
 #: device_obs and qos groups
 OBS_FAMILIES = ("minio_tpu_kernel_op_latency_seconds",
@@ -3298,7 +3314,12 @@ OBS_FAMILIES = ("minio_tpu_kernel_op_latency_seconds",
                 "minio_tpu_device_obs_enabled", "minio_tpu_device_hbm_used",
                 "minio_tpu_qos_admission_inflight",
                 "minio_tpu_qos_class_latency_seconds",
-                "minio_tpu_stage_share_of_wall")
+                "minio_tpu_stage_share_of_wall",
+                "minio_tpu_profiler_samples_total",
+                "minio_tpu_profiler_overhead_ratio",
+                "minio_tpu_profiler_role_samples_total",
+                "minio_tpu_slo_burn_rate", "minio_tpu_slo_requests_total",
+                "minio_tpu_workloads_sse_cipher")
 #: and, on the card, the device plane's CUDA-event families
 OBS_CARD_FAMILIES = ("minio_tpu_device_obs_stream_occupancy_ratio",
                      "minio_tpu_device_seconds_total",
@@ -3340,6 +3361,199 @@ def lint_exposition(text: str) -> dict:
     return {f: t for f, (_, t) in types.items()}
 
 
+def _admin_json(client, op: str, method: str = "GET", **query):
+    """One admin op over the signing client; its JSON body."""
+    import json as _json
+    st, _h, data = client.request(method, f"/minio/admin/v3/{op}",
+                                  query=query or None)
+    check(st == 200, f"admin {op}: HTTP {st}, {data[:300]!r}")
+    return _json.loads(data) if data else None
+
+
+def obs_config(client) -> dict:
+    """The config registry over admin: OBS_CONFIG set and read back with
+    source "stored", the history listed, its oldest snapshot restored, and
+    the defaults back; the profiler's rate follows both changes at once."""
+    from minio_tpu_torch.obs import profiler
+    t0 = time.monotonic()
+    before = _admin_json(client, "get-config")
+    for (sub, key), value in OBS_CONFIG.items():
+        check(before[sub][key]["source"] == "default",
+              f"{sub}.{key} is not at its default: {before[sub][key]}")
+        _admin_json(client, "set-config-kv", "PUT", subsys=sub, key=key,
+                    value=value)
+    hz_set = profiler.base_hz()
+    after = _admin_json(client, "get-config")
+    for (sub, key), value in OBS_CONFIG.items():
+        check(after[sub][key] == {**before[sub][key], "value": value,
+                                  "source": "stored"},
+              f"{sub}.{key} read back {after[sub][key]}")
+    hist = _admin_json(client, "list-config-history")
+    check(len(hist) == len(OBS_CONFIG), f"history {hist}")
+    _admin_json(client, "restore-config-history", "PUT",
+                restoreId=hist[-1]["restore_id"])
+    restored = _admin_json(client, "get-config")
+    check(restored == before, "the restore did not bring the defaults back")
+    check(hz_set == float(OBS_CONFIG[("profiler", "hz")]) and
+          profiler.base_hz() == profiler.DEFAULT_HZ,
+          f"profiler.hz followed as {hz_set}, {profiler.base_hz()}")
+    return {"set": {f"{sub}.{key}": v for (sub, key), v in
+                    OBS_CONFIG.items()},
+            "read_back": {f"{sub}.{key}": after[sub][key]
+                          for sub, key in OBS_CONFIG},
+            "history": [h["cause"] for h in hist],
+            "restored": hist[-1]["restore_id"],
+            "profiler_hz_set_then_restored": [hz_set, profiler.base_hz()],
+            "history_after_restore": len(
+                _admin_json(client, "list-config-history")),
+            "wall_s": time.monotonic() - t0}
+
+
+def profile_window(before: dict, sample_s0: float) -> dict:
+    """The always-on profiler over one load, from ``before`` (an
+    ``agg_snapshot(full=True)``) and the sampler's own seconds then:
+    delta_report's role, subsystem, class and op shares, the observed pass
+    rate beside the nominal one, the sampler's cost over the window and
+    since it started, the lock-wait share and sites, the top leaf frames,
+    and the dispatcher threads' top leaf frames."""
+    import collections
+    from minio_tpu_torch.obs import profiler
+    rep = profiler.delta_report(before, n=8)
+    after = profiler.agg_snapshot(full=True)
+    spent = profiler._sampler.sample_seconds - sample_s0
+    leaves: collections.Counter = collections.Counter()
+    for stack, n in (after["stacks"] - before["stacks"]).items():
+        if stack.startswith("role:dispatcher;"):
+            leaves[stack.removesuffix(";[lockwait]").rsplit(";", 1)[-1]] \
+                += n
+    n_disp = sum(leaves.values())
+    nominal = profiler.base_hz()
+    return {
+        "samples": rep["samples"], "duration_s": rep["duration_s"],
+        "observed_hz": rep["sample_hz"], "nominal_hz": nominal,
+        "observed_over_nominal": rep["sample_hz"] / nominal,
+        "window_overhead_ratio": spent / rep["duration_s"],
+        "overhead_ratio": profiler.status()["overhead_ratio"],
+        "drops": rep["drops"], "roles": rep["roles"],
+        "subsystems": rep["subsystems"], "classes": rep["classes"],
+        "ops": rep["ops"], "lockwait_share": rep["lockwait_share"],
+        "lock_contention": rep["lock_contention"],
+        "top_frames": {f["frame"]: f["share"] for f in rep["top_frames"]},
+        "dispatcher_samples": n_disp,
+        "dispatcher_top_leaves": {leaf: round(n / n_disp, 4) for leaf, n in
+                                  leaves.most_common(8)} if n_disp else {}}
+
+
+def obs_lockrank(device, disk_dirs: list, dep: str, bodies: dict) -> dict:
+    """The port's lockrank installed, a second ServerPools and S3Server
+    built over the same drives (so their locks are created tracked), and
+    one PUT and GET load of every object through it from S3_THREADS
+    clients; the contended sites, the lock-wait shares and any cycle or
+    held-across-flush report are the result (a report is a finding, not a
+    failure). Uninstalled after."""
+    from minio_tpu_torch.objectlayer import ErasureSets, ServerPools
+    from minio_tpu_torch.obs import lockrank, profiler
+    from minio_tpu_torch.server import S3Server
+    from minio_tpu_torch.storage.xlstorage import XLStorage
+    names = sorted(bodies)
+    os.environ["MINIO_TPU_LOCKRANK"] = "1"
+    lockrank.clear()
+    check(lockrank.install(), "the port's lockrank did not install")
+    out: dict = {}
+    try:
+        sets = ErasureSets([XLStorage(d) for d in disk_dirs], OL_SETS, K + M,
+                           dep, default_parity=M, block_size=BLOCK,
+                           device=device)
+        srv = S3Server(ServerPools([sets]), "127.0.0.1", 0,
+                       access_key=S3_ACCESS_KEY, secret_key=S3_SECRET_KEY,
+                       region=S3_REGION, device=device)
+        srv.start_background()
+        # the factory wrapped the new server's locks (else the segment
+        # would measure nothing)
+        check(isinstance(srv.qos_admission._lock, lockrank.TrackedLock),
+              "the second server's locks are not tracked")
+        client = _S3Client(srv.port)
+        check(client.request("PUT", "/locks")[0] == 200, "PUT bucket locks")
+
+        def put(name):
+            st, _h, data = client.request("PUT", f"/locks/{name}",
+                                          body=bodies[name])
+            check(st == 200, f"lockrank PUT {name}: {st} {data[:200]!r}")
+
+        def get(name):
+            st, _h, data = client.request("GET", f"/locks/{name}")
+            check(st == 200 and data == bodies[name],
+                  f"lockrank GET {name}: {st}")
+
+        for label, fn in (("put", put), ("get", get)):
+            before = profiler.agg_snapshot(full=True)
+            s0 = profiler._sampler.sample_seconds
+            t0 = time.monotonic()
+            with ThreadPoolExecutor(max_workers=S3_THREADS) as ex:
+                list(ex.map(fn, names))
+            out[label] = {"wall_s": time.monotonic() - t0,
+                          **profile_window(before, s0)}
+        client.close()
+        srv.shutdown()
+    finally:
+        lockrank.uninstall()
+        del os.environ["MINIO_TPU_LOCKRANK"]
+    reps = lockrank.reports()
+    out["graph"] = lockrank.stats()
+    out["contended_sites"] = dict(sorted(
+        lockrank.contended_sites().items(), key=lambda kv: -kv[1])[:16])
+    out["lock_wait_top"] = profiler.lock_report(12)
+    out["reports"] = [{k: r[k] for k in ("kind", "locks", "cycle", "what",
+                                         "lock_sites", "thread") if k in r}
+                      for r in reps[:16]]
+    out["report_stacks"] = [r.get("stack") or [e["stack"] for e in
+                                               r.get("edges", ())]
+                            for r in reps[:4]]
+    out["report_counts"] = {kind: sum(r["kind"] == kind for r in reps)
+                            for kind in ("lock-order-cycle",
+                                         "lock-held-across-blocking")}
+    return out
+
+
+def obs_slo_health(client, n_disks: int, card: str, device) -> dict:
+    """The SLO plane, the health snapshot and the OBD report over admin."""
+    slo = _admin_json(client, "slo")
+    health = _admin_json(client, "health")
+    info = _admin_json(client, "healthinfo")
+    top = _admin_json(client, "profile")
+    check(set(slo["classes"]) == {"interactive", "control", "background"},
+          f"slo classes {sorted(slo['classes'])}")
+    check(health["cluster"]["disks_total"] == n_disks and
+          health["cluster"]["disks_faulty"] == 0,
+          f"health {health['cluster']}")
+    check(len(info["drives"]) == n_disks and "dispatch" in info,
+          f"healthinfo drives {len(info['drives'])}, {sorted(info)}")
+    if device.type == "cuda":
+        check(info["dispatch"]["card"] == card.split(",")[0],
+              f"healthinfo card {info['dispatch'].get('card')!r}")
+    keep = ("requests", "errors", "slow", "availability", "latency_ok_ratio",
+            "availability_burn", "latency_burn", "p50_s", "p99_s")
+    node = health["nodes"][0]
+    return {
+        "slo": {cls: {"objective": ent["objective"],
+                      "windows": {w: {k: v[k] for k in keep}
+                                  for w, v in ent["windows"].items()},
+                      "breach": ent["breach"],
+                      "breach_profile": ent["breach_profile"]}
+                for cls, ent in slo["classes"].items()},
+        "health": {"cluster": health["cluster"],
+                   "admission": node["qos"]["admission"],
+                   "heal": node["heal"], "lanes": node["lanes"]},
+        "healthinfo": {"keys": sorted(info), "drives": len(info["drives"]),
+                       "write_256k_ms_max": max(
+                           d.get("write_256k_ms", 0) for d in info["drives"]),
+                       "card": info["dispatch"].get("card"),
+                       "process": info["process"]},
+        "profile_top": {k: top[k] for k in ("samples", "duration_s",
+                                            "sample_hz", "roles",
+                                            "subsystems", "lockwait_share")}}
+
+
 def phase_obs(device, n_objects: int, obj_bytes: int, card: str,
               seed: int) -> dict:
     """The observability plane over the S3 server (module docstring, step
@@ -3355,7 +3569,7 @@ def phase_obs(device, n_objects: int, obj_bytes: int, card: str,
     from minio_tpu_torch.erasure.streaming import PreallocSink
     from minio_tpu_torch.objectlayer import ErasureSets, ServerPools
     from minio_tpu_torch.obs import attribution, device as dev_obs
-    from minio_tpu_torch.obs import timeline
+    from minio_tpu_torch.obs import profiler, timeline
     from minio_tpu_torch.runtime.dispatch import global_queue
     from minio_tpu_torch.server import S3Server
     from minio_tpu_torch.storage.xlstorage import XLStorage
@@ -3371,11 +3585,20 @@ def phase_obs(device, n_objects: int, obj_bytes: int, card: str,
                        dep, default_parity=M, block_size=BLOCK,
                        device=device)
     pool = ServerPools([sets])
+    # the config registry is process-global and keeps the object layer
+    # the first server attached (the S3 server path's, whose drives are
+    # gone): detached, it takes this path's server's layer, as in a fresh
+    # process, and keeps its subscribers
+    from minio_tpu_torch.config import get_config_sys
+    get_config_sys().obj = None
     srv = S3Server(pool, "127.0.0.1", 0, access_key=S3_ACCESS_KEY,
                    secret_key=S3_SECRET_KEY, region=S3_REGION, device=device)
     srv.start_background()
     srv.start_background_services()
     mrf = srv.mrf
+    # the sampler runs since the first server: a fresh base aggregate
+    # (its distinct-stack cap unspent) for this path's windows
+    profiler.reset()
     partial: dict = {}
     for layer in srv._erasure_layers():
         add = layer.on_partial
@@ -3398,12 +3621,15 @@ def phase_obs(device, n_objects: int, obj_bytes: int, card: str,
         _reset(q)
         client.latencies.clear()
         before = read_launches()
+        prof0 = profiler.agg_snapshot(full=True)
+        spent0 = profiler._sampler.sample_seconds
         with _HashClocks() as hashes:
             t0 = time.monotonic()
             with ThreadPoolExecutor(max_workers=threads) as ex:
                 res = list(ex.map(fn, jobs))
             wall = time.monotonic() - t0
         row = _phase_row(q, nbytes, wall, hashes)
+        row["profiler"] = profile_window(prof0, spent0)
         after = read_launches()
         row["launches"] = {k: after[k] - before.get(k, 0) for k in after}
         lat = list(client.latencies)
@@ -3437,6 +3663,8 @@ def phase_obs(device, n_objects: int, obj_bytes: int, card: str,
         return st
 
     reset_launches()
+    # 0. the config registry over admin (every load below on defaults)
+    result["config"] = obs_config(client)
     ok(client.request("PUT", f"/{bucket}")[0], 200, "PUT bucket")
     timeline.configure()
     attribution.reset()
@@ -3664,6 +3892,10 @@ def phase_obs(device, n_objects: int, obj_bytes: int, card: str,
     check(adm["rejected"].get("interactive", 0) > 0,
           "the burst met no SlowDown")
 
+    # 7b. lock order and lock waits under the port's lockrank, through a
+    # second server over the same drives
+    result["lockrank"] = obs_lockrank(device, disk_dirs, dep, bodies)
+
     # 8. the object layer's PUT and GET with every plane off and on, in
     # turns, each plane by its own switch: a warm-up turn after the burst
     # (dropped: the first turn after it is the slowest), then ABBA blocks
@@ -3722,8 +3954,13 @@ def phase_obs(device, n_objects: int, obj_bytes: int, card: str,
                                for w, r in ratios.items()}}
     check(dev_obs.ledger_balanced(), "ledger unbalanced after the turns")
 
+    # 9. the SLO verdicts (the burst's 503s are in the 5 m window), the
+    # health snapshot, the OBD report and the profiler's admin report
+    result.update(obs_slo_health(client, n_disks, card, device))
+
     client.close()
     srv.shutdown()
+    get_config_sys().obj = None
     launches = read_launches()
     result["launches"] = launches
     result["launch_sizes"] = read_launch_sizes()

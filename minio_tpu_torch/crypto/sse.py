@@ -25,8 +25,9 @@ Two package ciphers share that framing, as in the JAX package:
   the interpreter lock released. Its envelope and the KMS's data-key seal
   use the same engine (crypto/aesgcm.py).
 
-The package cipher of NEW objects is ``default_cipher()``, read from
-``MINIO_TPU_SSE_CIPHER``: ``aes-gcm`` (also ``aes``, ``aes256-gcm``),
+The package cipher of NEW objects is ``default_cipher()``, the config
+registry's ``workloads.sse_cipher`` (env ``MINIO_TPU_SSE_CIPHER`` > stored
+> default): ``aes-gcm`` (also ``aes``, ``aes256-gcm``),
 ``chacha20`` (also ``chacha``, ``chacha20-poly1305``) or ``auto``. In the
 port ``auto`` means ChaCha20-Poly1305, whose keystream runs on the card:
 that is the JAX package's rule for a build without the ``cryptography``
@@ -46,7 +47,6 @@ import base64
 import hashlib
 import hmac
 import json
-import os
 import secrets
 import struct
 from concurrent.futures import Future
@@ -84,10 +84,12 @@ META_CIPHER = "x-minio-internal-sse-cipher"  # package cipher; absent = GCM
 
 
 def default_cipher() -> str:
-    """The package cipher for NEW objects, from ``MINIO_TPU_SSE_CIPHER``
-    (the JAX package's ``workloads.sse_cipher``); ``auto`` and anything
-    unknown give ChaCha20-Poly1305 (the module docstring says why)."""
-    v = (os.environ.get("MINIO_TPU_SSE_CIPHER", "") or "auto").lower()
+    """The package cipher for NEW objects, the registry's
+    ``workloads.sse_cipher`` (env MINIO_TPU_SSE_CIPHER > stored > auto);
+    ``auto`` and anything unknown give ChaCha20-Poly1305 (the module
+    docstring says why)."""
+    from ..config import get_config_sys
+    v = (get_config_sys().get("workloads", "sse_cipher") or "auto").lower()
     if v in ("aes-gcm", "aes", "aes256-gcm"):
         return CIPHER_AESGCM
     return CIPHER_CHACHA20

@@ -36,7 +36,7 @@ BITROT_CHUNK_KEY = "x-minio-internal-bitrot-chunk"
 
 #: Default streaming chunk: 16 KiB, so the device hash (parallel across
 #: chunks, sequential within one) gets many chunks per block. Override with
-#: MINIO_TPU_BITROT_CHUNK.
+#: the ``bitrot.chunk`` config key (MINIO_TPU_BITROT_CHUNK).
 DEFAULT_BITROT_CHUNK = 16384
 
 #: The framework-wide bitrot key (the JAX package's value: digests must
@@ -47,15 +47,14 @@ HIGHWAY_KEY = bytes.fromhex(
 
 def pick_bitrot_chunk(shard_size: int, chunk: int | None = None) -> int:
     """Streaming chunk size for a new object with the given erasure shard
-    size: ``chunk`` (default: MINIO_TPU_BITROT_CHUNK or 16 KiB) when it
-    divides the shard, so block reads stay chunk-aligned, else the shard
-    size itself."""
+    size: ``chunk`` (default: the registry's ``bitrot.chunk``, env
+    MINIO_TPU_BITROT_CHUNK > stored > 16 KiB, so a set-config-kv applies to
+    new objects without restart) when it divides the shard, so block reads
+    stay chunk-aligned, else the shard size itself."""
     if chunk is None:
-        try:
-            chunk = int(os.environ.get("MINIO_TPU_BITROT_CHUNK",
-                                       str(DEFAULT_BITROT_CHUNK)))
-        except ValueError:
-            chunk = DEFAULT_BITROT_CHUNK
+        from ..config import get_config_sys
+        chunk = get_config_sys().get_int("bitrot", "chunk",
+                                         DEFAULT_BITROT_CHUNK)
     if chunk > 0 and shard_size % chunk == 0:
         return chunk
     return shard_size

@@ -12,7 +12,9 @@ rewritten for the CUDA card. Four pillars:
   ``compile`` row per library (source and defines), timed, with a
   ``compile`` event on the flight recorder and a ``compile`` charge to
   the armed stage collector; more than ``storm_threshold`` builds inside
-  ``storm_window_s`` count a storm. A K2 build inside a PUT is the trap:
+  ``storm_window_s`` count a storm, which kicks one burst capture of the
+  profiler (``profiler.note_breach("compile_storm")``, cooldown-limited).
+  A K2 build inside a PUT is the trap:
   a set on the card prepares its codecs at construction. The first
   launch of each (op, shape signature) of the dispatch queue is counted
   too, and every launch of it after.
@@ -43,10 +45,14 @@ rewritten for the CUDA card. Four pillars:
   over its window.
 
 Served at ``GET /minio/admin/v3/device`` and as the
-``minio_tpu_device_obs_*`` metric families. Switches (environment only):
+``minio_tpu_device_obs_*`` metric families. Switches (config subsystem
+``device_obs``, env > stored > default): ``enable`` /
 ``MINIO_TPU_DEVICE_OBS`` (0 turns the plane off: no ledger, no event
-pairs, no device time), ``MINIO_TPU_DEVICE_OBS_STORM_THRESHOLD``,
-``MINIO_TPU_DEVICE_OBS_STORM_WINDOW_S``.
+pairs, no device time), ``storm_threshold`` /
+``MINIO_TPU_DEVICE_OBS_STORM_THRESHOLD``, ``storm_window_s`` /
+``MINIO_TPU_DEVICE_OBS_STORM_WINDOW_S``. The calibrated roofline keys of
+the JAX package's table are not read: the port's ceiling is the card's
+memory bound.
 
 Importing this module touches no device: ``torch.cuda`` is read only when
 a CUDA queue reports to it or an operator asks.
@@ -84,23 +90,49 @@ _LANES = ("bulk", "interactive")
 _lock = threading.Lock()
 
 
-def _env_float(env: str, default: float) -> float:
+_apply_registered = False
+
+
+def _register_apply() -> None:
+    """Drop the ``device_obs`` entries of the registry cache on every
+    dynamic change, so a set-config-kv applies on the next read.
+    Idempotent."""
+    global _apply_registered
+    if _apply_registered:
+        return
+    from ..config import get_config_sys
+
+    def _invalidate(_cfg) -> None:
+        from ..qos.budget import _cfg_cache
+        for key in [k for k in list(_cfg_cache) if k[0] == "device_obs"]:
+            _cfg_cache.pop(key, None)
+
+    get_config_sys().on_apply("device_obs", _invalidate)
+    _apply_registered = True
+
+
+def _cfg(key: str, env: str, default: float) -> float:
+    """device_obs.<key> through the config registry (env > stored >
+    default)."""
     from ..qos.budget import _config_float
-    return _config_float(env, default)
+    _register_apply()
+    return _config_float("device_obs", key, env, default)
 
 
 def enabled() -> bool:
-    return _env_float("MINIO_TPU_DEVICE_OBS", 1.0) != 0.0
+    return _cfg("enable", "MINIO_TPU_DEVICE_OBS", 1.0) != 0.0
 
 
 def storm_threshold() -> int:
-    return max(2, int(_env_float("MINIO_TPU_DEVICE_OBS_STORM_THRESHOLD",
-                                 DEFAULT_STORM_THRESHOLD)))
+    return max(2, int(_cfg("storm_threshold",
+                           "MINIO_TPU_DEVICE_OBS_STORM_THRESHOLD",
+                           DEFAULT_STORM_THRESHOLD)))
 
 
 def storm_window_s() -> float:
-    return max(1.0, _env_float("MINIO_TPU_DEVICE_OBS_STORM_WINDOW_S",
-                               DEFAULT_STORM_WINDOW_S))
+    return max(1.0, _cfg("storm_window_s",
+                         "MINIO_TPU_DEVICE_OBS_STORM_WINDOW_S",
+                         DEFAULT_STORM_WINDOW_S))
 
 
 # -- the card ----------------------------------------------------------------
@@ -177,6 +209,8 @@ def note_build(label: str, seconds: float) -> None:
     if stc is not None:
         stc.add("compile", seconds)
     if storm:
+        from . import profiler as _prof
+        _prof.note_breach("compile_storm")
         from . import metrics as mx
         mx.inc("minio_tpu_device_obs_compile_storms_total")
 

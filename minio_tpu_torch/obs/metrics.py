@@ -17,20 +17,25 @@ device (the flight recorder's lanes), usage (the data scanner's snapshot:
 one row per bucket, unfolded, since the port has no bucket analytics to
 fold by), dispatch, disk_latency, kernel, qos (admission and the class
 windows), lane, pipeline, disk_health (the health trackers' states),
-durability (the fsync policy and flusher), device_obs, process and heal
-(the auto-heal trackers and the MRF), plus the stage attribution families
-on ``?attribution=1``. The scanner's counters
+durability (the fsync policy and flusher), workloads (the SSE package
+cipher), slo (objectives, windows, burn rates, breaches), profiler (the
+sampler's health and overhead, role and subsystem shares, the lock-wait
+histogram), device_obs, process and heal (the auto-heal trackers and the
+MRF), plus the stage attribution families on ``?attribution=1``. The
+scanner's counters
 (``minio_tpu_scanner_{cycles,objects_scanned,bytes_scanned}_total``), the
-janitor's and the quarantine's (``minio_tpu_durability_*``) and the health
-trackers' (``minio_tpu_disk_{trips,reonline}_total``) ride the counter
-store. The groups of planes the port has not (bucket analytics,
-replication, cache, notification, ILM, workloads, SLO, profiler, locks)
-are absent, not faked, as are the fault-injection and hedged-read
-families. The names are the JAX package's, so one dashboard reads both
-servers; the port adds ``minio_tpu_device_obs_stream_occupancy_ratio``
-(the share of the last minute the flushes' CUDA-event intervals cover on
-the card's streams, which the JAX package does not measure; the streams'
-waits for the host are in it, so it is not the card's busy share).
+janitor's and the quarantine's (``minio_tpu_durability_*``), the health
+trackers' (``minio_tpu_disk_{trips,reonline}_total``), the SLO outcomes
+(``minio_tpu_slo_requests_total``) and the profiler's breach captures
+ride the counter store. The groups of planes the port has not (bucket
+analytics, replication, cache, notification, ILM, locks) are absent, not
+faked, as are the scan lane's gauge and the fault-injection and
+hedged-read families. The names are the JAX package's, so one dashboard
+reads both servers; the port adds
+``minio_tpu_device_obs_stream_occupancy_ratio`` (the share of the last
+minute the flushes' CUDA-event intervals cover on the card's streams,
+which the JAX package does not measure; the streams' waits for the host
+are in it, so it is not the card's busy share).
 """
 from __future__ import annotations
 
@@ -660,6 +665,155 @@ def _g_kernel(server) -> list[str]:
     return lines
 
 
+def _g_workloads(server) -> list[str]:
+    """Data-plane workloads: the package cipher of new SSE objects
+    (``workloads.sse_cipher``). The scan lane's gauge
+    (``minio_tpu_workloads_scan_lane``) is not ported: the port's Select
+    scan always rides the dispatch queue, with no ``workloads.scan``
+    switch to report."""
+    from ..crypto.sse import CIPHER_CHACHA20, default_cipher
+    cipher = "chacha20" if default_cipher() == CIPHER_CHACHA20 \
+        else "aes-gcm"
+    return ["# TYPE minio_tpu_workloads_sse_cipher gauge",
+            f'minio_tpu_workloads_sse_cipher{{cipher="{cipher}"}} 1']
+
+
+def _g_slo(server) -> list[str]:
+    """SLO plane (obs/slo.py): per-class objectives, fast/slow-window
+    compliance and error-budget burn rates, breach verdicts, worst-breach
+    trace link.
+    The cumulative outcome counter
+    (minio_tpu_slo_requests_total{class,outcome}) rides the counter
+    store, incremented at record time."""
+    from . import slo
+    rep = slo.report()
+    if not rep["enabled"]:
+        return ["# TYPE minio_tpu_slo_enabled gauge",
+                "minio_tpu_slo_enabled 0"]
+    lines = [
+        "# TYPE minio_tpu_slo_enabled gauge",
+        "minio_tpu_slo_enabled 1",
+        "# TYPE minio_tpu_slo_availability_objective gauge",
+        "# TYPE minio_tpu_slo_latency_threshold_seconds gauge",
+        "# TYPE minio_tpu_slo_latency_objective gauge",
+        "# TYPE minio_tpu_slo_window_requests gauge",
+        "# TYPE minio_tpu_slo_window_errors gauge",
+        "# TYPE minio_tpu_slo_window_breaches gauge",
+        "# TYPE minio_tpu_slo_availability_ratio gauge",
+        "# TYPE minio_tpu_slo_latency_ratio gauge",
+        "# TYPE minio_tpu_slo_burn_rate gauge",
+        "# TYPE minio_tpu_slo_breach gauge",
+        "# TYPE minio_tpu_slo_worst_breach_seconds gauge",
+    ]
+    for cls, ent in sorted(rep["classes"].items()):
+        lab = f'class="{_esc(cls)}"'
+        obj = ent["objective"]
+        lines += [
+            f"minio_tpu_slo_availability_objective{{{lab}}} "
+            f"{obj['availability']}",
+            f"minio_tpu_slo_latency_threshold_seconds{{{lab}}} "
+            f"{obj['latency_threshold_s']}",
+            f"minio_tpu_slo_latency_objective{{{lab}}} "
+            f"{obj['latency_target']}",
+        ]
+        for win, w in sorted(ent["windows"].items()):
+            wlab = f'{lab},window="{win}"'
+            lines += [
+                f"minio_tpu_slo_window_requests{{{wlab}}} "
+                f"{w['requests']}",
+                f"minio_tpu_slo_window_errors{{{wlab}}} {w['errors']}",
+                f"minio_tpu_slo_window_breaches{{{wlab}}} {w['slow']}",
+                f"minio_tpu_slo_availability_ratio{{{wlab}}} "
+                f"{w['availability']}",
+                f"minio_tpu_slo_latency_ratio{{{wlab}}} "
+                f"{w['latency_ok_ratio']}",
+                f'minio_tpu_slo_burn_rate{{{lab},slo="availability",'
+                f'window="{win}"}} {w["availability_burn"]}',
+                f'minio_tpu_slo_burn_rate{{{lab},slo="latency",'
+                f'window="{win}"}} {w["latency_burn"]}',
+            ]
+        for kind, hit in sorted(ent["breach"].items()):
+            lines.append(
+                f'minio_tpu_slo_breach{{{lab},slo="{kind}"}} '
+                f"{1 if hit else 0}")
+        worst = ent["worst_breach"]
+        if worst["stored"]:
+            # exemplar rule shared with the heal worst gauge: only
+            # trace ids the slow-trace store will actually serve (the
+            # TYPE line lives in the header — per-class emission would
+            # duplicate it when several classes hold a stored breach)
+            lines.append(
+                f"minio_tpu_slo_worst_breach_seconds{{{lab},"
+                f'trace_id="{_esc(worst["trace_id"])}"}} '
+                f"{worst['seconds']}")
+    return lines
+
+
+def _g_profiler(server) -> list[str]:
+    """Continuous profiling plane (obs/profiler.py): sampler health +
+    self-measured overhead, per-role sample counts, subsystem CPU shares,
+    and the lock-wait histogram the tracked-lock acquires feed. The
+    breach-capture counters (minio_tpu_profiler_breach_captures_total{class},
+    minio_tpu_profiler_breach_capture_errors_total) ride the counter
+    store, incremented by the capture worker."""
+    from . import profiler
+    st = profiler.status()
+    lines = [
+        "# TYPE minio_tpu_profiler_enabled gauge",
+        f"minio_tpu_profiler_enabled {1 if st['enabled'] else 0}",
+        "# TYPE minio_tpu_profiler_running gauge",
+        f"minio_tpu_profiler_running {1 if st['running'] else 0}",
+        "# TYPE minio_tpu_profiler_hz gauge",
+        f"minio_tpu_profiler_hz {st['hz']:g}",
+        "# TYPE minio_tpu_profiler_samples_total counter",
+        f"minio_tpu_profiler_samples_total {st['samples_total']}",
+        "# TYPE minio_tpu_profiler_dropped_total counter",
+        f"minio_tpu_profiler_dropped_total {st['dropped_total']}",
+        "# TYPE minio_tpu_profiler_stacks gauge",
+        f"minio_tpu_profiler_stacks {st['distinct_stacks']}",
+        "# TYPE minio_tpu_profiler_overhead_ratio gauge",
+        f"minio_tpu_profiler_overhead_ratio {st['overhead_ratio']}",
+        "# TYPE minio_tpu_profiler_lockwait_samples_total counter",
+        "minio_tpu_profiler_lockwait_samples_total "
+        f"{st['lockwait_samples_total']}",
+    ]
+    if st["roles"]:
+        lines.append(
+            "# TYPE minio_tpu_profiler_role_samples_total counter")
+        for role, n in sorted(st["roles"].items()):
+            lines.append(
+                "minio_tpu_profiler_role_samples_total"
+                f'{{role="{_esc(role)}"}} {n}')
+    if st["subsystem_shares"]:
+        lines.append(
+            "# TYPE minio_tpu_profiler_subsystem_share gauge")
+        for sub, share in sorted(st["subsystem_shares"].items()):
+            lines.append(
+                "minio_tpu_profiler_subsystem_share"
+                f'{{subsystem="{_esc(sub)}"}} {share}')
+    waits = profiler.lock_wait_snapshot()
+    if waits:
+        fam = "minio_tpu_lock_wait_seconds"
+        lines.append(f"# TYPE {fam} histogram")
+        lines.append("# TYPE minio_tpu_lock_wait_sites gauge")
+        lines.append(f"minio_tpu_lock_wait_sites {len(waits)}")
+        for site, w in sorted(waits.items()):
+            lab = f'site="{_esc(site)}",'
+            cum = 0
+            for edge, n in zip(profiler.LOCK_WAIT_BUCKETS,
+                               w["buckets"]):
+                cum += n
+                lines.append(
+                    f'{fam}_bucket{{{lab}le="{edge:g}"}} {cum}')
+            lines.append(
+                f'{fam}_bucket{{{lab}le="+Inf"}} {w["count"]}')
+            lines.append(
+                f'{fam}_sum{{site="{_esc(site)}"}} {w["sum"]:.6f}')
+            lines.append(
+                f'{fam}_count{{site="{_esc(site)}"}} {w["count"]}')
+    return lines
+
+
 def _g_device_obs(server) -> list[str]:
     """Device plane (obs/device.py): per-lane live-buffer ledger gauges,
     build counters, per-op seconds of the flushes' CUDA-event intervals,
@@ -778,6 +932,13 @@ _GROUPS = [
     # visible on the very next scrape
     MetricsGroup("disk_health", "node", _g_disk_health, interval=0),
     MetricsGroup("durability", "node", _g_durability, interval=0),
+    MetricsGroup("workloads", "node", _g_workloads, interval=0),
+    # slo reads in-memory windows: interval 0 so burn rates move on the
+    # very next scrape after an incident starts
+    MetricsGroup("slo", "node", _g_slo, interval=0),
+    # profiler reads in-memory sampler state: interval 0 so subsystem
+    # shares and lock-wait stats are live per scrape
+    MetricsGroup("profiler", "node", _g_profiler, interval=0),
     # the device plane's ledger is the leak gate: live per scrape
     MetricsGroup("device_obs", "node", _g_device_obs, interval=0),
     MetricsGroup("process", "node", _g_process),

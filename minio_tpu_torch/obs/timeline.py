@@ -32,10 +32,12 @@ Design constraints, in order:
   events, everything else as instants) behind
   ``GET /minio/admin/v3/timeline?fmt=chrome``.
 
-Switches (environment only: the config plane is not ported):
-``MINIO_TPU_TIMELINE`` (0 turns the recorder and stage attribution off),
-``MINIO_TPU_TIMELINE_RING`` (ring size), ``MINIO_TPU_TIMELINE_SAMPLE``
-(fraction of high-frequency events kept). ``configure()`` rereads them.
+Switches (config subsystem ``timeline``, env > stored > default):
+``enable`` / ``MINIO_TPU_TIMELINE`` (0 turns the recorder and stage
+attribution off), ``ring`` / ``MINIO_TPU_TIMELINE_RING`` (ring size),
+``sample`` / ``MINIO_TPU_TIMELINE_SAMPLE`` (fraction of high-frequency
+events kept). ``configure()`` rereads them; a set-config-kv of the
+subsystem calls it.
 """
 from __future__ import annotations
 
@@ -71,22 +73,29 @@ _cfg_loaded = False
 # config
 
 
-def _cfg(env: str, default: str) -> str:
-    return os.environ.get(env, default)
+def _cfg(key: str, env: str) -> str:
+    """timeline.<key>: the environment, else the registry's stored value or
+    default."""
+    v = os.environ.get(env)
+    if v is not None:
+        return v
+    from ..config import get_config_sys
+    return get_config_sys().get_stored_or_default("timeline", key)
 
 
 def configure() -> None:
-    """(Re)read the switches: enable flag, ring size, sampling stride.
-    Called lazily on first record; tests and measurements call it again
-    after changing the environment."""
+    """(Re)read the ``timeline`` config subsystem: enable flag, ring size,
+    sampling stride. Called lazily on first record and by the registry on
+    every dynamic ``timeline`` change; tests and measurements call it
+    again after changing the environment."""
     global _enabled, _stride, _ring, _ring_size, _n, _cfg_loaded
-    enable = _cfg("MINIO_TPU_TIMELINE", "1")
+    enable = _cfg("enable", "MINIO_TPU_TIMELINE")
     try:
-        ring = max(64, int(_cfg("MINIO_TPU_TIMELINE_RING", str(DEFAULT_RING))))
+        ring = max(64, int(_cfg("ring", "MINIO_TPU_TIMELINE_RING")))
     except ValueError:
         ring = DEFAULT_RING
     try:
-        sample = float(_cfg("MINIO_TPU_TIMELINE_SAMPLE", "1"))
+        sample = float(_cfg("sample", "MINIO_TPU_TIMELINE_SAMPLE"))
     except ValueError:
         sample = 1.0
     with _lock:
@@ -102,6 +111,21 @@ def configure() -> None:
             _stride = 1
         _enabled = enable != "0"
         _cfg_loaded = True
+    _register_apply()
+
+
+_apply_registered = False
+
+
+def _register_apply() -> None:
+    """Re-run configure() on every dynamic ``timeline`` change
+    (idempotent)."""
+    global _apply_registered
+    if _apply_registered:
+        return
+    from ..config import get_config_sys
+    get_config_sys().on_apply("timeline", lambda _cfg_sys: configure())
+    _apply_registered = True
 
 
 def enabled() -> bool:

@@ -15,7 +15,7 @@ Classes (see ``classify_request``): object-data traffic is
 health/readiness, metrics, admin and internal-RPC planes are EXEMPT — an
 overloaded server must stay observable and steerable.
 
-Environment knobs (env over default: the config plane is not ported):
+Knobs (config subsystem ``qos``, env > stored > default, read per admit):
 
 * ``MINIO_TPU_QOS_MAX_WAIT_MS`` (default 500) — how long a request may
   wait for a concurrency slot before SlowDown.
@@ -52,6 +52,8 @@ def plane_exempt(path: str, internal=()) -> bool:
 
 _RPS_ENV = {"interactive": "MINIO_TPU_QOS_INTERACTIVE_RPS",
             CLASS_CONTROL: "MINIO_TPU_QOS_CONTROL_RPS"}
+_RPS_KEY = {"interactive": "interactive_rps",
+            CLASS_CONTROL: "control_rps"}
 
 
 def classify_request(method: str, path: str,
@@ -134,20 +136,22 @@ class AdmissionController:
         self.admitted: dict[str, int] = {}
         self.rejected: dict[str, int] = {}
 
-    # -- knobs (resolved per admit: the environment may change) -------------
+    # -- knobs (resolved per admit: the qos subsystem is dynamic) ------------
 
     def _wait_s(self) -> float:
         if self._max_wait_s is not None:
             return self._max_wait_s
         from .budget import _config_float
-        return _config_float("MINIO_TPU_QOS_MAX_WAIT_MS", 500.0) / 1e3
+        return _config_float("qos", "max_wait_ms",
+                             "MINIO_TPU_QOS_MAX_WAIT_MS", 500.0) / 1e3
 
     def _bucket_for(self, cls: str) -> TokenBucket | None:
         if self._rates_override is not None:
             rate = self._rates_override.get(cls, 0.0)
         else:
             from .budget import _config_float
-            rate = _config_float(_RPS_ENV.get(cls, ""), 0.0)
+            rate = _config_float("qos", _RPS_KEY.get(cls, ""),
+                                 _RPS_ENV.get(cls, ""), 0.0)
         # mutations happen under the lock: stats() iterates _buckets
         # there, and two racing admits must share ONE bucket's tokens
         with self._lock:

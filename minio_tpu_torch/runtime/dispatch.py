@@ -11,10 +11,11 @@ Mechanics (as in the JAX package):
     ONE launch over the stacked [B, ...] batch;
   - the **interactive lane** takes ``_INTERACTIVE_LANE_OPS`` (``masked``,
     ``fused``: heal rebuilds and degraded-GET reconstruct) in small batches
-    (``INTERACTIVE_BATCH``, 8) after a short window
-    (``INTERACTIVE_DELAY_S``, 200 us), so a rebuild never queues behind a
-    bulk flush's staging and launches. ``MINIO_TPU_DISPATCH_INTERACTIVE_LANE
-    =0`` sends every op down the bulk lane;
+    (``dispatch.interactive_batch``, 8) after a short window
+    (``dispatch.interactive_delay_us``, 200 us), so a rebuild never queues
+    behind a bulk flush's staging and launches. ``dispatch.interactive_lane
+    =0`` (``MINIO_TPU_DISPATCH_INTERACTIVE_LANE``) sends every op down the
+    bulk lane (read at construction and on every submit);
 - a flush stacks its items' inputs into pinned staging buffers
   (``bufpool.StagingPool``), copies them with ``non_blocking=True`` on the
   lane's stream, launches, enqueues the copy of the outputs into pinned
@@ -64,7 +65,11 @@ the device ledger holds a flush's bytes from launch to readback; and on
 the card a flush's copies and launches sit between two CUDA events on its
 lane's stream, read by the completer into ``obs/device``'s device time,
 busy shares and roofline. None of it synchronizes the card or waits on
-the dispatcher. Left out for later slices: the QoS planner,
+the dispatcher. The profiler sees a dispatcher thread tagged with the
+flush's class and op while it flushes; ``lockrank.note_blocking`` reports
+a tracked lock held across a flush; the SLO plane gets every background
+item's outcome (a failed one burns the class's availability budget).
+Left out for later slices: the QoS planner,
 ``LinkProfile`` and spill-to-CPU, the device mesh and per-lane placement,
 input donation, and batch padding (it bounded XLA recompiles; PyTorch
 runs eagerly).
@@ -86,6 +91,9 @@ from .. import native
 from .. import qos as _qos
 from ..obs import device as _dev
 from ..obs import latency as _lat
+from ..obs import lockrank as _lr
+from ..obs import profiler as _prof
+from ..obs import slo as _slo
 from ..obs import spans as _sp
 from ..obs import stages as _stages
 from ..obs import timeline as _tl
@@ -94,6 +102,7 @@ from ..ops import chacha_cuda, rs_cuda, scan_cuda
 from ..ops import fused as _fused
 from ..ops.chacha_torch import check_shared_nonce
 from ..ops.rs_torch import words_to_device
+from ..qos.budget import _config_float
 from ..utils.device import resolve_device
 from ..utils.errors import BuildError
 from .bufpool import StagingPool
@@ -105,12 +114,13 @@ MAX_DELAY_S = 1e-3
 #: readback threads of the bulk lane (and of failed flushes), sized to the
 #: host
 COMPLETERS = max(4, os.cpu_count() or 4)
-#: items per interactive-lane flush at most
+#: defaults of the interactive lane's knobs (config subsystem
+#: ``dispatch``, read when a queue is built): items per flush at most
+#: (``interactive_batch``), the coalescing window, which trades batch fill
+#: for latency (``interactive_delay_us``), and the interval at which the
+#: lane's completer polls its events (``interactive_poll_us``)
 INTERACTIVE_BATCH = 8
-#: the interactive lane's coalescing window: it trades batch fill for
-#: latency
 INTERACTIVE_DELAY_S = 200e-6
-#: the interval at which the interactive lane's completer polls its events
 INTERACTIVE_POLL_S = 100e-6
 
 OPS = ("encode", "encode_hashed", "masked", "fused", "verify", "sse_xor",
@@ -127,10 +137,33 @@ _OP_NAME = {"encode": "encode", "masked": "reconstruct", "fused": "fused",
 
 
 def interactive_lane_enabled() -> bool:
-    """MINIO_TPU_DISPATCH_INTERACTIVE_LANE=0 sends every op down the bulk
-    lane."""
-    return os.environ.get("MINIO_TPU_DISPATCH_INTERACTIVE_LANE", "1").strip() \
-        not in ("0", "0.0")
+    """dispatch.interactive_lane / MINIO_TPU_DISPATCH_INTERACTIVE_LANE: 0
+    sends every op down the bulk lane."""
+    return _config_float("dispatch", "interactive_lane",
+                         "MINIO_TPU_DISPATCH_INTERACTIVE_LANE", 1.0) != 0.0
+
+
+def interactive_batch_cap() -> int:
+    """Bound on items per interactive-lane flush."""
+    return max(1, int(_config_float(
+        "dispatch", "interactive_batch",
+        "MINIO_TPU_DISPATCH_INTERACTIVE_BATCH", INTERACTIVE_BATCH)))
+
+
+def interactive_delay_s() -> float:
+    """Max coalescing wait on the interactive lane."""
+    return max(0.0, _config_float(
+        "dispatch", "interactive_delay_us",
+        "MINIO_TPU_DISPATCH_INTERACTIVE_DELAY_US",
+        INTERACTIVE_DELAY_S * 1e6)) / 1e6
+
+
+def interactive_poll_s() -> float:
+    """Poll interval of the interactive lane's completer."""
+    return max(1e-6, _config_float(
+        "dispatch", "interactive_poll_us",
+        "MINIO_TPU_DISPATCH_INTERACTIVE_POLL_US",
+        INTERACTIVE_POLL_S * 1e6)) / 1e6
 
 
 @dataclass
@@ -294,7 +327,7 @@ class _AsyncCompleter(threading.Thread):
     def __init__(self, q: "DispatchQueue"):
         super().__init__(name="minio-tpu-torch-ia-complete", daemon=True)
         self.q = q
-        self.poll_s = INTERACTIVE_POLL_S
+        self.poll_s = interactive_poll_s()
         self._cv = threading.Condition()
         self._pending: dict[tuple, deque] = {}
         self._stopping = False
@@ -337,7 +370,7 @@ class _AsyncCompleter(threading.Thread):
 class DispatchQueue:
     def __init__(self, device=None, max_batch: int = MAX_BATCH,
                  max_delay: float = MAX_DELAY_S, completers: int = COMPLETERS,
-                 interactive_batch: int = INTERACTIVE_BATCH):
+                 interactive_batch: int | None = None):
         self.device = resolve_device(device)
         self.max_batch = max_batch
         self.max_delay = max_delay
@@ -369,8 +402,10 @@ class DispatchQueue:
             max_workers=completers,
             thread_name_prefix="minio-tpu-torch-complete")
         self._bulk = _Lane("bulk", max_batch, max_delay, self.device)
+        if interactive_batch is None:
+            interactive_batch = interactive_batch_cap()
         self._ia = _Lane("interactive", interactive_batch,
-                         INTERACTIVE_DELAY_S, self.device) \
+                         interactive_delay_s(), self.device) \
             if interactive_lane_enabled() else None
         self._ia_completer = _AsyncCompleter(self) if self._ia else None
         if self._ia_completer is not None:
@@ -476,7 +511,8 @@ class DispatchQueue:
             stream = _qos.STREAM_INTERACTIVE \
                 if new_bucket.op in _INTERACTIVE_LANE_OPS else _qos.STREAM_BULK
         lane = self._ia if self._ia is not None and \
-            stream == _qos.STREAM_INTERACTIVE else self._bulk
+            stream == _qos.STREAM_INTERACTIVE and \
+            interactive_lane_enabled() else self._bulk
         ctx = _sp.current()
         p.ctx = ctx if ctx is not None and ctx.sampled else None
         p.stc = _stages.active()
@@ -545,6 +581,16 @@ class DispatchQueue:
                 return
 
     def _run_flush(self, lane: _Lane, b: _Bucket, items: list[_Pending]):
+        # the sampling profiler joins this dispatcher thread's samples to
+        # the batch's class and op for the duration of the flush
+        _prof.set_task_tag(b.cls, _OP_NAME[b.op])
+        try:
+            self._run_flush_tagged(lane, b, items)
+        finally:
+            _prof.clear_task_tag()
+
+    def _run_flush_tagged(self, lane: _Lane, b: _Bucket,
+                          items: list[_Pending]):
         t0 = time.monotonic()
         n = len(items)
         for p in items:
@@ -588,6 +634,9 @@ class DispatchQueue:
         CUDA events around the copies and launches leave the host's
         staging out (the stream's waits for the host to enqueue the next
         copy or launch stay in)."""
+        # a lock held across a flush's copies and launches is a convoy
+        # generator even when it never deadlocks: lockrank reports it
+        _lr.note_blocking(f"device_flush:{b.op}")
         dev = self.device
         roles = _inputs(b, items)
         nbytes = sum(a.nbytes for arrs in roles.values() for a in arrs)
@@ -685,11 +734,11 @@ class DispatchQueue:
             with self._stats_lock:
                 self.completer_seconds += time.monotonic() - t0
 
-    def _observe(self, record, *args) -> None:
+    def _observe(self, record, *args, **kwargs) -> None:
         """Run one instrument; one that raises never fails the flush's
         waiters: it is counted (``stats()["obs_errors"]``) and logged."""
         try:
-            record(*args)
+            record(*args, **kwargs)
         except Exception:  # noqa: BLE001 — counted, logged, never fatal
             with self._stats_lock:
                 self.obs_errors += 1
@@ -757,13 +806,16 @@ class DispatchQueue:
     def _items_done(self, f: _Flight) -> None:
         """Each completed item's wall through the queue (submit to result)
         into the ``kernel``, ``qos`` and ``lane`` latency windows, and its
-        ``complete`` event."""
+        ``complete`` event; a background item's into the SLO plane (the
+        request plane feeds the interactive and control classes)."""
         op = _OP_NAME[f.b.op]
         now = time.monotonic()
         for p in f.items:
             wall = now - p.t
             nbytes = p.words.nbytes
             tid = p.ctx.trace_id if p.ctx is not None else ""
+            if f.b.cls == _qos.CLASS_BACKGROUND:
+                _slo.record(f.b.cls, wall, trace_id=tid)
             _lat.observe("kernel", wall, nbytes, op=op, trace_id=tid)
             _lat.observe("qos", wall, nbytes, trace_id=tid,
                          **{"class": f.b.cls})
@@ -803,13 +855,20 @@ class DispatchQueue:
             self._observe(self._flush_done, f, f"{type(exc).__name__}: {exc}")
             _dev.ledger_release(f.token)
         for p in items:
-            if not salvage:
+            if salvage:
+                try:
+                    p.future.set_result(_host_result(b, p))
+                except Exception as e:  # noqa: BLE001 — the waiter gets it
+                    p.future.set_exception(e)
+            else:
                 p.future.set_exception(exc)
-                continue
-            try:
-                p.future.set_result(_host_result(b, p))
-            except Exception as e:  # noqa: BLE001 — the waiter gets it
-                p.future.set_exception(e)
+            if b.cls == _qos.CLASS_BACKGROUND:
+                # a failed background item burns the class's availability
+                # budget; a salvaged one is an outcome like any other
+                self._observe(
+                    _slo.record, b.cls, time.monotonic() - p.t,
+                    error=p.future.exception() is not None,
+                    trace_id=p.ctx.trace_id if p.ctx is not None else "")
 
     # --- lifecycle and counters ---------------------------------------------
 

@@ -7,10 +7,10 @@ dangling-object checks the scanner performs).
 Four jobs, each counted in the ``minio_tpu_durability_*`` families:
 
 1. **tmp sweep**: crash-stranded ``.minio.sys/tmp`` staging dirs are
-   reclaimed (all ages at startup, ``TMP_EXPIRY_S``-aged on periodic
-   sweeps, so in-flight uploads in a live process survive).
+   reclaimed (all ages at startup, ``durability.tmp_expiry_s``-aged on
+   periodic sweeps, so in-flight uploads in a live process survive).
 2. **stale multipart expiry**: uploads initiated longer than
-   ``MULTIPART_EXPIRY_S`` ago are aborted on every disk.
+   ``durability.multipart_expiry_s`` ago are aborted on every disk.
 3. **xl.meta quarantine**: torn or unparseable journals move aside to
    ``xl.meta.corrupt`` (through XLStorage._load_meta) and the object is
    kicked to the MRF for a rebuild from quorum.
@@ -23,10 +23,8 @@ O(tmp + multipart), never O(namespace)); the data scanner runs
 :meth:`DurabilityJanitor.sweep` each cycle, reconciling the namespace
 (jobs 3 and 4) only on deep cycles.
 
-The port has no config plane: the expiry windows are the JAX package's
-defaults (its ``durability`` config's ``tmp_expiry_s`` and
-``multipart_expiry_s``), and startup recovery always runs, as the JAX
-package's does when its config plane is absent.
+The windows and the startup gate (``durability.startup_recovery``) are
+read through the config registry (env > stored > default) at each run.
 """
 from __future__ import annotations
 
@@ -36,9 +34,18 @@ from ..obs import metrics as _mx
 from ..storage.xlstorage import META_MULTIPART
 from ..utils import errors
 
-#: the JAX package's durability.tmp_expiry_s and multipart_expiry_s
-TMP_EXPIRY_S = 86400.0
-MULTIPART_EXPIRY_S = 86400.0
+
+#: the windows' fallback when a configured value is not a number
+DEFAULT_EXPIRY_S = 86400.0
+
+
+def _cfg_float(key: str) -> float:
+    """durability.<key> as a float (env > stored > default)."""
+    from ..config import get_config_sys
+    try:
+        return float(get_config_sys().get("durability", key))
+    except ValueError:
+        return DEFAULT_EXPIRY_S
 
 
 def _layers(objlayer) -> list:
@@ -64,7 +71,7 @@ class DurabilityJanitor:
 
     def sweep_tmp(self, age_s: float | None = None) -> int:
         if age_s is None:
-            age_s = TMP_EXPIRY_S
+            age_s = _cfg_float("tmp_expiry_s")
         swept = 0
         for layer in _layers(self.obj):
             for d in _disks(layer):
@@ -79,7 +86,7 @@ class DurabilityJanitor:
         window, on every disk (the reference reaps the same way: list the
         multipart namespace, check the mod time, purge)."""
         if expiry_s is None:
-            expiry_s = MULTIPART_EXPIRY_S
+            expiry_s = _cfg_float("multipart_expiry_s")
         return sum(self._expire_multipart_layer(layer, expiry_s)
                    for layer in _layers(self.obj))
 
@@ -217,10 +224,15 @@ def startup_recovery(objlayer) -> dict:
     """The ErasureObjects init pass: reclaim all tmp staging (nothing in
     flight survives a restart) and expire aged multipart uploads.
     Deliberately O(tmp + multipart), not O(namespace): quarantine and
-    reconcile run lazily on read and in the scanner's janitor. Build every
+    reconcile run lazily on read and in the scanner's janitor. Gated by
+    ``durability.startup_recovery``. Build every
     layer over a set of directories before traffic starts on any of them:
     a layer built over live directories sweeps the first's in-flight
     staging."""
+    from ..config import get_config_sys
+    if get_config_sys().get("durability", "startup_recovery") in (
+            "0", "off", "false"):
+        return {}
     _mx.inc("minio_tpu_durability_recovery_runs_total", phase="startup")
     j = DurabilityJanitor(objlayer)
     return {"tmp_swept": j.sweep_tmp(age_s=0.0),

@@ -17,12 +17,21 @@ the PUT path checks), ``durability`` (the fsync policy and flusher, the
 crash-point catalogue, the ``minio_tpu_durability_*`` counters, the
 janitor's last sweep), ``service`` (``?action=restart|stop`` through the
 server's ``on_service_signal`` hook, which the CLI installs), and the KMS's
-``kms/status``, ``kms/key/create`` and ``kms/key/status`` (``?key-id=``).
-Every other admin op (IAM, config, tier, replication, fault, profiling and
-locks, the SLO plane and the health snapshot, bucket analytics and logs,
-update) answers ``501 NotImplemented`` in the reference's error XML: those
-planes are not ported. The ``?peers=1`` fan-outs wait for the port of
-``dist/``'s RPC plane.
+``kms/status``, ``kms/key/create`` and ``kms/key/status`` (``?key-id=``),
+the config registry's ``get-config``, ``set-config-kv`` /
+``del-config-kv`` (``?subsys=&key=&value=``) and its history
+(``list-config-history``, ``restore-config-history?restoreId=``,
+``clear-config-history``), the profiler's ``profile`` (``fmt=top|folded|
+speedscope``, ``seconds=`` and ``hz=`` for a fresh window, ``breach=<class>``
+for a stored breach capture), ``profiling/start`` (``?profilerType=cpu|
+mem|threads``), ``profiling/download`` and ``profiling/threads``,
+``healthinfo`` / ``obdinfo``, ``top/locks`` (the distributed lock table:
+empty until ``dist/`` is ported), the SLO plane's ``slo`` and the health
+snapshot ``health``.
+Every other admin op (IAM, tier, replication, fault, bucket analytics and
+logs, bandwidth, update) answers ``501 NotImplemented`` in the reference's
+error XML: those planes are not ported. The ``?peers=1`` fan-outs wait for
+the port of ``dist/``'s RPC plane.
 """
 from __future__ import annotations
 
@@ -116,6 +125,132 @@ def _dispatch_admin(h, op: str) -> None:
         return _json(h, {})
     if op == "kms/key/status":
         return _kms_key_status(h)
+    if op == "health":
+        # per-node disk states, lane utilization, admission saturation,
+        # heal backlog and SLO verdicts, rolled up
+        from ..obs.health import cluster_snapshot
+        return _json(h, cluster_snapshot(h.s3))
+    if op == "slo":
+        from ..obs import slo
+        return _json(h, slo.report())
+    if op == "top/locks":
+        # the distributed lock table of the reference's TopLocksHandler:
+        # the port has no dsync locker yet
+        return _json(h, {"locks": []})
+    if op in _CONFIG_OPS:
+        return _config_op(h, op)
+    if op == "profile":
+        return _profile(h)
+    if op.startswith("profiling/") or op in ("healthinfo", "obdinfo"):
+        return _profiling_obd(h, op)
+    h._not_implemented(f"admin {op} is not implemented")
+
+
+_CONFIG_OPS = ("get-config", "set-config-kv", "del-config-kv",
+               "list-config-history", "restore-config-history",
+               "clear-config-history")
+
+
+def _config_op(h, op: str) -> None:
+    """The config registry (reference admin-handlers-config-kv.go): the
+    effective config with each key's source, set/delete of one key, and
+    the history of snapshots taken before every change."""
+    from ..config import get_config_sys
+    cfg = get_config_sys(h.s3.obj)
+    q = {k: v[0] for k, v in h.query.items()}
+    if op == "get-config":
+        return _json(h, cfg.dump())
+    if op == "set-config-kv":
+        try:
+            cfg.set(q["subsys"], q["key"], q.get("value", ""))
+        except KeyError as e:
+            return h._error("InvalidArgument", str(e), 400)
+    elif op == "del-config-kv":
+        cfg.delete(q.get("subsys", ""), q.get("key", ""))
+    elif op == "list-config-history":
+        return _json(h, cfg.list_history())
+    elif op == "restore-config-history":
+        rid = q.get("restoreId", "")
+        if not rid:
+            return h._error("InvalidArgument", "missing restoreId", 400)
+        try:
+            cfg.restore_history(rid)
+        except Exception as e:  # noqa: BLE001 — a bad id is the caller's
+            return h._error("InvalidArgument", f"restore {rid}: {e}", 400)
+    else:  # clear-config-history
+        cfg.clear_history()
+    _json(h, {})
+
+
+def _profile(h) -> None:
+    """The continuous profiler (obs/profiler.py): the always-on sampler's
+    aggregate, or a fresh high-rate window. ``fmt=top`` (default, the JSON
+    attribution report) | ``folded`` (flamegraph.pl collapsed stacks) |
+    ``speedscope``; ``seconds=N`` captures a fresh window at the burst rate
+    (``hz=`` overrides); ``breach=<class>`` serves the stored SLO-breach
+    capture of that QoS class."""
+    from ..obs import profiler
+    q = {k: v[0] for k, v in h.query.items()}
+    breach_cls = q.get("breach", "")
+    if breach_cls:
+        rep = profiler.breach_profile(breach_cls)
+        if rep is None:
+            return h._error(
+                "XMinioProfileNotFound",
+                f"no stored breach profile for class {breach_cls!r} "
+                "(captures are triggered by SLO burn-rate breaches)", 404)
+        return _json(h, rep)
+    try:
+        seconds = float(q.get("seconds", "0"))
+        hz = float(q["hz"]) if "hz" in q else None
+    except ValueError:
+        return h._error("InvalidArgument",
+                        "bad seconds/hz profile parameter", 400)
+    fmt = q.get("fmt", "top")
+    if fmt not in ("top", "folded", "speedscope"):
+        return h._error("InvalidArgument", f"unknown profile fmt {fmt!r}",
+                        400)
+    if not profiler.ensure_started() and seconds > 0:
+        # a fresh window against a halted sampler would block the full
+        # duration and return an all-zero report
+        return h._error("XMinioProfilerDisabled",
+                        "profiler.enable=0 — enable the profiler before "
+                        "requesting a capture window", 409)
+    agg = profiler.capture_window(min(seconds, 60.0), hz) if seconds > 0 \
+        else profiler.base_agg()
+    if fmt == "folded":
+        return h._send(200, profiler.render_folded(agg), "text/plain")
+    if fmt == "speedscope":
+        return h._send(200, profiler.render_speedscope(agg),
+                       "application/json")
+    rep = profiler.report_top(agg)
+    rep["endpoint"] = f"{h.s3.address}:{h.s3.port}"
+    _json(h, rep)
+
+
+def _profiling_obd(h, op: str) -> None:
+    """Profiling start/download (reference StartProfilingHandler,
+    DownloadProfilingDataHandler), the thread dump, and the OBD health
+    report (HealthInfoHandler)."""
+    from ..obs import profiling
+    if op == "profiling/start":
+        try:
+            info = profiling.start(h.q("profilerType", "cpu"))
+        except ValueError as e:
+            return h._error("InvalidArgument", str(e), 400)
+        return _json(h, info)
+    if op == "profiling/download":
+        try:
+            kind, data = profiling.stop_and_dump()
+        except ValueError as e:
+            return h._error("InvalidArgument", str(e), 400)
+        return h._send(200, data, "application/octet-stream", headers={
+            "Content-Disposition":
+                f'attachment; filename="profile-{kind}.txt"'})
+    if op == "profiling/threads":
+        return h._send(200, profiling.thread_dump(), "text/plain")
+    if op in ("healthinfo", "obdinfo"):
+        return _json(h, profiling.health_info(h.s3))
     h._not_implemented(f"admin {op} is not implemented")
 
 

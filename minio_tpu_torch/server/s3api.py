@@ -39,8 +39,13 @@ notifications, bucket policies, lifecycle, replication, object lock
 (retention, legal hold, lock-enabled buckets), restore and transitioned
 objects, and compressed objects (the port never compresses; an object
 the JAX package stored compressed is refused, never served as raw
-deflate). The audit log, the SLO plane and the
-profiler are not ported."""
+deflate). The audit log is not ported.
+
+The config registry (``config/``) attaches to the object layer at
+construction: stored settings (``api.requests_max`` among them) hold here
+under the environment. The always-on profiler starts with the first
+server; every request's worker thread is tagged with its class and op for
+it, and every admitted request's outcome feeds the SLO plane."""
 from __future__ import annotations
 
 import base64
@@ -59,6 +64,8 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from ..bucket import metadata as bucket_metadata
 from ..obs import latency as _lat
 from ..obs import metrics as _mx
+from ..obs import profiler as _prof
+from ..obs import slo as _slo
 from ..obs import spans as _sp
 from ..obs import trace as _trc
 from ..objectlayer import ObjectOptions
@@ -134,10 +141,37 @@ class S3Server:
         self.autoheal = None
         #: the admin heal sequences, by client token
         self._heal_seqs = HealSequenceManager(objlayer)
+        #: the config registry gets its persistence (``.minio.sys/config``
+        #: through the object layer), so stored settings survive restarts
+        #: and a JAX server's stored config holds here (env > stored >
+        #: default)
+        from ..config import get_config_sys
+        cfg = get_config_sys(objlayer) if objlayer is not None else None
+        if cfg is not None and \
+                cfg.source("api", "requests_max") != "default":
+            # an operator-set env/stored value wins over the constructor's
+            # default; an explicit constructor argument wins otherwise
+            max_requests = cfg.get_int("api", "requests_max", max_requests)
         #: admission control: a request that cannot get a slot within the
         #: bounded wait (or whose class token bucket is empty) is answered
         #: 503 SlowDown + Retry-After instead of parking a handler thread
         self.qos_admission = AdmissionController(max_requests=max_requests)
+        if cfg is not None:
+            import weakref
+            ref = weakref.ref(self)
+
+            def _apply_api(c, _ref=ref):
+                s = _ref()
+                if s is not None and \
+                        c.source("api", "requests_max") != "default":
+                    s.qos_admission.reconfigure(
+                        c.get_int("api", "requests_max",
+                                  s.qos_admission.max_requests))
+
+            cfg.on_apply("api", _apply_api)
+        # the always-on continuous profiler: one process-global daemon
+        # whatever the server count (repeated server cycles add no thread)
+        _prof.ensure_started()
 
     def lookup_secret(self, access_key: str) -> str | None:
         """The secret of an access key: root credentials only (IAM users
@@ -787,18 +821,25 @@ class _S3Handler(BaseHTTPRequestHandler):
         self._request_id = rid
         raw_path = self.path.partition("?")[0]
         root = tok = None
-        if _sp.enabled() and not self._span_exempt(raw_path):
+        self._exempt = self._span_exempt(raw_path)
+        if _sp.enabled() and not self._exempt:
             root, tok = _sp.begin_request(rid)
         t0 = time.perf_counter()
         release = None
         try:
             proceed, release = self._admit()
+            # the sampling profiler joins this worker's samples to its
+            # admitted class and op through the per-thread tag registry
+            # (context variables are not visible across threads)
+            _prof.set_task_tag(self._qos_class or "control",
+                               f"s3.{self.command.lower()}")
             if proceed:
                 if self._expect_100:
                     self.send_response_only(100)
                     self.end_headers()
                 self._route()
         finally:
+            _prof.clear_task_tag()
             self._expect_100 = False
             if release is not None:
                 release()
@@ -845,11 +886,18 @@ class _S3Handler(BaseHTTPRequestHandler):
                 "content-length", "0") or 0),
             remote=self.client_address[0], trace_id=rid,
             span_id=root.span_id if root is not None else ""))
+        # the SLO plane: an admitted request (an admission 503 included)
+        # burns its class's error budget; the exempt planes carry no
+        # objective, and a trace follow's duration is the client's choice
+        qcls = getattr(self, "_qos_class", None)
+        if qcls is not None and not self._exempt:
+            _slo.record(qcls, dur, status=status,
+                        trace_id=rid if traced else "")
         if root is not None:
             _sp.finish_request(
                 root, tok, name=api_detail, method=self.command, path=path,
                 status=status, duration_s=dur,
-                cls=getattr(self, "_qos_class", None) or "control",
+                cls=qcls or "control",
                 node=node, remote=self.client_address[0])
 
     def do_GET(self):  # noqa: N802

@@ -7,10 +7,9 @@ discipline around xl.meta).
 and part promotions, ``durable_replace_dir`` that of rename_data's dataDir
 move, ``fsync_after_write`` that of in-place appends, ``durable_write`` that
 of small whole files (the MRF journal). The stranded-tmp reaper of the JAX
-package's ``durable_write`` is not ported. The policy is the JAX
-package's default, ``off``, unless the environment's ``MINIO_TPU_FSYNC``
-names another (the port has no config registry yet, so the JAX package's
-stored-config layer between the two is absent):
+package's ``durable_write`` is not ported. The policy is the config
+registry's ``durability.fsync`` (env ``MINIO_TPU_FSYNC`` > stored >
+default ``off``), and the flusher's window its ``batch_interval_ms``:
 
 * ``always``  — fsync the tmp file BEFORE the rename (its bytes are on
   media before they become reachable), then fsync the destination's
@@ -43,12 +42,35 @@ log = logging.getLogger("minio_tpu_torch.durability")
 _warned: set = set()
 
 
+#: stored/default policy cache (GIL-atomic dict slot). fsync_mode runs on
+#: every commit on every disk; reading it through ConfigSys.get's lock
+#: would let one admin set-config-kv (which holds that lock across
+#: multi-disk persistence) stall every in-flight write. ConfigSys refreshes
+#: it on load and on every dynamic ``durability`` change; the environment
+#: is checked per call, so MINIO_TPU_FSYNC keeps winning.
+_mode_cache: dict = {"stored": None}
+
+
+def refresh_mode_cache(cfg=None) -> None:
+    """Re-resolve the stored/default fsync policy. ConfigSys passes
+    itself: falling back to get_config_sys() from inside its construction
+    would re-enter the registry's global lock."""
+    if cfg is None:
+        from ..config import get_config_sys
+        cfg = get_config_sys()
+    _mode_cache["stored"] = cfg.get_stored_or_default("durability", "fsync")
+
+
 def fsync_mode() -> str:
-    """Effective policy: ``MINIO_TPU_FSYNC`` when set, else the default.
-    An unknown value falls back to ``off`` with a warning (once per value):
-    a typo must not silently disable what the operator believes is on."""
-    mode = (os.environ.get("MINIO_TPU_FSYNC") or DEFAULT_FSYNC)
-    mode = mode.strip().lower()
+    """Effective policy: env > stored config > default. An unknown value
+    falls back to ``off`` with a warning (once per value): a typo must not
+    silently disable what the operator believes is on."""
+    mode = os.environ.get("MINIO_TPU_FSYNC")
+    if mode is None:
+        if _mode_cache["stored"] is None:
+            refresh_mode_cache()
+        mode = _mode_cache["stored"]
+    mode = (mode or DEFAULT_FSYNC).strip().lower()
     if mode in FSYNC_MODES:
         return mode
     if mode not in _warned:
@@ -56,6 +78,16 @@ def fsync_mode() -> str:
         log.warning("unknown fsync mode %r — falling back to 'off' "
                     "(valid: %s)", mode, ", ".join(FSYNC_MODES))
     return FSYNC_OFF
+
+
+def _batch_interval_s() -> float:
+    """The flusher's coalescing window, ``durability.batch_interval_ms``."""
+    from ..config import get_config_sys
+    try:
+        ms = float(get_config_sys().get("durability", "batch_interval_ms"))
+    except ValueError:
+        return DEFAULT_BATCH_INTERVAL_S
+    return max(0.001, ms / 1e3)
 
 
 def fsync_path(path: str, strict: bool = False) -> bool:
@@ -84,8 +116,8 @@ def fsync_path(path: str, strict: bool = False) -> bool:
 class _Flusher:
     """Coalesced-fsync worker for ``batched`` mode: commits enqueue their
     destination path; the loop drains the pending set every
-    DEFAULT_BATCH_INTERVAL_S and fsyncs each file plus its parent directory
-    once, however many commits landed in the window."""
+    ``durability.batch_interval_ms`` and fsyncs each file plus its parent
+    directory once, however many commits landed in the window."""
 
     def __init__(self):
         self._lock = threading.Lock()
@@ -143,7 +175,7 @@ class _Flusher:
                     if not self._pending:
                         continue
             # coalescing window: let racing commits pile into the batch
-            time.sleep(DEFAULT_BATCH_INTERVAL_S)
+            time.sleep(_batch_interval_s())
             with self._cv:
                 batch = list(self._pending)
                 self._pending.clear()

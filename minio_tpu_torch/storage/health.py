@@ -23,8 +23,8 @@ Every disk call of the data path passes through one delegate here, and
 each shard reader through ``_ScoredReadAt``, whose ``read_at`` is scored
 and whose other attributes (``close``) pass through to the disk's reader.
 
-Knobs, read from the environment with the JAX package's names and
-defaults (the port has no config registry):
+Knobs, config subsystem ``health`` (env > stored > default), read when a
+disk is wrapped:
 
 * ``MINIO_TPU_HEALTH``             -- "0" disables wrapping entirely.
 * ``MINIO_TPU_HEALTH_TRIP``        -- consecutive failures to trip (4).
@@ -33,7 +33,6 @@ defaults (the port has no config registry):
 """
 from __future__ import annotations
 
-import os
 import threading
 import time
 import uuid
@@ -69,6 +68,13 @@ _DELEGATED = [
 _EWMA_ALPHA = 0.1
 
 
+def _knob(key: str) -> str:
+    """health.<key> through the config registry (env > stored > default),
+    so admin-set values hold for every layer wrapped after config load."""
+    from ..config import get_config_sys
+    return get_config_sys().get("health", key)
+
+
 class DiskHealthCheck(StorageAPI):
     """Health-scoring StorageAPI wrapper. Transparent passthrough while
     healthy; fast-fail ``DiskNotFound`` while tripped."""
@@ -78,12 +84,11 @@ class DiskHealthCheck(StorageAPI):
                  cooldown_s: float | None = None):
         self.inner = inner
         self.trip_threshold = trip_threshold if trip_threshold is not None \
-            else int(os.environ.get("MINIO_TPU_HEALTH_TRIP", "4"))
+            else int(_knob("trip_threshold"))
         self.deadline_s = deadline_s if deadline_s is not None \
-            else float(os.environ.get("MINIO_TPU_HEALTH_DEADLINE_MS",
-                                      "2000")) / 1e3
+            else float(_knob("deadline_ms")) / 1e3
         self.cooldown_s = cooldown_s if cooldown_s is not None \
-            else float(os.environ.get("MINIO_TPU_HEALTH_COOLDOWN_S", "5"))
+            else float(_knob("cooldown_s"))
         self._lock = threading.Lock()
         self._state = STATE_OK
         self._consecutive = 0
@@ -303,7 +308,7 @@ DiskHealthCheck.__abstractmethods__ = frozenset()
 
 
 def enabled() -> bool:
-    return os.environ.get("MINIO_TPU_HEALTH", "1") not in ("0", "off")
+    return _knob("enable") not in ("0", "off")
 
 
 def wrap_disks(disks: list) -> list:

@@ -5,7 +5,9 @@ passes the naming lint of tests/test_obs_naming.py, every family both
 servers emit has the same TYPE and label names, and the families only one
 side emits are pinned here with the reason for each. Then the admin ops
 the port serves (trace tree with the kernel span linked to its request,
-timeline, device, top/api, qos, info) and the ones it answers 501."""
+timeline, device, top/api, qos, info) and the ones it answers 501. The
+config, profiler, SLO and health ops are held to the JAX server in
+tests/test_torch_config.py, test_torch_profiler.py and test_torch_slo.py."""
 import json
 import os
 import re
@@ -54,25 +56,8 @@ _NOT_PORTED = {
     "the native PUT and GET routes": (
         "minio_tpu_pipeline_get_blocks_total",
         "minio_tpu_pipeline_zero_copy_bytes_total"),
-    "the profiler": (
-        "minio_tpu_profiler_dropped_total", "minio_tpu_profiler_enabled",
-        "minio_tpu_profiler_hz", "minio_tpu_profiler_lockwait_samples_total",
-        "minio_tpu_profiler_overhead_ratio",
-        "minio_tpu_profiler_role_samples_total",
-        "minio_tpu_profiler_running", "minio_tpu_profiler_samples_total",
-        "minio_tpu_profiler_stacks", "minio_tpu_profiler_subsystem_share",
-        "minio_tpu_lock_wait_seconds", "minio_tpu_lock_wait_sites"),
-    "the SLO plane": (
-        "minio_tpu_slo_availability_objective",
-        "minio_tpu_slo_availability_ratio", "minio_tpu_slo_breach",
-        "minio_tpu_slo_burn_rate", "minio_tpu_slo_enabled",
-        "minio_tpu_slo_latency_objective", "minio_tpu_slo_latency_ratio",
-        "minio_tpu_slo_latency_threshold_seconds",
-        "minio_tpu_slo_requests_total", "minio_tpu_slo_window_breaches",
-        "minio_tpu_slo_window_errors", "minio_tpu_slo_window_requests",
-        "minio_tpu_slo_worst_breach_seconds"),
-    "the workloads group (the port has no scan-lane or cipher switch)": (
-        "minio_tpu_workloads_scan_lane", "minio_tpu_workloads_sse_cipher"),
+    "the scan lane's gauge (the port has no workloads.scan switch)": (
+        "minio_tpu_workloads_scan_lane",),
 }
 #: families the JAX server may emit and the port does not, with the reason
 JAX_ONLY = {fam: f"not ported: {why}" for why, fams in _NOT_PORTED.items()
@@ -344,8 +329,8 @@ def test_timeline_device_top_qos_and_info(scrapes):
     assert _admin(c, "storageinfo").json()["disks_online"] == 6
 
 
-@pytest.mark.parametrize("op", ["list-users", "fault", "get-config",
-                                "top/locks", "profile", "slo"])
+@pytest.mark.parametrize("op", ["list-users", "fault", "bucketstats",
+                                "logs", "tier", "bandwidth"])
 def test_unported_admin_ops_answer_not_implemented(scrapes, op):
     r = _admin(scrapes["client"], op)
     assert r.status_code == 501

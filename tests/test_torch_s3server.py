@@ -888,7 +888,7 @@ def test_unported_planes_answer_not_implemented(tmp_path):
             ("PUT", "/b/o", {"legal-hold": ""}, {}),
             ("POST", "/b/o", {"restore": ""}, {}),
             ("GET", "/minio/admin/v3/list-users", {}, {}),
-            ("GET", "/minio/admin/v3/get-config", {}, {}),
+            ("GET", "/minio/admin/v3/tier", {}, {}),
             ("POST", "/minio/webrpc", {}, {}),
             ("GET", "/b", {"encryption": ""}, {}),
             ("PUT", "/lockb", {}, {"x-amz-bucket-object-lock-enabled":
