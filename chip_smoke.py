@@ -180,6 +180,33 @@ Phases, each printing one JSON line:
    on a set built under its setting; a discarded warm-up turn, one ABBA
    block, its on/off ratio and each setting's spread). K1, K2 and
    K5 must launch.
+12. host path — the host pieces of the object path over the S3 server
+   (S3Server over one pool of two 16+4 sets, 40 disk directories, 1 MiB
+   blocks, HighwayHash256S, 32 signing clients; the MRF running). (a)
+   With MINIO_TPU_COMPRESSION=on, 64 objects of TPC-H lineitem text (the
+   select path's table, each cut at the first row boundary at or past 4
+   MiB) PUT as .csv: each stored as an S2 stream, its ETag the plaintext's
+   MD5 from the shared MD5 lanes (rounds and streams per round printed);
+   GET of each, 64 ranged GETs, HEAD and ListObjectsV2 giving the
+   plaintext sizes, a CopyObject keeping the markers, and Query A over the
+   compressed objects held to the rows built from the generated columns
+   (BytesScanned the stored size); the stored-over-plain ratio, the PUT
+   and GET walls and plaintext GiB/s. (b) A 300 ms delay rule on the
+   shard reads of one drive of each set; GET of the 64 from 32 clients
+   with hedging on (the default adaptive threshold, each turn from an
+   empty shard-read window) and off, one ABBA block (on, off, off, on):
+   GET p50/p99 per turn, the threshold at each turn's start and end,
+   hedges fired, won and lost, K1 launches (a hedged block's data shard
+   is rebuilt by the fused launch), and the MRF's on_partial calls, which
+   must be 0. (c) The fault plane: a kernel error rule fails exactly one
+   flush (its PUTs answer 5xx on the card; a CPU queue salvages it), the
+   PUTs again and their GETs exact; a kernel delay rule on 8 flushes, the
+   GETs exact; typed errors on one drive, PUT and GET within quorum; a
+   bitrot rule on one shard read, caught by the verify, the GET exact, the
+   object healed deep by the MRF; a crash rule at pre_meta_write during an
+   in-process PUT, then a new layer over the same directories (startup
+   recovery) and a janitor sweep: the object absent or whole. K1, K2, K5
+   and K6 must launch.
 
 Each sub-phase of a path reports, beside its wall and GiB/s, the streams'
 occupancy (``stream_occupancy``: the union of the flushes' CUDA-event
@@ -200,8 +227,9 @@ timed sub-phase, an occupancy share outside [0, 1] and an instrument
 Kernel launch counts are reset just before each path (each SSE sub-phase)
 and read just after; every kernel a path should run must have launched.
 Launches are also counted by size (``launch_sizes``, printed per path):
-K3's and K5's by chunk count and K2's by batch size (powers of two), K6's
-by batch size.
+K3's and K5's by chunk count, K1's and K2's by batch size B and K4's by
+item count I (powers of two), K1's also by output rows o
+(``gf_matmul_batched_by_o``), K6's by batch size.
 Then the {"kernels": [...]} summary line and, last, the ok line. Any
 failure exits non-zero without the ok line; so does a host without CUDA.
 """
@@ -1280,15 +1308,19 @@ def read_launches() -> dict:
 
 
 def read_launch_sizes() -> dict:
-    """Launches since the reset by size: K3's and K5's by chunk count and
-    K2's by batch size, {kernel: {"<=2^k": launches}}, a launch of n under
-    the least power of two at or above n; K6's by batch size, {"scan_codes":
-    {"B": launches}}."""
-    from minio_tpu_torch.ops import hh_cuda, mur3_cuda, rs_cuda, scan_cuda
+    """Launches since the reset by size: K3's and K5's by chunk count, K1's
+    and K2's by batch size B and K4's by item count I, {kernel: {"<=2^k":
+    launches}}, a launch of n under the least power of two at or above n;
+    K1's also by output rows, {"gf_matmul_batched_by_o": {"o=2":
+    launches}}; K6's by batch size, {"scan_codes": {"B": launches}}."""
+    from minio_tpu_torch.ops import (chacha_cuda, hh_cuda, mur3_cuda,
+                                     rs_cuda, scan_cuda)
     out = {}
-    for mod in (mur3_cuda, hh_cuda, rs_cuda):
+    for mod in (mur3_cuda, hh_cuda, rs_cuda, chacha_cuda):
         for name, hist in mod.launch_sizes.items():
             out[name] = {f"<={b}": hist[b] for b in sorted(hist)}
+    for name, hist in rs_cuda.launch_rows.items():
+        out[f"{name}_by_o"] = {f"o={o}": hist[o] for o in sorted(hist)}
     for name, hist in scan_cuda.launch_sizes.items():
         out[name] = {str(b): hist[b] for b in sorted(hist)}
     return out
@@ -4532,6 +4564,438 @@ def phase_background(device, sizes: dict, card: str, seed: int) -> dict:
     return result
 
 
+#: the host path: HOST_OBJECTS objects of TPC-H lineitem text (each the
+#: first row boundary at or past OBJECT_BYTES, so every body takes the MD5
+#: lanes) PUT as .csv with compression on, HOST_RANGES ranged GETs; the
+#: hedge segment's straggler delay on one drive of each set and its ABBA
+#: turns (hedging on = A); the fault segment's objects
+HOST_OBJECTS = 64
+HOST_RANGES = 64
+HOST_DELAY_MS = 300
+HOST_TURNS = ("on", "off", "off", "on")
+HOST_FAULT_OBJECTS = 8
+
+
+def phase_hostpath(device, table: dict, n_objects: int, obj_bytes: int,
+                   card: str, seed: int) -> dict:
+    """The host pieces of the object path over the S3 server (module
+    docstring, step 12): compressed lineitem objects with their MD5 lanes,
+    hedged GETs behind a straggler in one ABBA block, and the fault plane's
+    kernel, disk, bitrot and crash rules."""
+    import hashlib
+    import re
+    import uuid
+    import numpy as np
+    from minio_tpu_torch import fault
+    from minio_tpu_torch.config import get_config_sys
+    from minio_tpu_torch.erasure import streaming
+    from minio_tpu_torch.erasure.streaming import BufferSink
+    from minio_tpu_torch.objectlayer import ErasureSets, ObjectOptions
+    from minio_tpu_torch.objectlayer import ServerPools
+    from minio_tpu_torch.objectlayer import datatypes as odt
+    from minio_tpu_torch.obs import latency as lat_obs
+    from minio_tpu_torch.obs.metrics import counters_snapshot
+    from minio_tpu_torch.ops import rs_cuda
+    from minio_tpu_torch.runtime.dispatch import global_queue
+    from minio_tpu_torch.s3select.message import decode_messages
+    from minio_tpu_torch.scanner.janitor import DurabilityJanitor
+    from minio_tpu_torch.server import S3Server
+    from minio_tpu_torch.storage.xlstorage import XLStorage
+    from minio_tpu_torch.utils import compress as cz
+    from minio_tpu_torch.utils.md5simd import global_server
+
+    n_disks = OL_SETS * (K + M)
+    root = _disk_root("hostpath")
+    disk_dirs = [os.path.join(root, f"d{i:02d}") for i in range(n_disks)]
+    gen = np.random.default_rng(seed + 9)
+    dep = str(uuid.UUID(bytes=gen.bytes(16)))
+    bucket = "hostpath"
+    q = global_queue(device)
+
+    def layer():
+        sets = ErasureSets([XLStorage(d) for d in disk_dirs], OL_SETS,
+                           K + M, dep, default_parity=M, block_size=BLOCK,
+                           device=device)
+        return sets, ServerPools([sets])
+
+    sets, pool = layer()
+    get_config_sys().obj = None
+    old_env = _env({"MINIO_TPU_COMPRESSION": "on"})
+    fault.clear()
+    srv = S3Server(pool, "127.0.0.1", 0, access_key=S3_ACCESS_KEY,
+                   secret_key=S3_SECRET_KEY, region=S3_REGION, device=device)
+    srv.start_background()
+    srv.start_background_services()
+    mrf = srv.mrf
+    partial: dict = {}
+    for el in srv._erasure_layers():
+        add = el.on_partial
+
+        def record(b, o, v="", scan_mode="normal", _add=add):
+            partial.setdefault(o, []).append(scan_mode)
+            _add(b, o, v, scan_mode=scan_mode)
+
+        el.on_partial = record
+    client = _S3Client(srv.port)
+    text, offs = table["text"], table["offsets"]
+    cuts = [0]
+    for _ in range(n_objects):
+        end = int(np.searchsorted(offs, offs[cuts[-1]] + obj_bytes))
+        check(end < len(offs), "the lineitem table is too short for the "
+              "host path's objects")
+        cuts.append(end)
+    names = [f"lineitem/part-{j:03d}.csv" for j in range(n_objects)]
+    bodies = {n: bytes(text[offs[cuts[j]]:offs[cuts[j + 1]]])
+              for j, n in enumerate(names)}
+    rows_of = {n: (cuts[j], cuts[j + 1]) for j, n in enumerate(names)}
+    total = sum(map(len, bodies.values()))
+    result = {"deployment": f"1 pool x {OL_SETS} sets x {K + M} drives",
+              "geometry": f"{K}+{M}", "block": BLOCK, "objects": n_objects,
+              "plain_bytes": total, "client_threads": S3_THREADS,
+              "card": card, "cut": "one process over local disk "
+                                   "directories, clients over loopback"}
+
+    def counters(name: str) -> dict:
+        out = {}
+        for k, v in counters_snapshot().items():
+            if k.startswith(name + "{"):
+                out[k[len(name):]] = out.get(k[len(name):], 0) + v
+        return out
+
+    def hedges() -> dict:
+        c = counters("minio_tpu_hedged_reads_total")
+        return {o: sum(v for k, v in c.items() if f'"{o}"' in k)
+                for o in ("fired", "won", "lost")}
+
+    def run(label, fn, jobs, nbytes, kernels=(), threads=S3_THREADS):
+        _reset(q)
+        client.latencies.clear()
+        before = read_launches()
+        with _HashClocks() as hashes:
+            t0 = time.monotonic()
+            with ThreadPoolExecutor(max_workers=threads) as ex:
+                res = list(ex.map(fn, jobs))
+            wall = time.monotonic() - t0
+        row = _phase_row(q, nbytes, wall, hashes)
+        after = read_launches()
+        row["launches"] = {k: after[k] - before.get(k, 0) for k in after}
+        lat = list(client.latencies)
+        if lat:
+            row.update(requests=len(lat),
+                       request_p50_ms=_percentile(lat, 0.50) * 1e3,
+                       request_p99_ms=_percentile(lat, 0.99) * 1e3)
+        result[label] = row
+        if device.type == "cuda":
+            for name in kernels:
+                check(row["launches"][name] > 0,
+                      f"kernel {name} never launched in host {label}")
+        return res
+
+    def ok(status, want, what):
+        check(status == want, f"{what}: HTTP {status}, want {want}")
+
+    def get_exact(name):
+        st, _h, data = client.request("GET", f"/{bucket}/{name}")
+        ok(st, 200, f"GET {name}")
+        check(data == bodies[name], f"GET {name} is not exact")
+
+    reset_launches()
+    ok(client.request("PUT", f"/{bucket}")[0], 200, "PUT bucket")
+
+    # (a) compressed objects: PUT (ETag the plaintext's MD5 from the MD5
+    # lanes), GET, ranged GETs, HEAD, list, copy, Query A
+    def put(name):
+        st, h, data = client.request("PUT", f"/{bucket}/{name}",
+                                     body=bodies[name])
+        ok(st, 200, f"PUT {name}: {data[:200]!r}")
+        check(h.get("etag", "").strip('"') ==
+              hashlib.md5(bodies[name]).hexdigest(),
+              f"PUT {name}: the ETag is not the plaintext's MD5")
+
+    lanes0 = global_server().stats()
+    run("put", put, names, total, ("gf_encode_batched",
+                                   "highwayhash256_chunks"))
+    lanes1 = global_server().stats()
+    rounds = lanes1["rounds"] - lanes0["rounds"]
+    streams = sum((i + 1) * (a - b) for i, (a, b) in enumerate(
+        zip(lanes1["lane_rounds"], lanes0["lane_rounds"])))
+    check(rounds > 0, "the MD5 lanes ran no round")
+    stored = {}
+    for name in names:
+        oi = pool.get_object_info(bucket, name)
+        check(oi.internal.get(cz.META_COMPRESSION) == cz.ALGO_S2 and
+              oi.actual_size == len(bodies[name]),
+              f"{name} was not stored as an S2 stream")
+        stored[name] = oi.size
+    result["compression"] = {
+        "algo": cz.ALGO_S2, "stored_bytes": sum(stored.values()),
+        "stored_over_plain": sum(stored.values()) / total,
+        "md5_lanes": {"rounds": rounds, "streams_per_round":
+                      streams / rounds,
+                      "bytes": lanes1["bytes_hashed"] -
+                      lanes0["bytes_hashed"]}}
+    run("get", get_exact, names, total, ("highwayhash256_chunks",))
+    rng = np.random.default_rng(seed + 10)
+    ranges = []
+    for i in range(HOST_RANGES):
+        name = names[i % n_objects]
+        a = int(rng.integers(0, len(bodies[name]) - 1))
+        b = min(len(bodies[name]) - 1, a + int(rng.integers(1, 2 << 20)))
+        ranges.append((name, a, b))
+
+    def ranged(r):
+        name, a, b = r
+        st, h, data = client.request("GET", f"/{bucket}/{name}",
+                                     headers={"Range": f"bytes={a}-{b}"})
+        ok(st, 206, f"ranged GET {name}")
+        check(data == bodies[name][a:b + 1] and h.get("content-range") ==
+              f"bytes {a}-{b}/{len(bodies[name])}",
+              f"ranged GET {name} {a}-{b} is not exact")
+        return b + 1 - a
+
+    run("ranged_get", ranged, ranges,
+        sum(b + 1 - a for _, a, b in ranges), ("highwayhash256_chunks",))
+    t0 = time.monotonic()
+    for name in names:
+        st, h, _ = client.request("HEAD", f"/{bucket}/{name}")
+        ok(st, 200, f"HEAD {name}")
+        check(h.get("content-length") == str(len(bodies[name])),
+              f"HEAD {name} does not give the plaintext length")
+    st, _h, data = client.request("GET", f"/{bucket}",
+                                  query={"list-type": "2",
+                                         "prefix": "lineitem/"})
+    ok(st, 200, "ListObjectsV2")
+    listed = dict(re.findall(rb"<Key>([^<]*)</Key>.*?<Size>(\d+)</Size>",
+                             data, re.S))
+    check({k.decode(): int(v) for k, v in listed.items()} ==
+          {n: len(b) for n, b in bodies.items()},
+          "the listing does not give the plaintext sizes")
+    copy_name = "copy/part-000.csv"
+    st, _h, data = client.request(
+        "PUT", f"/{bucket}/{copy_name}",
+        headers={"x-amz-copy-source": f"/{bucket}/{names[0]}"})
+    ok(st, 200, f"CopyObject: {data[:200]!r}")
+    st, _h, data = client.request("GET", f"/{bucket}/{copy_name}")
+    ok(st, 200, "GET of the copy")
+    check(data == bodies[names[0]], "the copy is not exact")
+    check(pool.get_object_info(bucket, copy_name).internal.get(
+        cz.META_COMPRESSION) == cz.ALGO_S2, "the copy lost its markers")
+    result["read_checks"] = {"wall_s": time.monotonic() - t0,
+                             "heads": n_objects, "listed": len(listed),
+                             "copy": copy_name}
+
+    def select(name):
+        st, _h, data = client.request(
+            "POST", f"/{bucket}/{name}",
+            query={"select": "", "select-type": "2"}, body=_request(QUERY_A))
+        ok(st, 200, f"SelectObjectContent {name}")
+        msgs = decode_messages(data)
+        recs = b"".join(p for h, p in msgs
+                        if h.get(":event-type") == "Records")
+        a, b = rows_of[name]
+        check(recs == _expected_rows(table, a, b, "A"),
+              f"Query A records of {name} differ from the expected rows")
+        stats = b"".join(p for h, p in msgs
+                         if h.get(":event-type") == "Stats")
+        check(b"<BytesScanned>%d</BytesScanned>" % stored[name] in stats,
+              f"Query A over {name}: BytesScanned is not the stored size")
+        return recs.count(b"\n")
+
+    matched = run("query_a", select, names, total,
+                  ("scan_codes", "highwayhash256_chunks"))
+    result["query_a"]["rows_matched"] = sum(matched)
+    check(sum(matched) > 0, "Query A matched no row")
+    result["put"]["plain_gib_s"] = result["put"]["gib_s"]
+    result["get"]["plain_gib_s"] = result["get"]["gib_s"]
+
+    # (b) hedged reads: a straggler on one drive of each set, GETs from 32
+    # clients with hedging on (the default adaptive threshold) and off,
+    # one ABBA block; each turn starts from an empty shard-read window
+    slow = [disk_dirs[s * (K + M)] for s in range(OL_SETS)]
+    rule_ids = [fault.arm(f"disk:{d}:read_at:delay({HOST_DELAY_MS})")
+                for d in slow]
+    partial0 = sum(len(v) for v in partial.values())
+    turns = []
+    for i, setting in enumerate(HOST_TURNS):
+        old = _env({"MINIO_TPU_HEDGE": "1" if setting == "on" else "0"})
+        lat_obs.reset_window("hedge", op="shard_read")
+        streaming._threshold_cache = (0.0, -1.0)
+        h0 = hedges()
+        thr0 = streaming.hedge_threshold_s()
+        label = f"hedge_{i}_{setting}"
+        try:
+            run(label, get_exact, names, total,
+                ("gf_matmul_batched",) if setting == "on" else ())
+        finally:
+            streaming._threshold_cache = (0.0, -1.0)
+            thr1 = streaming.hedge_threshold_s()
+            _restore(old)
+        reads = lat_obs.get_window("hedge", op="shard_read").percentiles(
+            (0.5, 0.95, 0.99))
+        h1 = hedges()
+        row = result.pop(label)
+        turns.append({"setting": setting, "wall_s": row["wall_s"],
+                      "get_p50_ms": row["request_p50_ms"],
+                      "get_p99_ms": row["request_p99_ms"],
+                      "threshold_start_s": thr0, "threshold_end_s": thr1,
+                      "shard_read_s": {f"p{int(k * 100)}": v
+                                       for k, v in reads.items()},
+                      "hedges": {k: h1[k] - h0[k] for k in h1},
+                      "k1_launches": row["launches"]["gf_matmul_batched"],
+                      "stream_occupancy": row["stream_occupancy"]})
+    for rid in rule_ids:
+        fault.disarm(rid)
+    straggler_partials = sum(len(v) for v in partial.values()) - partial0
+    by = {s: [t for t in turns if t["setting"] == s] for s in ("on", "off")}
+    result["hedge"] = {
+        "delay_ms": HOST_DELAY_MS, "slow_drives": slow, "turns": turns,
+        "on_partial": straggler_partials,
+        "by_setting": {s: {"get_p50_ms": [t["get_p50_ms"] for t in ts],
+                           "get_p99_ms": [t["get_p99_ms"] for t in ts],
+                           "wall_s": [t["wall_s"] for t in ts]}
+                       for s, ts in by.items()}}
+    check(sum(t["hedges"]["fired"] for t in by["on"]) > 0,
+          "no hedge fired behind the straggler")
+    check(all(t["hedges"]["fired"] == 0 for t in by["off"]),
+          "a hedge fired with hedging off")
+    check(straggler_partials == 0,
+          f"{straggler_partials} on_partial calls for a straggler")
+    if device.type == "cuda":
+        check(sum(t["k1_launches"] for t in by["on"]) > 0,
+              "no hedged block was rebuilt by K1")
+
+    # (c) the fault plane
+    faults = {}
+    extra = {f"fault/k-{i}.csv": bodies[names[i % n_objects]]
+             for i in range(HOST_FAULT_OBJECTS)}
+    bodies.update(extra)
+
+    def put_status(name):
+        st, _h, _d = client.request("PUT", f"/{bucket}/{name}",
+                                    body=bodies[name])
+        return st
+
+    # one failed flush: on the card its requests fail (5xx), a CPU queue
+    # salvages it; the next requests are right
+    _reset(q)
+    fault.arm("kernel:device:*:error@count=1")
+    with ThreadPoolExecutor(max_workers=len(extra)) as ex:
+        statuses = list(ex.map(put_status, sorted(extra)))
+    fault.clear()
+    st = q.stats()
+    if device.type == "cuda":
+        check(st["failed_batches"] == 1 and st["salvaged_batches"] == 0,
+              f"kernel error: {st['failed_batches']} failed flushes")
+        check(any(s >= 500 for s in statuses) and
+              all(s == 200 or s >= 500 for s in statuses),
+              f"kernel error: statuses {statuses}")
+    else:
+        check(st["salvaged_batches"] == 1 and all(s == 200
+                                                  for s in statuses),
+              f"kernel error on the CPU queue: {st['salvaged_batches']} "
+              f"salvaged, statuses {statuses}")
+    redo = [n for n, s in zip(sorted(extra), statuses) if s != 200]
+    for name in redo:
+        ok(put_status(name), 200, f"PUT {name} after the failed flush")
+    for name in sorted(extra):
+        get_exact(name)
+    faults["kernel_error"] = {"statuses": statuses,
+                              "failed_batches": st["failed_batches"],
+                              "failed_items": st["failed_items"],
+                              "salvaged_batches": st["salvaged_batches"],
+                              "retried": len(redo)}
+    # a delayed flush: right bytes
+    fault.arm("kernel:device:*:delay(50)@count=8")
+    t0 = time.monotonic()
+    with ThreadPoolExecutor(max_workers=len(extra)) as ex:
+        list(ex.map(get_exact, sorted(extra)))
+    faults["kernel_delay"] = {"wall_s": time.monotonic() - t0,
+                              "left": len(fault.rules())}
+    fault.clear()
+    # typed errors on one drive: PUT and GET keep quorum
+    bad = disk_dirs[1]
+    fault.arm(f"disk:{bad}:*:error(FaultyDisk)")
+    more = {f"fault/d-{i}.csv": bodies[names[i % n_objects]]
+            for i in range(4)}
+    bodies.update(more)
+    t0 = time.monotonic()
+    for name in sorted(more):
+        ok(put_status(name), 200, f"PUT {name} with a faulty drive")
+    for name in sorted(more) + names[:4]:
+        get_exact(name)
+    injected = counters("minio_tpu_fault_injected_total")
+    fault.clear()
+    # the partial PUTs' heals (and their retries, once the drive's health
+    # tracker lets it back) leave the MRF before the bitrot step
+    mrf.drain(timeout=120)
+    time.sleep(0.5)  # a heal popped just before the drain returned
+    faults["disk_error"] = {"drive": bad, "wall_s": time.monotonic() - t0,
+                            "injected_since_start": injected,
+                            "mrf": mrf.stats()}
+    # a bitrot rule on one read: the card's verify catches it, the GET
+    # stays exact, the object reaches the MRF deep, and the MRF heals it
+    before = mrf.stats()
+    target = names[5 % n_objects]
+    partial.pop(target, None)
+    fault.arm(f"disk:{root}:read_at:bitrot@count=1")
+    get_exact(target)
+    fault.clear()
+    deadline = time.monotonic() + 60
+    while "deep" not in partial.get(target, []) and \
+            time.monotonic() < deadline:
+        time.sleep(0.01)
+    check("deep" in partial.get(target, []),
+          "the bitrot read did not reach the MRF as a deep heal")
+    while mrf.stats()["healed"] <= before["healed"]:
+        check(time.monotonic() < deadline, "the MRF did not heal it")
+        time.sleep(0.01)
+    after = mrf.stats()
+    get_exact(target)
+    faults["bitrot"] = {"object": target, "on_partial": partial[target],
+                        "mrf_healed": after["healed"] - before["healed"]}
+
+    # a crash at pre_meta_write, then startup recovery: the object is
+    # absent or whole
+    client.close()
+    srv.shutdown()
+    body = bodies[names[6 % n_objects]]
+    fault.arm(f"disk:{root}:pre_meta_write:crash")
+    crashed = False
+    try:
+        pool.put_object(bucket, "crash.csv", io.BytesIO(body), len(body),
+                        ObjectOptions())
+    except fault.SimulatedCrash:
+        crashed = True
+    time.sleep(0.3)  # the other disks' commits reach the step too
+    fault.clear()
+    check(crashed, "the crash rule did not fire")
+    sets2, pool2 = layer()
+    for es in sets2.sets:
+        DurabilityJanitor(es).sweep(tmp_age_s=0.0, reconcile=True,
+                                    ddir_age_s=0.0)
+    try:
+        sink = BufferSink()
+        pool2.get_object(bucket, "crash.csv", sink, 0, -1)
+        state = "whole" if sink.getvalue() == body else "torn"
+    except (odt.ObjectNotFound, odt.InsufficientReadQuorum):
+        state = "absent"
+    check(state in ("absent", "whole"), f"crash left the object {state}")
+    faults["crash"] = {"step": "pre_meta_write", "after_recovery": state}
+    result["faults"] = faults
+    _restore(old_env)
+    get_config_sys().obj = None
+    launches = read_launches()
+    result["launches"] = launches
+    result["launch_sizes"] = read_launch_sizes()
+    if device.type == "cuda":
+        for kname in ("gf_matmul_batched", "gf_encode_batched",
+                      "highwayhash256_chunks", "scan_codes"):
+            check(launches[kname] > 0,
+                  f"kernel {kname} never launched on the host path")
+    shutil.rmtree(root, ignore_errors=True)
+    return result
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--cpu-rehearsal", action="store_true",
@@ -4595,6 +5059,11 @@ def main() -> int:
         {"big": (BG_BIG, OBJECT_BYTES), "small": (BG_SMALL, OL_SMALL_BYTES),
          "new": BG_NEW, "corrupt": BG_CORRUPT, "trip": BG_TRIP_PUTS,
          "wrap": BG_WRAP}
+    # the host path: objects and the bytes each reaches at least (the
+    # rehearsal's lineitem text holds ~6 MB: one object, whose 4 MiB still
+    # take the MD5 lanes)
+    host_sizes = (1, OBJECT_BYTES) if rehearsal else \
+        (HOST_OBJECTS, OBJECT_BYTES)
     phase = "build"
     try:
         phase_build(rehearsal)
@@ -4654,21 +5123,32 @@ def main() -> int:
         if rehearsal:
             bgres["cut"] += f"; {bg_sizes}"
         emit({"phase": "background_path", **bgres})
+        phase = "hostpath_path"
+        hostres = phase_hostpath(device, table, *host_sizes, card,
+                                 args.seed)
+        if rehearsal:
+            hostres["cut"] += f"; {host_sizes[0]} objects of about " \
+                              f"{host_sizes[1]} bytes"
+        emit({"phase": "hostpath_path", **hostres})
         paths = {"mur3x256s_path": res, "sse_hh256s_path": sres,
                  "select_path": selres, "objectlayer_path": olres,
                  "s3server_path": s3res, "sse_kms_path": kmsres,
-                 "obs_path": obsres, "background_path": bgres}
+                 "obs_path": obsres, "background_path": bgres,
+                 "hostpath_path": hostres}
         for name, row in rows.items():
             by_path = {p: r["launches"][name] for p, r in paths.items()}
             row["launches"] = sum(by_path.values())
             row["launches_by_path"] = by_path
-            if name in res["launch_sizes"]:
-                row["launch_sizes_by_path"] = {
-                    p: r["launch_sizes"].get(name, {})
-                    for p, r in paths.items()}
+            for key, field in ((name, "launch_sizes_by_path"),
+                               (f"{name}_by_o", "launch_rows_by_path")):
+                if key in res["launch_sizes"]:
+                    row[field] = {p: r["launch_sizes"].get(key, {})
+                                  for p, r in paths.items()}
         emit({"phase": "launch_sizes", **{
             name: row["launch_sizes_by_path"] for name, row in rows.items()
-            if "launch_sizes_by_path" in row}})
+            if "launch_sizes_by_path" in row}, **{
+            f"{name}_by_o": row["launch_rows_by_path"]
+            for name, row in rows.items() if "launch_rows_by_path" in row}})
     except Exception as e:  # noqa: BLE001 — report the phase, exit non-zero
         import traceback
         traceback.print_exc()

@@ -29,14 +29,28 @@ digests of a tail block), ``etag`` and ``shard_write``; a GET
 ``shard_read``, ``decode`` and ``write_out``; a heal ``shard_read``,
 ``rebuild`` and ``shard_write``. Every shard read and write submitted to
 the IO pool carries the caller's context (``obs.spans.wrap_ctx``), so its
-storage span lands in the request's trace. Left out for later slices: the
-native-fd paths and hedged reads.
+storage span lands in the request's trace.
+
+Hedged reads (Dean and Barroso, "The Tail at Scale", CACM 2013): a block
+read launches exactly k shard reads; when none of those in flight
+completes within the hedge threshold, one more (parity) read is fired
+without declaring the straggler dead, and the first k distinct shards to
+arrive make the block (missing data shards rebuilt by ``fused`` on the
+card). The threshold is 3x the p95 of the last minute's shard reads,
+clamped to [``fault.hedge_floor_ms``, ``fault.hedge_ceil_ms``] and cached
+0.5 s, or ``fault.hedge_ms`` when set; ``fault.hedge=0`` turns hedging off
+(the config registry: env > stored > default).
+
+A PUT reads its body into pooled block buffers through the stream's
+``readinto`` when it has one (no ``bytes`` object per block). Left out
+for a later slice: the native-fd host routes.
 """
 from __future__ import annotations
 
 import io
 import os
 import threading
+import time
 from collections import deque
 from concurrent.futures import FIRST_COMPLETED, Future, ThreadPoolExecutor, \
     wait
@@ -108,6 +122,65 @@ class DecodeStats:
     """Per-call telemetry: which shard sources failed (for heal-on-read)."""
     errs: list = field(default_factory=list)  # per-reader exception or None
     bytes_written: int = 0
+    hedged: int = 0  # hedge reads fired across the call's blocks
+
+
+# --- hedged reads -------------------------------------------------------------
+
+#: threshold = max(floor, MULT * p95 of the shard-read window): the
+#: multiple keeps normal jitter from firing wasted parity reads
+HEDGE_P95_MULT = 3.0
+#: the latency-window family every shard read feeds (one unlabelled
+#: series: the threshold is global, per-disk skew is what hedging routes
+#: around)
+_HEDGE_FAMILY = "hedge"
+#: the adaptive threshold is recomputed at most this often
+_THRESHOLD_TTL_S = 0.5
+_threshold_cache: tuple[float, float] = (0.0, -1.0)
+
+
+def _hedge_knob(key: str) -> str:
+    """A ``fault.hedge*`` knob through the config registry (its
+    environment names: ``MINIO_TPU_HEDGE``, ``_HEDGE_MS``,
+    ``_HEDGE_FLOOR_MS``, ``_HEDGE_CEIL_MS``)."""
+    from ..config import get_config_sys
+    return get_config_sys().get("fault", key)
+
+
+def hedging_enabled() -> bool:
+    return _hedge_knob("hedge") not in ("0", "off")
+
+
+def hedge_threshold_s() -> float:
+    """The current hedge trigger in seconds."""
+    global _threshold_cache
+    ms = _hedge_knob("hedge_ms")
+    if ms:
+        try:
+            return max(1e-3, float(ms) / 1e3)
+        except ValueError:
+            pass
+    val, stamp = _threshold_cache
+    now = time.monotonic()
+    if 0.0 <= now - stamp < _THRESHOLD_TTL_S:
+        return val
+    from ..obs import latency as _lat
+    win = _lat.get_window(_HEDGE_FAMILY, op="shard_read")
+    p95 = win.percentiles((0.95,))[0.95]
+    # the clamp is read at each refresh, so a config change moves it
+    try:
+        floor = float(_hedge_knob("hedge_floor_ms"))
+        ceil = float(_hedge_knob("hedge_ceil_ms"))
+    except ValueError:
+        floor, ceil = 25.0, 1000.0
+    val = min(ceil / 1e3, max(floor / 1e3, HEDGE_P95_MULT * p95))
+    _threshold_cache = (val, now)
+    return val
+
+
+def _observe_shard_read(dur_s: float, nbytes: int) -> None:
+    from ..obs import latency as _lat
+    _lat.observe(_HEDGE_FAMILY, dur_s, nbytes, op="shard_read")
 
 
 class _OrderedWriter:
@@ -166,6 +239,20 @@ def _read_full(stream, n: int) -> bytes:
     return b"".join(chunks)
 
 
+def _read_full_into(stream, arr: np.ndarray) -> int:
+    """readinto form of _read_full: fill ``arr`` from the stream, looping
+    over short reads; returns the bytes read."""
+    mv = memoryview(arr)
+    got = 0
+    n = len(mv)
+    while got < n:
+        r = stream.readinto(mv[got:])
+        if not r:
+            break
+        got += r
+    return got
+
+
 def _vote(e: Exception) -> errors.StorageError:
     return e if isinstance(e, errors.StorageError) \
         else errors.FaultyDisk(str(e))
@@ -179,7 +266,10 @@ def erasure_encode(erasure: Erasure, stream, writers: list,
 
     Up to ENCODE_WINDOW blocks are in flight through the dispatch queue,
     and shard writes ride per-disk ordered chains; write-quorum errors are
-    harvested per block as its writes drain.
+    harvested per block as its writes drain. A stream with ``readinto``
+    fills pooled block buffers (each back in the pool once its block's
+    shards are framed or copied for their writes); others are read into
+    ``bytes``.
 
     ``etag``, when given, is a utils.hashreader.PipelineETag collector:
     every block's data-shard chunk digests are folded into it in stream
@@ -200,8 +290,13 @@ def erasure_encode(erasure: Erasure, stream, writers: list,
     if framed is not None:
         chunk, algo_id = framed
 
-    def encode_block(buf: bytes):
-        shard_len = ceil_div(len(buf), k) if buf else 0
+    def encode_block(buf, buf_arr=None):
+        entry = _encode_entry(buf)
+        entry.append(buf_arr)
+        return entry
+
+    def _encode_entry(buf):
+        shard_len = ceil_div(len(buf), k) if len(buf) else 0
         dchunk = None if framed is None \
             else device_chunk(shard_len, chunk, algo_id)
         if dchunk is not None:
@@ -209,15 +304,22 @@ def erasure_encode(erasure: Erasure, stream, writers: list,
             # tail block whose shards are one short chunk included)
             return ["pyh", erasure.encode_hashed_async(buf, dchunk, algo_id),
                     shard_len]
-        if framed is not None and buf:
+        if framed is not None and len(buf):
             # a tail (or unaligned) block: host digests, same framing
             return ["pyf", erasure.encode_data_async(buf), shard_len]
         return ["py", erasure.encode_data_async(buf), shard_len]
 
     def start_writes(entry):
-        kind, fut, shard_len = entry
+        kind, fut, shard_len, buf_arr = entry
         with _stages.timed(stc, "encode_hash"):
             res = await_result(fut, "encode")
+        try:
+            _start_writes(kind, res, shard_len)
+        finally:
+            # the block's shards are copied (framed, or tobytes) by now
+            global_pool().put(buf_arr)
+
+    def _start_writes(kind, res, shard_len):
         futs = {}
         if kind == "py":
             if etag is not None and shard_len and chunk:
@@ -276,13 +378,33 @@ def erasure_encode(erasure: Erasure, stream, writers: list,
             raise err
 
     bs = erasure.block_size
+    use_readinto = hasattr(stream, "readinto")
+
+    def read_block():
+        """One block's payload: (buffer, its pooled array or None)."""
+        if not use_readinto:
+            with _stages.timed(stc, "body_read"):
+                return _read_full(stream, bs), None
+        arr = global_pool().get(bs)
+        try:
+            with _stages.timed(stc, "body_read"):
+                got = _read_full_into(stream, arr)
+        except BaseException:
+            global_pool().put(arr)
+            raise
+        if got == 0:
+            global_pool().put(arr)
+            return b"", None
+        from ..obs import metrics as _mx
+        _mx.inc("minio_tpu_pipeline_zero_copy_bytes_total", got, path="put")
+        return arr[:got], arr
+
     eof = False
     try:
         while not eof or enc_window or write_window:
             while not eof and len(enc_window) < ENCODE_WINDOW:
-                with _stages.timed(stc, "body_read"):
-                    buf = _read_full(stream, bs)
-                if not buf:
+                buf, buf_arr = read_block()
+                if not len(buf):
                     eof = True
                     if total == 0 and not enc_window:
                         # empty object: one empty block for quorum
@@ -291,7 +413,7 @@ def erasure_encode(erasure: Erasure, stream, writers: list,
                 if len(buf) < bs:
                     eof = True
                 total += len(buf)
-                enc_window.append(encode_block(buf))
+                enc_window.append(encode_block(buf, buf_arr))
             if enc_window:
                 start_writes(enc_window.popleft())
             while len(write_window) > (ENCODE_WINDOW if enc_window or not eof
@@ -312,14 +434,16 @@ def erasure_encode(erasure: Erasure, stream, writers: list,
 
 class _ParallelReader:
     """Minimal-read shard gather: exactly ``data_blocks`` concurrent reads,
-    replacement reads fired only on failure, preferring earlier (data)
-    shards (reference parallelReader)."""
+    replacement reads fired on failure or, hedged, when none in flight
+    completes within the hedge threshold, preferring earlier (data) shards
+    (reference parallelReader)."""
 
     def __init__(self, readers: list, erasure: Erasure):
         self.readers = list(readers)
         self.erasure = erasure
         self.errs: list = [None] * len(readers)
         self.last_digests: list = [None] * len(readers)
+        self.hedged = 0  # hedge reads fired across this reader's blocks
         for i, r in enumerate(self.readers):
             if r is None:
                 self.errs[i] = errors.DiskNotFound()
@@ -353,15 +477,18 @@ class _ParallelReader:
                    raw: bool = False) -> list:
         """A k+m shard list with >= k filled entries, or ErasureReadQuorum.
         With raw=True the chunk digests are not checked here; they land in
-        self.last_digests for the device check."""
+        self.last_digests for the device check. A hedged straggler is
+        neither declared dead nor voted into ``errs``: its read is simply
+        not consumed."""
         k = self.erasure.data_blocks
         n = len(self.readers)
         shards: list = [None] * n
         digests: list = [None] * n
         pending: dict = {}  # future -> reader index
+        t_launch: dict = {}
         next_idx = 0
 
-        def launch_one() -> bool:
+        def launch_one() -> int | None:
             nonlocal next_idx
             while next_idx < n:
                 i = next_idx
@@ -370,28 +497,47 @@ class _ParallelReader:
                     continue
                 fn = self.readers[i].read_at_raw if raw \
                     else self.readers[i].read_at
-                pending[io_pool().submit(_spans.wrap_ctx(fn), shard_offset,
-                                         shard_len)] = i
-                return True
-            return False
+                f = io_pool().submit(_spans.wrap_ctx(fn), shard_offset,
+                                     shard_len)
+                pending[f] = i
+                t_launch[f] = time.monotonic()
+                return i
+            return None
 
         for _ in range(k):
-            if not launch_one():
+            if launch_one() is None:
                 break
         done = 0
+        hedge_t = hedge_threshold_s() if hedging_enabled() else None
+        hedged_idx: set = set()
         while pending and done < k:
             # first-completed order: a fast failure fires its replacement
             # while slower disks are still in flight
-            ready, _ = wait(list(pending), return_when=FIRST_COMPLETED)
+            ready, _ = wait(list(pending), timeout=hedge_t,
+                            return_when=FIRST_COMPLETED)
+            if not ready:
+                # the hedge: nothing completed within the threshold, so
+                # one more read goes out and the first k shards win
+                i = launch_one()
+                if i is None:
+                    hedge_t = None  # nothing left to hedge with: wait
+                    continue
+                hedged_idx.add(i)
+                self.hedged += 1
+                self._note_hedge(i)
+                continue
             for f in ready:
                 i = pending.pop(f)
                 try:
                     data = f.result()
+                    _observe_shard_read(
+                        time.monotonic() - t_launch.pop(f), shard_len)
                     if raw:
                         digests[i], data = data
                     shards[i] = np.frombuffer(data, dtype=np.uint8)
                     done += 1
                 except Exception as e:  # noqa: BLE001 — a vote, then retry
+                    t_launch.pop(f, None)
                     self.errs[i] = _vote(e)
                     self.readers[i] = None
                     launch_one()
@@ -399,8 +545,31 @@ class _ParallelReader:
             err = errors.reduce_read_quorum_errs(
                 self.errs, errors.BASE_IGNORED_ERRS, k)
             raise err if err is not None else errors.ErasureReadQuorum()
+        if hedged_idx:
+            from ..obs import metrics as mx
+            won = any(shards[i] is not None for i in hedged_idx)
+            mx.inc("minio_tpu_hedged_reads_total",
+                   outcome="won" if won else "lost")
         self.last_digests = digests
         return shards
+
+    @staticmethod
+    def _note_hedge(idx: int) -> None:
+        """Count the fired hedge and put a ``hedge.read`` span into the
+        live request's trace."""
+        from ..obs import metrics as mx
+        mx.inc("minio_tpu_hedged_reads_total", outcome="fired")
+        try:
+            ctx = _spans.current()
+            if ctx is None or not ctx.sampled:
+                return
+            _spans.record({
+                "name": "hedge.read", "trace_id": ctx.trace_id,
+                "span_id": _spans.new_span_id(),
+                "parent_span_id": ctx.span_id, "time": time.time(),
+                "duration_s": 0.0, "error": "", "attrs": {"shard": idx}})
+        except Exception:  # noqa: BLE001 — obs must never break reads
+            pass
 
     def drop_corrupt(self, corrupt: tuple[int, ...]) -> None:
         """Mark sources whose device-checked digests mismatched as failed,
@@ -506,6 +675,7 @@ def erasure_decode(erasure: Erasure, writer, readers: list, offset: int,
             emit(window.popleft())
     while window:
         emit(window.popleft())
+    stats.hedged = preader.hedged
     return stats
 
 

@@ -4,7 +4,9 @@ use and loaded through ctypes — the port of minio_tpu/native/__init__.py.
 ``pipeline.cpp`` includes ``gf256_simd.cpp``, ``highwayhash.cpp``,
 ``mur3.cpp`` and ``md5_simd.cpp`` (verbatim copies of the JAX package's
 sources) and is linked with ``aesgcm.cpp`` (the port's own: the JAX package
-takes AES-GCM from the ``cryptography`` wheel), so one library serves:
+takes AES-GCM from the ``cryptography`` wheel) and ``s2.cpp`` (the
+port's own: the JAX package runs snappy and CRC32C in pure Python), so one
+library serves:
 
 - the CPU GF(256) codec (``cpu_encode``: the salvage route of a failed
   flush on a CPU queue),
@@ -16,7 +18,12 @@ takes AES-GCM from the ``cryptography`` wheel), so one library serves:
 - AES-256-GCM with AES-NI and PCLMULQDQ (``aesgcm_*``: the SSE package
   cipher AES256-GCM, one call per block of packages, its OEK envelope and
   the KMS's data-key seal). A CPU without those instructions gets
-  ``AESUnavailable`` at the first call, never a portable AES.
+  ``AESUnavailable`` at the first call, never a portable AES,
+- the multi-lane MD5 server's rounds (``md5_multi_segments``: the ETag of
+  large MD5-only bodies, ``utils/md5simd.py``),
+- snappy blocks and CRC32C (``snappy_compress``, ``snappy_decompress``,
+  ``crc32c``: the S2 frames of transparent compression,
+  ``utils/compress.py``), byte for byte the JAX package's Python.
 
 Every entry point releases the interpreter lock (plain ``ctypes.CDLL``
 calls), so concurrent requests hash on as many cores as the host has.
@@ -45,9 +52,9 @@ _DIR = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_DIR)), "build",
                          "minio_tpu_torch")
 _SOURCES = ("pipeline.cpp", "gf256_simd.cpp", "highwayhash.cpp", "mur3.cpp",
-            "md5_simd.cpp", "aesgcm.cpp")
+            "md5_simd.cpp", "aesgcm.cpp", "s2.cpp")
 #: the translation units g++ links into the library
-_UNITS = ("pipeline.cpp", "aesgcm.cpp")
+_UNITS = ("pipeline.cpp", "aesgcm.cpp", "s2.cpp")
 #: the g++ flag ladder: the first set that compiles is kept
 FLAG_LADDER = (("-O3", "-march=native"), ("-O3", "-mavx2"), ("-O3",))
 
@@ -156,8 +163,9 @@ def _load_locked() -> ctypes.CDLL:
     cp, ci, cl = ctypes.c_char_p, ctypes.c_int, ctypes.c_long
     vpp, lp = ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_long)
     ip, u32p = ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_uint32)
-    # every entry of the JAX package's binding; the fd, pread and MD5
-    # entries have no wrapper yet (they come with the storage layer)
+    # every entry of the JAX package's binding (the fd and pread entries
+    # have no wrapper: the native host routes are not ported), the AES-GCM
+    # engine's and the S2 unit's
     sigs = {
         "gf256_encode": ([cp, ci, ci, cp, cp, cl], None),
         "gf256_has_avx2": ([], ci),
@@ -189,6 +197,11 @@ def _load_locked() -> ctypes.CDLL:
                              None),
         "aesgcm_open_pkgs": ([cp, cp, ctypes.c_uint32, vpp, lp, ci, vpp],
                              ci),
+        "crc32c": ([cp, cl], ctypes.c_uint32),
+        "snappy_max_compressed": ([cl], cl),
+        "snappy_compress": ([cp, cl, cp], cl),
+        "snappy_uncompressed_length": ([cp, cl], cl),
+        "snappy_decompress": ([cp, cl, cp, cl], cl),
     }
     for name, (argtypes, restype) in sigs.items():
         fn = getattr(lib, name)
@@ -487,3 +500,45 @@ def aesgcm_open_pkgs(key: bytes, base_iv: bytes, seq0: int,
     rc, views = _pkg_call(lib.aesgcm_open_pkgs, key, base_iv, seq0, sealed,
                           [max(len(c) - 16, 0) for c in sealed])
     return (-1, views) if rc < 0 else (rc, [])
+
+
+#: snappy_decompress's negative codes, as utils/snappy.py words them
+_SNAPPY_ERRORS = {-1: "truncated varint", -2: "truncated literal",
+                  -3: "truncated copy offset", -4: "invalid copy offset",
+                  -5: "length mismatch"}
+
+
+def crc32c(data) -> int:
+    """CRC-32/Castagnoli of ``data`` (any C-contiguous buffer)."""
+    src = _buf(data)
+    return load_native().crc32c(src.ctypes.data_as(ctypes.c_char_p),
+                                src.size)
+
+
+def snappy_compress(data) -> bytes:
+    """The snappy block of ``data``: utils/snappy.py ``compress``'s bytes."""
+    lib = load_native()
+    src = _buf(data)
+    if src.size >= 1 << 31:
+        raise ValueError("snappy blocks are below 2 GiB")
+    out = ctypes.create_string_buffer(lib.snappy_max_compressed(src.size))
+    n = lib.snappy_compress(src.ctypes.data_as(ctypes.c_char_p), src.size,
+                            out)
+    return out.raw[:n]
+
+
+def snappy_decompress(data) -> bytes:
+    """Decode one snappy block; a malformed one raises utils.snappy.
+    SnappyError, as utils/snappy.py ``decompress`` does."""
+    from ..utils.snappy import SnappyError
+    lib = load_native()
+    src = _buf(data)
+    p = src.ctypes.data_as(ctypes.c_char_p)
+    total = lib.snappy_uncompressed_length(p, src.size)
+    if total < 0:
+        raise SnappyError("truncated varint")
+    out = ctypes.create_string_buffer(max(total, 1))
+    n = lib.snappy_decompress(p, src.size, out, total)
+    if n < 0:
+        raise SnappyError(_SNAPPY_ERRORS.get(n, f"snappy error {n}"))
+    return out.raw[:n]

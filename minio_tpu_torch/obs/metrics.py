@@ -27,10 +27,13 @@ scanner's counters
 janitor's and the quarantine's (``minio_tpu_durability_*``), the health
 trackers' (``minio_tpu_disk_{trips,reonline}_total``), the SLO outcomes
 (``minio_tpu_slo_requests_total``) and the profiler's breach captures
-ride the counter store. The groups of planes the port has not (bucket
-analytics, replication, cache, notification, ILM, locks) are absent, not
-faked, as are the scan lane's gauge and the fault-injection and
-hedged-read families. The names are the JAX package's, so one dashboard
+ride the counter store, as do the hedged reads
+(``minio_tpu_hedged_reads_total{outcome}``, beside the
+``minio_tpu_hedge_threshold_seconds`` gauge of the disk_health group) and
+the fault plane's injections (``minio_tpu_fault_injected_total{layer,
+action}``). The groups of planes the port has not (bucket analytics,
+replication, cache, notification, ILM, locks) are absent, not faked, as is
+the scan lane's gauge. The names are the JAX package's, so one dashboard
 reads both servers; the port adds
 ``minio_tpu_device_obs_stream_occupancy_ratio`` (the share of the last
 minute the flushes' CUDA-event intervals cover on the card's streams,
@@ -496,19 +499,25 @@ def _g_heal(server) -> list[str]:
 
 def _g_disk_health(server) -> list[str]:
     """The disk health trackers' states and latency EWMAs
-    (storage/health.py); their trip and re-online counters ride the
-    store."""
+    (storage/health.py) and the live hedged-read threshold
+    (erasure/streaming.py, while hedging is on); the trip, re-online,
+    hedged-read and fault-injection counters ride the store."""
     rows = [(d.endpoint(), d.health_stats()) for d in _all_disks(server.obj)
             if hasattr(d, "health_stats")]
-    if not rows:
-        return []
-    lines = ["# TYPE minio_tpu_disk_state gauge",
-             "# TYPE minio_tpu_disk_health_ewma_seconds gauge"]
+    lines = []
+    if rows:
+        lines += ["# TYPE minio_tpu_disk_state gauge",
+                  "# TYPE minio_tpu_disk_health_ewma_seconds gauge"]
     for ep, st in rows:
         lines.append(f'minio_tpu_disk_state{{disk="{_esc(ep)}",'
                      f'state="{_esc(st["state"])}"}} 1')
         lines.append(f'minio_tpu_disk_health_ewma_seconds{{disk="{_esc(ep)}"}}'
                      f' {st["ewma_ms"] / 1e3:.6f}')
+    from ..erasure.streaming import hedge_threshold_s, hedging_enabled
+    if hedging_enabled():
+        lines += ["# TYPE minio_tpu_hedge_threshold_seconds gauge",
+                  f"minio_tpu_hedge_threshold_seconds "
+                  f"{hedge_threshold_s():.6f}"]
     return lines
 
 

@@ -8,7 +8,8 @@ it replaces chacha_pallas._make_multi_kernel / multi_fn_for.
 with one item; it replaces chacha_pallas._make_kernel / xor_packages_device.
 Given CPU tensors they return the plain version (ops/chacha_torch.py);
 given CUDA tensors they launch the kernel on the current stream or raise.
-``launches`` counts kernel launches.
+``launches`` counts kernel launches, ``launch_sizes`` the same launches by
+item count I (powers of two).
 """
 from __future__ import annotations
 
@@ -17,16 +18,20 @@ import torch
 from . import cuda_build
 from .chacha_torch import (check_shapes, check_shared_nonce, key_words,
                            multi_xor)
-from .rs_cuda import COUNT_LOCK, _as_i32, _check_cuda
+from .rs_cuda import _as_i32, _check_cuda, count_launch
 
-__all__ = ["chacha20_xor", "xor_packages", "launches", "reset_launches"]
+__all__ = ["chacha20_xor", "xor_packages", "launches", "launch_sizes",
+           "reset_launches"]
 
 #: kernel launches (plain-version calls are not counted)
 launches = {"chacha20_xor": 0}
+#: the same launches by item count I, rounded up to a power of two
+launch_sizes: dict[str, dict[int, int]] = {"chacha20_xor": {}}
 
 
 def reset_launches() -> None:
     launches["chacha20_xor"] = 0
+    launch_sizes["chacha20_xor"] = {}
 
 
 def chacha20_xor(keys: torch.Tensor, nonces: torch.Tensor,
@@ -53,8 +58,7 @@ def chacha20_xor(keys: torch.Tensor, nonces: torch.Tensor,
             out.data_ptr(), poly.data_ptr(), items, pkgs, words,
             torch.cuda.current_stream().cuda_stream)
     cuda_build.check(err, "chacha20_xor")
-    with COUNT_LOCK:
-        launches["chacha20_xor"] += 1
+    count_launch(launches, launch_sizes, "chacha20_xor", items)
     return out, poly
 
 

@@ -15,7 +15,8 @@ Words are int32 tensors holding uint32 bits (uint32 tensors are accepted and
 viewed as int32). A wrapper given CPU tensors returns its plain version,
 ``gf_matmul_batched_ref``; given CUDA tensors it launches its kernel on the
 current stream or raises. ``launches`` counts kernel launches per wrapper,
-``launch_sizes`` K2's launches by batch size (powers of two).
+``launch_sizes`` K1's and K2's launches by batch size (powers of two),
+``launch_rows`` K1's by its output row count o.
 """
 from __future__ import annotations
 
@@ -32,8 +33,12 @@ from . import cuda_build, gf256, rs_torch
 #: this module and its siblings is taken under COUNT_LOCK
 COUNT_LOCK = threading.Lock()
 launches = {"gf_matmul_batched": 0, "gf_encode_batched": 0}
-#: K2's launches by batch size B, rounded up to a power of two
-launch_sizes: dict[str, dict[int, int]] = {"gf_encode_batched": {}}
+#: K1's and K2's launches by batch size B, rounded up to a power of two
+launch_sizes: dict[str, dict[int, int]] = {"gf_matmul_batched": {},
+                                           "gf_encode_batched": {}}
+#: K1's launches by output rows o (2 for a heal of two shards, k+m for a
+#: whole-stripe rebuild)
+launch_rows: dict[str, dict[int, int]] = {"gf_matmul_batched": {}}
 #: K2's largest input count (its kernel keeps the i input words of a
 #: column in registers)
 ENCODE_MAX_INPUTS = 32
@@ -42,7 +47,9 @@ ENCODE_MAX_INPUTS = 32
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
-    launch_sizes["gf_encode_batched"] = {}
+    for sizes in (launch_sizes, launch_rows):
+        for name in sizes:
+            sizes[name] = {}
 
 
 def count_launch(counts: dict, sizes: dict, name: str, n: int) -> None:
@@ -103,8 +110,10 @@ def gf_matmul_batched(masks: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
             masks.data_ptr(), x.data_ptr(), out.data_ptr(), bsz, o, i, w,
             torch.cuda.current_stream().cuda_stream)
     cuda_build.check(err, "gf_matmul_batched")
+    count_launch(launches, launch_sizes, "gf_matmul_batched", bsz)
     with COUNT_LOCK:
-        launches["gf_matmul_batched"] += 1
+        rows = launch_rows["gf_matmul_batched"]
+        rows[o] = rows.get(o, 0) + 1
     return out
 
 

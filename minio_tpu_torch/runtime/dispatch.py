@@ -30,7 +30,9 @@ Mechanics (as in the JAX package):
   On a CPU queue it is **salvaged**: its items are recomputed on the host —
   the GF(256) math and the bitrot hashes on the native library (native/),
   ``sse_xor`` and ``select_scan`` on the plain PyTorch versions — with the
-  same bytes. Both are counted (``stats()["failed_batches"]``/
+  same bytes. A ``kernel`` rule of the fault plane (``fault/``) fails or
+  delays a flush at its start the same way. Both are counted
+  (``stats()["failed_batches"]``/
   ``["failed_items"]``, ``["salvaged_batches"]``/``["salvaged_items"]``)
   and logged with the op and the exception. A library that fails to build
   (``BuildError``) fails the futures on either queue;
@@ -87,6 +89,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from .. import fault as _fault
 from .. import native
 from .. import qos as _qos
 from ..obs import device as _dev
@@ -637,6 +640,12 @@ class DispatchQueue:
         # a lock held across a flush's copies and launches is a convoy
         # generator even when it never deadlocks: lockrank reports it
         _lr.note_blocking(f"device_flush:{b.op}")
+        if _fault.armed("kernel"):
+            # the per-flush injection point (the JAX package's target
+            # "device"): a delay holds the flush, an error fails it exactly
+            # as a failed launch does (``_failed``: salvaged on a CPU
+            # queue, its waiters get the error on the card)
+            _fault.inject("kernel", "device", b.op)
         dev = self.device
         roles = _inputs(b, items)
         nbytes = sum(a.nbytes for arrs in roles.values() for a in arrs)

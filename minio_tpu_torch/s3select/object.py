@@ -4,19 +4,19 @@
 The request XML and the SQL are parsed BEFORE any shard is read (a bad
 expression is refused without paying the read). The object is then decoded
 from its bitrot shard readers (``erasure_decode``), through a
-``DecryptWriter`` when it is SSE-C, and ``run_select`` writes the
-event-stream frames. BytesScanned is the stored (encrypted) size,
-BytesProcessed the plaintext, as in the reference.
+``DecryptWriter`` when it is SSE-C or through the decompressor of its
+marker when it is stored compressed (``utils/compress.py``), and
+``run_select`` writes the event-stream frames over the plaintext.
+BytesScanned is the stored (encrypted or compressed) size, BytesProcessed
+the plaintext, as in the reference.
 """
 from __future__ import annotations
 
 from ..crypto import sse
 from ..erasure.streaming import BufferSink, erasure_decode
+from ..utils import compress as cz
 from .select import S3SelectRequest, run_select
 from .sql import parse_select
-
-#: internal metadata key of a compressed object (minio_tpu/utils/compress.py)
-META_COMPRESSION = "x-minio-internal-compression"
 
 
 def select_object_content(body: bytes, erasure, readers: list, size: int,
@@ -31,10 +31,6 @@ def select_object_content(body: bytes, erasure, readers: list, size: int,
     bad request before reading anything."""
     req = S3SelectRequest.parse(body)
     parsed = parse_select(req.expression)
-    if internal.get(META_COMPRESSION):
-        raise NotImplementedError(
-            "select over a compressed object waits for the object layer "
-            "(ROADMAP Queue 1 item 3)")
     ctx = sse.sse_read_ctx(internal, hdr, bucket, key, size, device=device)
     sink = BufferSink()
     scanned = size
@@ -45,6 +41,10 @@ def select_object_content(body: bytes, erasure, readers: list, size: int,
                                key, cipher, device=device)
         erasure_decode(erasure, dw, readers, 0, size, size)
         dw.finish()
+    elif internal.get(cz.META_COMPRESSION):
+        dz = cz.decompress_writer(internal[cz.META_COMPRESSION], sink)
+        erasure_decode(erasure, dz, readers, 0, size, size)
+        dz.finish()
     else:
         erasure_decode(erasure, sink, readers, 0, size, size)
     return run_select(req, sink.getvalue(), writer, parsed=parsed,

@@ -1,5 +1,5 @@
-"""CLI entry: ``python -m minio_tpu_torch.server [--address HOST:PORT]
-[--device {cuda,cpu}] DIR...`` — the port of ``python -m minio_tpu.server``
+"""CLI entry: ``python -m minio_tpu_torch.server [--address HOST:PORT[,
+HOST:PORT...]] [--device {cuda,cpu}] DIR...`` — the port of ``python -m minio_tpu.server``
 (reference cmd/server-main.go:404) for the local erasure modes: the disk
 arguments (ellipses patterns like ``/data/disk{1...8}`` expand) form one
 erasure set or several sets of 4-16 drives, and several ellipses arguments
@@ -8,11 +8,13 @@ form one pool each. The erasure work runs on the CUDA card unless
 credentials: MINIO_TPU_ROOT_USER/_PASSWORD (MINIO_ROOT_USER/_PASSWORD also
 honored; default minioadmin/minioadmin). The admin ``service`` op
 restarts the server (the same ``python -m minio_tpu_torch.server``
-command line, re-executed) or stops it.
+command line, re-executed) or stops it. Several comma-separated
+``--address`` bindings are served by one server (the reference's
+multi-address listener).
 
 Not ported, each with the ROADMAP item it waits for: the one-disk FS mode,
-``http://`` distributed endpoints and multi-address listeners (Queue 1
-item 9), and ``--gateway`` (Queue 1 item 10)."""
+``http://`` distributed endpoints (Queue 1 item 9), and ``--gateway``
+(Queue 1 item 10)."""
 from __future__ import annotations
 
 import argparse
@@ -62,7 +64,8 @@ def main(argv=None):
     ap.add_argument("dirs", nargs="+", help="disk directories or "
                     "ellipses patterns like /data/disk{1...8}")
     ap.add_argument("--address", default="0.0.0.0:9000",
-                    help="host:port to listen on")
+                    help="host:port to listen on (comma-separated for "
+                         "several)")
     ap.add_argument("--region", default="us-east-1")
     ap.add_argument("--parity", type=int, default=None,
                     help="parity drives per set (default: drives/2)")
@@ -77,9 +80,6 @@ def main(argv=None):
     if any(d.startswith(("http://", "https://")) for d in args.dirs):
         ap.error("distributed endpoints are not ported (ROADMAP Queue 1 "
                  "item 9)")
-    if "," in args.address:
-        ap.error("multi-address listeners are not ported (ROADMAP Queue 1 "
-                 "item 9)")
     if len(args.dirs) > 1 and any("{" in d for d in args.dirs) and \
             not all("{" in d for d in args.dirs):
         # the reference rejects mixed ellipses/non-ellipses endpoint args
@@ -91,11 +91,14 @@ def main(argv=None):
     if len(args.dirs) == 1 and len(expand_endpoints(args.dirs)) == 1:
         ap.error("the one-disk FS mode is not ported (ROADMAP Queue 1 "
                  "item 7); give 2 or more disks")
-    host, _, port = args.address.rpartition(":")
-    try:
-        port = int(port)
-    except ValueError:
-        ap.error(f"invalid --address {args.address!r} (expected host:port)")
+    parsed = []
+    for a in args.address.split(","):
+        h, _, p = a.rpartition(":")
+        try:
+            parsed.append((h or "0.0.0.0", int(p)))
+        except ValueError:
+            ap.error(f"invalid --address entry {a!r} (expected host:port)")
+    (host, port), extra = parsed[0], parsed[1:]
     from ..utils.device import resolve_device
     try:
         device = resolve_device(args.device)
@@ -104,8 +107,10 @@ def main(argv=None):
     obj, banner = build_layer(args.dirs, args.parity, device)
     ak, sk = _root_creds()
     from . import S3Server
-    srv = S3Server(obj, host or "0.0.0.0", port, args.region,
-                   access_key=ak, secret_key=sk, device=device)
+    srv = S3Server(obj, host, port, args.region, access_key=ak,
+                   secret_key=sk, device=device, extra_addresses=extra)
+    if extra:
+        banner += f"; +{len(extra)} extra listener(s)"
     install_service_hook(srv, argv if argv is not None else sys.argv[1:])
     srv.start_background_services()
     print(f"{banner} on {device}; listening on {args.address}",

@@ -27,9 +27,11 @@ for a stored breach capture), ``profiling/start`` (``?profilerType=cpu|
 mem|threads``), ``profiling/download`` and ``profiling/threads``,
 ``healthinfo`` / ``obdinfo``, ``top/locks`` (the distributed lock table:
 empty until ``dist/`` is ported), the SLO plane's ``slo`` and the health
-snapshot ``health``.
-Every other admin op (IAM, tier, replication, fault, bucket analytics and
-logs, bandwidth, update) answers ``501 NotImplemented`` in the reference's
+snapshot ``health``, and the fault plane's ``fault`` (GET lists the armed
+rules and the disks' health, POST arms one, DELETE ``?id=`` disarms one or,
+without an id, clears them all).
+Every other admin op (IAM, tier, replication, bucket analytics and logs,
+bandwidth, update) answers ``501 NotImplemented`` in the reference's
 error XML: those planes are not ported. The ``?peers=1`` fan-outs wait for
 the port of ``dist/``'s RPC plane.
 """
@@ -141,6 +143,8 @@ def _dispatch_admin(h, op: str) -> None:
         return _config_op(h, op)
     if op == "profile":
         return _profile(h)
+    if op == "fault":
+        return _fault_op(h)
     if op.startswith("profiling/") or op in ("healthinfo", "obdinfo"):
         return _profiling_obd(h, op)
     h._not_implemented(f"admin {op} is not implemented")
@@ -180,6 +184,41 @@ def _config_op(h, op: str) -> None:
     else:  # clear-config-history
         cfg.clear_history()
     _json(h, {})
+
+
+def _fault_op(h) -> None:
+    """The fault-injection control plane: GET lists the armed rules and
+    the disks' health states; POST arms one rule (a JSON body
+    ``{"rule": "<compact grammar>"}`` or the rule's fields); DELETE
+    ``?id=<rule id>`` disarms one, no id clears all."""
+    from .. import fault
+    if h.command == "GET":
+        from ..obs.metrics import _all_disks
+        disks = [{"endpoint": d.endpoint(), **d.health_stats()}
+                 for d in _all_disks(h.s3.obj) if hasattr(d, "health_stats")]
+        return _json(h, {"rules": fault.rules(), "disks": disks})
+    if h.command == "DELETE":
+        rid = h.q("id")
+        if not rid:
+            fault.clear()
+            return _json(h, {})
+        if not fault.disarm(rid):
+            return h._error("InvalidArgument", f"unknown fault rule {rid!r}",
+                            400)
+        return _json(h, {})
+    try:
+        body = json.loads(h._read_body() or b"{}")
+        if "rule" in body:
+            rid = fault.arm(body["rule"])
+        else:
+            rid = fault.arm(fault.FaultRule(**{
+                k: v for k, v in body.items()
+                if k in ("layer", "target", "op", "action", "error",
+                         "delay_ms", "jitter_ms", "prob", "hang_s",
+                         "count", "ttl_s", "seed")}))
+    except (ValueError, TypeError) as e:
+        return h._error("InvalidArgument", f"bad fault rule: {e}", 400)
+    _json(h, {"id": rid})
 
 
 def _profile(h) -> None:

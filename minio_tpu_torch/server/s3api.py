@@ -37,9 +37,18 @@ in the reference's error XML: STS, federation and internal RPC, the
 other admin ops and the console plane, POST policy uploads,
 notifications, bucket policies, lifecycle, replication, object lock
 (retention, legal hold, lock-enabled buckets), restore and transitioned
-objects, and compressed objects (the port never compresses; an object
-the JAX package stored compressed is refused, never served as raw
-deflate). The audit log is not ported.
+objects. The audit log is not ported.
+
+Transparent compression (``utils/compress.py``): with
+``MINIO_TPU_COMPRESSION=on`` a PUT of compressible content (by extension
+or MIME type) is stored as an S2 frame stream (or ``zlib/1``), its ETag the
+plaintext's MD5 (the shared MD5 lanes for large bodies); GET, ranged GET,
+HEAD, listings, copy and Select serve the plaintext of the three markers,
+whichever package wrote them.
+
+The fault plane (``fault/``) takes its ``fault`` config subsystem's rules
+at construction and on every change of it; the server can listen on
+extra addresses (``extra_addresses``, the CLI's ``--address a:p,b:q``).
 
 The config registry (``config/``) attaches to the object layer at
 construction: stored settings (``api.requests_max`` among them) hold here
@@ -72,6 +81,7 @@ from ..objectlayer import ObjectOptions
 from ..objectlayer import datatypes as dt
 from ..scanner import usage as usage_mod
 from ..scanner.healseq import HealSequenceManager
+from ..utils import compress as cz
 from ..utils import errors
 from ..utils.device import resolve_device
 from ..utils.hashreader import (BadDigestError, HashReader,
@@ -85,9 +95,9 @@ from .auth import (STREAMING_PAYLOAD, UNSIGNED_PAYLOAD, AuthError,
 
 MAX_PUT_SIZE = 5 << 30          # single PUT cap 5 GiB
 
-#: internal metadata of a compressed object (minio_tpu/utils/compress.py)
-META_COMPRESSION = "x-minio-internal-compression"
-META_ACTUAL_SIZE = "x-minio-internal-actual-size"
+#: internal metadata of a compressed object
+META_COMPRESSION = cz.META_COMPRESSION
+META_ACTUAL_SIZE = cz.META_ACTUAL_SIZE
 #: internal metadata of an object transitioned to a tier
 #: (minio_tpu/bucket/transition.py)
 META_TIER = "x-minio-internal-transition-tier"
@@ -113,11 +123,18 @@ class S3Server:
     passes ``device="cpu"``; give the object layer the same device.
     The process KMS (SSE-S3, SSE-KMS) derives its fallback master key from
     ``secret_key`` unless the environment configures one (crypto/kms.py).
-    ``max_requests`` is the admission gate's concurrency."""
+    ``max_requests`` is the admission gate's concurrency;
+    ``extra_addresses`` are (host, port) bindings served beside the main
+    one (the reference's multi-address listener), their bound ports in
+    ``extra_ports`` after ``build()``."""
 
     def __init__(self, objlayer, address: str = "0.0.0.0", port: int = 9000,
                  region: str = "us-east-1", access_key: str = "",
-                 secret_key: str = "", device=None, max_requests: int = 256):
+                 secret_key: str = "", device=None, max_requests: int = 256,
+                 extra_addresses: list | None = None):
+        self.extra_addresses = list(extra_addresses or [])
+        self._extra_httpds: list = []
+        self.extra_ports: list = []
         self.obj = objlayer
         self.region = region
         self.device = resolve_device(device)
@@ -169,6 +186,11 @@ class S3Server:
                                   s.qos_admission.max_requests))
 
             cfg.on_apply("api", _apply_api)
+            # the fault subsystem's rules: applied at start and on every
+            # change of the subsystem
+            from .. import fault as _fault
+            cfg.on_apply("fault", _fault.apply_config)
+            _fault.apply_config(cfg)
         # the always-on continuous profiler: one process-global daemon
         # whatever the server count (repeated server cycles add no thread)
         _prof.ensure_started()
@@ -244,16 +266,39 @@ class S3Server:
         httpd = TunedServer((self.address, self.port), Handler)
         self._httpd = httpd
         self.port = httpd.server_address[1]
+        # the extra addresses: an accept loop each, feeding the same
+        # handler and server state (reference xhttp.Listener)
+        try:
+            for host, port in self.extra_addresses:
+                self._extra_httpds.append(TunedServer((host, port), Handler))
+        except OSError:
+            # a failed extra bind leaks none of the sockets bound so far
+            for extra in self._extra_httpds:
+                extra.server_close()
+            self._extra_httpds = []
+            httpd.server_close()
+            self._httpd = None
+            raise
+        self.extra_ports = [x.server_address[1] for x in self._extra_httpds]
         return httpd
 
+    def _start_extra(self) -> None:
+        for extra in self._extra_httpds:
+            threading.Thread(target=extra.serve_forever,
+                             name="minio-tpu-http-extra",
+                             daemon=True).start()
+
     def serve_forever(self):
-        self.build().serve_forever()
+        httpd = self.build()
+        self._start_extra()
+        httpd.serve_forever()
 
     def start_background(self) -> threading.Thread:
         httpd = self.build()
         t = threading.Thread(target=httpd.serve_forever,
                              name="minio-tpu-http", daemon=True)
         t.start()
+        self._start_extra()
         return t
 
     def start_background_services(self):
@@ -323,6 +368,9 @@ class S3Server:
         if self._httpd is not None:
             self._httpd.shutdown()
             self._httpd.server_close()
+        for extra in self._extra_httpds:
+            extra.shutdown()
+            extra.server_close()
 
     def endpoint(self) -> str:
         return f"http://127.0.0.1:{self.port}"
@@ -600,8 +648,7 @@ class _S3Handler(BaseHTTPRequestHandler):
         except (BadDigestError, SHA256MismatchError) as e:
             self._error("BadDigest", str(e), 400)
         except NotImplementedError as e:
-            # a plane the port does not have (compressed objects are
-            # refused before this, by _refuse_unported)
+            # a plane the port does not have
             self._not_implemented(str(e))
         except BrokenPipeError:
             # client went away mid-response; the half-written reply makes
@@ -719,8 +766,9 @@ class _S3Handler(BaseHTTPRequestHandler):
         self._refuse_unported(oi)
         sse = self._sse_read_ctx(oi)
         sink = BufferSink()
-        # BytesScanned = input consumed from storage (the ciphertext);
-        # the engine reports the decoded size as BytesProcessed
+        # BytesScanned = input consumed from storage (the ciphertext, the
+        # compressed stream); the engine reports the decoded size as
+        # BytesProcessed
         scanned = oi.size
         if sse:
             from ..crypto import DecryptWriter, enc_size
@@ -731,6 +779,11 @@ class _S3Handler(BaseHTTPRequestHandler):
                                device=self.s3.device)
             self.s3.obj.get_object(self.bucket, self.key, dw, 0, -1, opts)
             dw.finish()
+        elif oi.internal.get(META_COMPRESSION):
+            # the SQL engine needs the plaintext
+            dz = cz.decompress_writer(oi.internal[META_COMPRESSION], sink)
+            self.s3.obj.get_object(self.bucket, self.key, dz, 0, -1, opts)
+            dz.finish()
         else:
             self.s3.obj.get_object(self.bucket, self.key, sink, 0, -1, opts)
         raw = sink.getvalue()
@@ -1056,9 +1109,9 @@ class _S3Handler(BaseHTTPRequestHandler):
             raise dt.NotImplemented(self.bucket, self.key)
 
     def _refuse_unported(self, oi):
-        """A compressed object (the port has no decompressor) or one
-        transitioned to a tier is refused, never served as stored."""
-        if oi.internal.get(META_COMPRESSION) or oi.internal.get(META_TIER):
+        """An object transitioned to a tier (the tier plane is not ported)
+        is refused, never served as its stub."""
+        if oi.internal.get(META_TIER):
             raise dt.NotImplemented(self.bucket, self.key)
 
     def put_object(self, ak):
@@ -1086,6 +1139,15 @@ class _S3Handler(BaseHTTPRequestHandler):
             stream, put_size, sse_resp = encrypt_setup(
                 sse, hr, size, user_defined, self.bucket, self.key,
                 device=self.s3.device)
+        elif cz.should_compress(self.key,
+                                user_defined.get("content-type", "")):
+            # the compressed length is unknown up front: the object layer
+            # streams to EOF (size -1) and records the stored length; the
+            # ETag stays the plaintext's MD5 (etag_source)
+            user_defined[META_COMPRESSION] = cz.algo()
+            user_defined[META_ACTUAL_SIZE] = str(size)
+            stream, put_size = cz.compress_reader(hr), -1
+            opts.etag_source = hr
         opts.user_defined = user_defined
         oi = self.s3.obj.put_object(self.bucket, self.key, stream, put_size,
                                     opts)
@@ -1185,7 +1247,9 @@ class _S3Handler(BaseHTTPRequestHandler):
         self._check_preconditions(oi)
         self._refuse_unported(oi)
         sse = self._sse_read_ctx(oi)
-        logical_size = sse[2] if sse else oi.size
+        compressed = oi.internal.get(META_COMPRESSION, "")
+        logical_size = sse[2] if sse else (
+            oi.actual_size if compressed else oi.size)
         rng = self._parse_range(logical_size) if logical_size > 0 else None
         headers = self._obj_headers(oi)
         if sse:
@@ -1218,6 +1282,13 @@ class _S3Handler(BaseHTTPRequestHandler):
                 self.s3.obj.get_object(self.bucket, self.key, dw, enc_off,
                                        enc_len, opts)
             dw.finish()
+        elif compressed:
+            # inflate the whole stored stream and trim to the plaintext
+            # range (the reference's compressed-range behaviour)
+            dz = cz.decompress_writer(compressed, self.wfile, skip=offset,
+                                      limit=length)
+            self.s3.obj.get_object(self.bucket, self.key, dz, 0, -1, opts)
+            dz.finish()
         else:
             self.s3.obj.get_object(self.bucket, self.key, self.wfile,
                                    offset, length, opts)
@@ -1233,7 +1304,9 @@ class _S3Handler(BaseHTTPRequestHandler):
             h.update(sse[3])
             h["Content-Length"] = str(sse[2])
         else:
-            h["Content-Length"] = str(oi.size)
+            h["Content-Length"] = str(
+                oi.actual_size if oi.internal.get(META_COMPRESSION)
+                else oi.size)
         self.send_response(200)
         for k, v in h.items():
             if v:
@@ -1410,9 +1483,8 @@ class _S3Handler(BaseHTTPRequestHandler):
 class _CappedReader:
     """Bound a socket read to the declared Content-Length (socket streams
     never EOF on keep-alive connections); reports consumption back to the
-    handler for end-of-request draining. The port's erasure encoder reads
-    through ``read`` until a block is whole (the JAX package's
-    ``readinto`` route into pooled buffers is not ported)."""
+    handler for end-of-request draining. ``readinto`` is the PUT ingest's
+    leg into the erasure pipeline's pooled block buffers."""
 
     def __init__(self, raw, size: int, handler=None):
         self.raw = raw
@@ -1430,3 +1502,18 @@ class _CappedReader:
         if self.handler is not None:
             self.handler._consumed += len(b)
         return b
+
+    def readinto(self, view) -> int:
+        """Fill ``view`` from the socket's buffered reader, within the
+        declared length (no ``bytes`` object per block)."""
+        if self.remaining == 0:
+            return 0
+        view = memoryview(view).cast("B")
+        if 0 < self.remaining < len(view):
+            view = view[: self.remaining]
+        got = self.raw.readinto(view) or 0
+        if self.remaining > 0:
+            self.remaining -= got
+        if self.handler is not None:
+            self.handler._consumed += got
+        return got

@@ -16,8 +16,15 @@ reader never sees a half-written shard.
 Every disk call is measured (``_OpSpan``): its seconds and bytes feed the
 per-disk per-op last-minute latency window (``minio_tpu_disk_latency_
 seconds``), a storage trace while someone listens, and a storage span in
-the calling request's trace. The JAX package's fault-injection points
-wait for the port of its fault plane.
+the calling request's trace.
+
+The fault plane (``fault/``) injects at the JAX package's sites, each one
+armed-flag check when no ``disk`` rule is armed: every measured op (a
+typed error raised, a delay inside the measured span), every shard
+``read_at`` (``bitrot`` corrupts the returned span), ``create_file_writer``
+and ``read_file_at``, the walks, and the named write steps of the commit
+protocol (``WRITE_STEPS``: ``crash`` raises ``SimulatedCrash``, ``torn``
+truncates the pending tmp file).
 """
 from __future__ import annotations
 
@@ -30,6 +37,7 @@ import time
 import uuid
 from typing import Iterator
 
+from .. import fault as _fault
 from ..obs import latency as _lat
 from ..obs import metrics as _mx
 from ..obs import spans as _spans
@@ -117,8 +125,9 @@ class _FileWriter:
 class _FileReadAt:
     """Positional reads over one shard file (raw os.open + pread)."""
 
-    def __init__(self, path: str):
+    def __init__(self, path: str, endpoint: str = ""):
         self._fd = -1  # __del__ runs even when os.open below raises
+        self._endpoint = endpoint
         try:
             self._fd = os.open(path, os.O_RDONLY)
         except FileNotFoundError:
@@ -131,7 +140,16 @@ class _FileReadAt:
             raise errors.IsNotRegular(path)
 
     def read_at(self, offset: int, length: int) -> bytes:
-        return os.pread(self._fd, length, offset)
+        out = os.pread(self._fd, length, offset)
+        if _fault.armed("disk"):
+            # the per-shard-read injection point: a delay or hang makes
+            # this source a straggler (hedged reads route around it), an
+            # error is a typed vote, bitrot corrupts the returned span
+            # (the bitrot check upstairs catches it)
+            if _fault.inject("disk", self._endpoint,
+                             "read_at") is _fault.BITROT:
+                out = _fault.corrupt(out)
+        return out
 
     def close(self) -> None:
         if self._fd >= 0:
@@ -142,10 +160,9 @@ class _FileReadAt:
         self.close()
 
 
-#: instruments of ``_OpSpan`` that raised (counted, logged, never fatal)
 #: the crash-point catalogue of the commit protocol, the JAX package's
-#: (the admin ``durability`` op lists it); the injection points at these
-#: steps wait for the port of the fault plane
+#: (the admin ``durability`` op lists it): each is a named step where a
+#: ``crash`` or ``torn`` rule (``disk:<target>:<step>:crash``) can fire
 WRITE_STEPS = (
     "pre_replace",        # tmp written, about to become visible
     "post_replace",       # rename landed, fsync policy applied
@@ -157,6 +174,7 @@ WRITE_STEPS = (
     "pre_append",         # append_file about to mutate in place
 )
 
+#: instruments of ``_OpSpan`` that raised (counted, logged, never fatal)
 _obs_errors = 0
 _obs_errors_lock = threading.Lock()
 log = logging.getLogger(__name__)
@@ -186,6 +204,11 @@ class _OpSpan:
 
     def __enter__(self) -> "_OpSpan":
         self.t0 = time.perf_counter()
+        if _fault.armed("disk"):
+            # the per-op injection point: a typed error reaches the caller
+            # as a real disk failure would; a delay lands inside the
+            # measured span, so the latency windows and health see it
+            _fault.inject("disk", self.disk, self.op)
         return self
 
     def __exit__(self, etype, exc, tb) -> bool:
@@ -245,6 +268,23 @@ class XLStorage(StorageAPI):
             in_bytes: int = 0) -> _OpSpan:
         return _OpSpan(self._endpoint, op,
                        f"{volume}/{path}" if path else volume, in_bytes)
+
+    def _write_step(self, step: str, tmp: str | None = None) -> None:
+        """A named crash point of the commit protocol (WRITE_STEPS): a
+        ``crash`` rule raises SimulatedCrash here (no cleanup runs), a
+        ``torn`` rule truncates the pending tmp file at a random offset
+        before it becomes visible."""
+        if not _fault.armed("disk"):
+            return
+        res = _fault.inject("disk", self._endpoint, step)
+        if isinstance(res, _fault._Torn):
+            if tmp:
+                _fault.torn_truncate(tmp, res.rng)
+            else:
+                # the rule fired (and spent its budget) at a step that owns
+                # no pending tmp file: say so rather than pass silently
+                log.warning("torn rule fired at step %r, which owns no "
+                            "pending tmp file: nothing was torn", step)
 
     def get_disk_id(self) -> str:
         return self._disk_id
@@ -328,55 +368,68 @@ class XLStorage(StorageAPI):
         """Whole-file read (raw os.open/os.read: xl.meta reads run once per
         disk per request)."""
         with self._op("read_all", volume, path):
-            try:
-                fd = os.open(self._abs(volume, path), os.O_RDONLY)
-            except FileNotFoundError:
-                if not os.path.isdir(self._abs(volume)):
-                    raise errors.VolumeNotFound(volume) from None
-                raise errors.FileNotFound(path) from None
-            except IsADirectoryError:
-                raise errors.IsNotRegular(path) from None
-            try:
-                size = os.fstat(fd).st_size
-                chunks = []
-                got = 0
-                while got < size:
-                    b = os.read(fd, size - got)
-                    if not b:
-                        break
-                    chunks.append(b)
-                    got += len(b)
-                return chunks[0] if len(chunks) == 1 else b"".join(chunks)
-            except IsADirectoryError:
-                raise errors.IsNotRegular(path) from None
-            finally:
-                os.close(fd)
+            return self._read_all_inner(volume, path)
+
+    def _read_all_inner(self, volume: str, path: str) -> bytes:
+        try:
+            fd = os.open(self._abs(volume, path), os.O_RDONLY)
+        except FileNotFoundError:
+            if not os.path.isdir(self._abs(volume)):
+                raise errors.VolumeNotFound(volume) from None
+            raise errors.FileNotFound(path) from None
+        except IsADirectoryError:
+            raise errors.IsNotRegular(path) from None
+        try:
+            size = os.fstat(fd).st_size
+            chunks = []
+            got = 0
+            while got < size:
+                b = os.read(fd, size - got)
+                if not b:
+                    break
+                chunks.append(b)
+                got += len(b)
+            return chunks[0] if len(chunks) == 1 else b"".join(chunks)
+        except IsADirectoryError:
+            raise errors.IsNotRegular(path) from None
+        finally:
+            os.close(fd)
 
     def write_all(self, volume: str, path: str, data: bytes) -> None:
         """Atomic whole-file write (tmp + durable rename)."""
         with self._op("write_all", volume, path, in_bytes=len(data)):
-            dst = self._abs(volume, path)
-            if not os.path.isdir(self._abs(volume)):
-                raise errors.VolumeNotFound(volume)
-            os.makedirs(os.path.dirname(dst), exist_ok=True)
-            tmp = self._abs(META_TMP, new_tmp_id())
-            with open(tmp, "wb") as f:
-                f.write(data)
-            durable_replace(tmp, dst)
+            self._write_all_inner(volume, path, data)
+
+    def _write_all_inner(self, volume: str, path: str, data: bytes) -> None:
+        dst = self._abs(volume, path)
+        if not os.path.isdir(self._abs(volume)):
+            raise errors.VolumeNotFound(volume)
+        os.makedirs(os.path.dirname(dst), exist_ok=True)
+        tmp = self._abs(META_TMP, new_tmp_id())
+        with open(tmp, "wb") as f:
+            f.write(data)
+        self._write_step("pre_replace", tmp=tmp)
+        durable_replace(tmp, dst)
+        self._write_step("post_replace")
 
     def append_file(self, volume: str, path: str, data: bytes) -> None:
         with self._op("append_file", volume, path, in_bytes=len(data)):
             dst = self._abs(volume, path)
             os.makedirs(os.path.dirname(dst), exist_ok=True)
+            self._write_step("pre_append")
             with open(dst, "ab") as f:
                 f.write(data)
             fsync_after_write(dst)
 
     def create_file_writer(self, volume: str, path: str) -> _FileWriter:
+        if _fault.armed("disk"):
+            _fault.inject("disk", self._endpoint, "create_file_writer")
         return _FileWriter(self._abs(volume, path))
 
     def read_file_at(self, volume: str, path: str) -> _FileReadAt:
-        return _FileReadAt(self._abs(volume, path))
+        if _fault.armed("disk"):
+            _fault.inject("disk", self._endpoint, "read_file_at")
+        return _FileReadAt(self._abs(volume, path), self._endpoint)
 
     def rename_file(self, src_volume: str, src_path: str, dst_volume: str,
                     dst_path: str) -> None:
@@ -386,34 +439,39 @@ class XLStorage(StorageAPI):
             if not os.path.exists(src):
                 raise errors.FileNotFound(src_path)
             os.makedirs(os.path.dirname(dst), exist_ok=True)
+            self._write_step("pre_rename_file", tmp=src)
             durable_replace(src, dst)
 
     def delete_path(self, volume: str, path: str, recursive: bool = False
                     ) -> None:
         with self._op("delete", volume, path):
-            p = self._abs(volume, path)
-            try:
-                if os.path.isdir(p):
-                    if recursive:
-                        shutil.rmtree(p)
-                    else:
-                        os.rmdir(p)
+            self._delete_path_inner(volume, path, recursive)
+
+    def _delete_path_inner(self, volume: str, path: str,
+                           recursive: bool = False) -> None:
+        p = self._abs(volume, path)
+        try:
+            if os.path.isdir(p):
+                if recursive:
+                    shutil.rmtree(p)
                 else:
-                    os.unlink(p)
-            except FileNotFoundError:
-                raise errors.FileNotFound(path) from None
-            except OSError as e:
-                raise errors.FaultyDisk(str(e)) from e
-            # prune now-empty parents up to the volume root (reference
-            # deleteFile parent cleanup)
-            parent = os.path.dirname(p)
-            vol_root = self._abs(volume)
-            while parent != vol_root and parent.startswith(self.root):
-                try:
-                    os.rmdir(parent)
-                except OSError:
-                    break
-                parent = os.path.dirname(parent)
+                    os.rmdir(p)
+            else:
+                os.unlink(p)
+        except FileNotFoundError:
+            raise errors.FileNotFound(path) from None
+        except OSError as e:
+            raise errors.FaultyDisk(str(e)) from e
+        # prune now-empty parents up to the volume root (reference
+        # deleteFile parent cleanup)
+        parent = os.path.dirname(p)
+        vol_root = self._abs(volume)
+        while parent != vol_root and parent.startswith(self.root):
+            try:
+                os.rmdir(parent)
+            except OSError:
+                break
+            parent = os.path.dirname(parent)
 
     def stat_file_size(self, volume: str, path: str) -> int:
         with self._op("stat", volume, path):
@@ -433,7 +491,8 @@ class XLStorage(StorageAPI):
 
     def _load_meta(self, volume: str, path: str) -> XLMeta:
         try:
-            blob = self.read_all(volume, f"{path}/{XL_META_FILE}")
+            # an unmeasured inner read: the calling meta op owns the span
+            blob = self._read_all_inner(volume, f"{path}/{XL_META_FILE}")
         except errors.FileNotFound:
             raise errors.FileNotFound(path) from None
         try:
@@ -470,9 +529,9 @@ class XLStorage(StorageAPI):
     def _store_meta(self, volume: str, path: str, meta: XLMeta) -> None:
         if not meta.versions:
             # last version removed: delete the whole object dir
-            self.delete_path(volume, path, recursive=True)
+            self._delete_path_inner(volume, path, recursive=True)
             return
-        self.write_all(volume, f"{path}/{XL_META_FILE}", meta.dump())
+        self._write_all_inner(volume, f"{path}/{XL_META_FILE}", meta.dump())
 
     def rename_data(self, src_volume: str, src_path: str, fi: FileInfo,
                     dst_volume: str, dst_path: str) -> None:
@@ -493,9 +552,15 @@ class XLStorage(StorageAPI):
                     os.makedirs(os.path.dirname(dst), exist_ok=True)
                     if os.path.isdir(dst):
                         shutil.rmtree(dst)
+                    # tmp=src: a torn rule tears a shard of the staged
+                    # dataDir before it becomes visible
+                    self._write_step("pre_data_rename", tmp=src)
                     durable_replace_dir(src, dst)
+                    self._write_step("post_data_rename")
+                self._write_step("pre_meta_write")
                 old_ddirs = meta.add_version(fi)
                 self._store_meta(dst_volume, dst_path, meta)
+                self._write_step("post_meta_write")
                 self._purge_ddirs(dst_volume, dst_path, old_ddirs)
             # the tmp parent dir; already-gone is success (a prior call won)
             shutil.rmtree(self._abs(src_volume, src_path.split("/")[0]),
@@ -745,8 +810,9 @@ class XLStorage(StorageAPI):
         of a crash between the dataDir rename and the FIRST journal write
         of a brand-new object. A dir qualifies when it carries a
         quarantined journal or any child dir with ``part.N`` files;
-        non-qualifying dirs recurse as prefixes. Validates at call time,
-        before the first next()."""
+        non-qualifying dirs recurse as prefixes. Validates (and consults the
+        fault plane) at call time, before the first next()."""
+        _fault.inject("disk", self._endpoint, "walk_unjournaled")
         base = self._abs(volume)
         if not os.path.isdir(base):
             raise errors.VolumeNotFound(volume)
@@ -791,7 +857,9 @@ class XLStorage(StorageAPI):
     def walk_dir(self, volume: str, dir_path: str = "",
                  recursive: bool = True) -> Iterator[str]:
         """Sorted object paths (entries owning an xl.meta) under dir_path.
-        Validates the volume at call time, before the first next()."""
+        Validates the volume (and consults the fault plane) at call time,
+        before the first next()."""
+        _fault.inject("disk", self._endpoint, "walk_dir")
         base = self._abs(volume)
         if not os.path.isdir(base):
             raise errors.VolumeNotFound(volume)
@@ -833,7 +901,9 @@ class XLStorage(StorageAPI):
         Marker and prefix push down into the directory descent, so a page
         read touches O(page) of the namespace. Sort order treats non-leaf
         directories as ``name + "/"`` (the reference's trailing-slash
-        convention). Validates the volume at call time."""
+        convention). Validates the volume (and consults the fault plane)
+        at call time."""
+        _fault.inject("disk", self._endpoint, "walk_versions")
         base = self._abs(volume)
         if not os.path.isdir(base):
             raise errors.VolumeNotFound(volume)

@@ -68,14 +68,26 @@ def layer(pkg: str, root):
 @contextlib.contextmanager
 def pinned_clock(monkeypatch):
     """History ids and times from counters: ``time.time_ns``,
-    ``time.time`` and ``uuid.uuid4`` as both registries read them (inside
-    ``_snapshot_locked``), for the duration of one package's sequence."""
+    ``time.time`` and ``uuid.uuid4`` as both registries read them inside
+    ``_snapshot_locked``, for the duration of one package's sequence.
+    Other callers keep the real clock and ids, so what earlier tests in
+    the process left behind (a sampled span context that gives every
+    storage call a span id) cannot advance the counters."""
     ns = itertools.count(1_700_000_000_000_000_000, 1_000_000_007)
     ids = itertools.count(1)
+    real_ns, real_time, real_uuid4 = time.time_ns, time.time, uuid.uuid4
+
+    def snapshot(pinned, real):
+        def draw():
+            caller = sys._getframe(1).f_code.co_name
+            return pinned() if caller == "_snapshot_locked" else real()
+        return draw
+
     with monkeypatch.context() as m:
-        m.setattr(time, "time_ns", lambda: next(ns))
-        m.setattr(time, "time", lambda: 1.7e9)
-        m.setattr(uuid, "uuid4", lambda: uuid.UUID(int=next(ids) << 96))
+        m.setattr(time, "time_ns", snapshot(lambda: next(ns), real_ns))
+        m.setattr(time, "time", snapshot(lambda: 1.7e9, real_time))
+        m.setattr(uuid, "uuid4", snapshot(
+            lambda: uuid.UUID(int=next(ids) << 96), real_uuid4))
         yield
 
 

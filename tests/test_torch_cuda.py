@@ -12,7 +12,8 @@ with tiles forced small so that many rows cross tiles, and one select_scan
 flush and one select through the CUDA queue; the object layer and the S3
 server (signed requests over HTTP, the MRF healing lost drives) and the
 auto-heal monitor's global heal on the card against the CPU, file for
-file. Marked ``cuda``: they skip on hosts
+file; an injected kernel fault failing its flush on the card, and a
+hedged GET rebuilding through K1. Marked ``cuda``: they skip on hosts
 without a CUDA card. On the card:
 
     MINIO_TPU_TEST_ON_DEVICE=1 MINIO_TPU_LOCKRANK=0 \
@@ -561,6 +562,72 @@ def test_queue_fails_a_failed_launch_on_card(dev):
             q.stop()
         assert st["failed_items"] == (6 if fail else 0)
         assert st["salvaged_items"] == 0
+
+
+def test_injected_kernel_error_fails_its_flush_on_card(dev):
+    """A ``kernel`` rule of the fault plane on the card fails its flush as
+    a failed launch does: the waiters get the injected error, the flush
+    is counted failed and nothing is salvaged; the next flush is right."""
+    from minio_tpu_torch import fault
+    from minio_tpu_torch.erasure.bitrot import HIGHWAY_KEY
+    from minio_tpu_torch.ops.rs_torch import get_codec, unpack_shards
+    from minio_tpu_torch.runtime.dispatch import DispatchQueue
+    from minio_tpu_torch.utils import errors
+    codec = get_codec(4, 2, device=dev)
+    cases = [_encode_hashed_case(codec, 200 + s) for s in range(4)]
+    q = DispatchQueue(dev, max_delay=0.05)
+    fault.clear()
+    try:
+        fault.arm("kernel:device:*:error(FaultyDisk)@count=1")
+        futs = [q.encode_hashed(codec, w, HIGHWAY_KEY, 4096, 0)
+                for w, _, _ in cases]
+        for f in futs:
+            with pytest.raises(errors.FaultyDisk):
+                f.result(timeout=120)
+        st = q.stats()
+        assert st["failed_batches"] == 1 and st["failed_items"] == 4
+        assert st["salvaged_items"] == 0
+        for w, parity, digs in cases:
+            par, d = q.encode_hashed(codec, w, HIGHWAY_KEY, 4096,
+                                     0).result(timeout=120)
+            assert np.array_equal(unpack_shards(par), parity)
+            assert np.array_equal(d.view(np.uint8).reshape(6, -1), digs)
+    finally:
+        fault.clear()
+        q.stop()
+
+
+def test_hedged_get_on_card_rebuilds_through_k1(dev, tmp_path, monkeypatch):
+    """A 5 s straggler on one data shard's disk: the hedged GET on the card
+    is right in under 4 s, its block rebuilt by the fused launch (K1 +
+    K5), and the straggler is no failure (no on_partial)."""
+    import time
+    from minio_tpu_torch import fault
+    from minio_tpu_torch.objectlayer import ErasureObjects
+    from minio_tpu_torch.objectlayer.metadata import hash_order
+    from minio_tpu_torch.storage import XLStorage
+    disks = [XLStorage(str(tmp_path / f"d{i:02d}")) for i in range(6)]
+    ol = ErasureObjects(disks, default_parity=2, block_size=1 << 20)
+    ol.make_bucket("b")
+    body = np.random.default_rng(7).bytes(4 << 20)
+    ol.put_object("b", "o", io.BytesIO(body), len(body))
+    assert ol.get_object_bytes("b", "o") == body
+    partial = []
+    ol.on_partial = lambda *a, **kw: partial.append(a)
+    monkeypatch.setenv("MINIO_TPU_HEDGE_MS", "15")
+    d = disks[hash_order("b/o", 6).index(1)]
+    rs_cuda.reset_launches()
+    fault.clear()
+    fault.arm(f"disk:{d.endpoint()}:read_at:delay(5000)")
+    try:
+        t0 = time.perf_counter()
+        assert ol.get_object_bytes("b", "o") == body
+        wall = time.perf_counter() - t0
+    finally:
+        fault.clear()
+    assert wall < 4.0
+    assert rs_cuda.launches["gf_matmul_batched"] > 0
+    assert partial == []
 
 
 def test_interactive_lane_on_card_completes_in_order(dev):

@@ -126,8 +126,13 @@ def test_encode_launches_count_by_batch_size(bsz, bucket):
     assert counts == {"gf_encode_batched": 2}
     assert sizes == {"gf_encode_batched": {bucket: 2}}
     rs_cuda.launch_sizes["gf_encode_batched"][bucket] = 1
+    rs_cuda.launch_sizes["gf_matmul_batched"][bucket] = 1
+    rs_cuda.launch_rows["gf_matmul_batched"][2] = 1
     rs_cuda.reset_launches()
-    assert rs_cuda.launch_sizes == {"gf_encode_batched": {}}
+    # K1's launches are counted by batch size and by output rows too
+    assert rs_cuda.launch_sizes == {"gf_matmul_batched": {},
+                                    "gf_encode_batched": {}}
+    assert rs_cuda.launch_rows == {"gf_matmul_batched": {}}
     assert rs_cuda.launches["gf_encode_batched"] == 0
 
 

@@ -39,7 +39,6 @@ _NOT_PORTED = {
         "minio_tpu_bucket_usage_live_objects",
         "minio_tpu_bucket_usage_live_versions",
         "minio_tpu_bucket_slo_bad_total"),
-    "hedged reads": ("minio_tpu_hedge_threshold_seconds",),
     "the QoS scheduler (spill to the CPU, deadline sizing, lane model)": (
         "minio_tpu_lane_backlog_seconds",
         "minio_tpu_lane_deadline_cuts_total",
@@ -54,8 +53,7 @@ _NOT_PORTED = {
     "input donation (the port donates no buffers)": (
         "minio_tpu_device_obs_ledger_donated_total",),
     "the native PUT and GET routes": (
-        "minio_tpu_pipeline_get_blocks_total",
-        "minio_tpu_pipeline_zero_copy_bytes_total"),
+        "minio_tpu_pipeline_get_blocks_total",),
     "the scan lane's gauge (the port has no workloads.scan switch)": (
         "minio_tpu_workloads_scan_lane",),
 }
@@ -329,7 +327,7 @@ def test_timeline_device_top_qos_and_info(scrapes):
     assert _admin(c, "storageinfo").json()["disks_online"] == 6
 
 
-@pytest.mark.parametrize("op", ["list-users", "fault", "bucketstats",
+@pytest.mark.parametrize("op", ["list-users", "update", "bucketstats",
                                 "logs", "tier", "bandwidth"])
 def test_unported_admin_ops_answer_not_implemented(scrapes, op):
     r = _admin(scrapes["client"], op)

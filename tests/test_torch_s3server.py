@@ -871,8 +871,9 @@ def test_admin_durability_and_service_ops_match_jax(tmp_path, monkeypatch):
 
 def test_unported_planes_answer_not_implemented(tmp_path):
     """What the port does not have answers S3's 501 NotImplemented in the
-    error XML shape; a compressed or tiered object written by the JAX
-    package is refused, never served as its stored bytes."""
+    error XML shape; a tiered object written by the JAX package is
+    refused, never served as its stored bytes (compressed objects are
+    served since the port has the decompressors: test_torch_compress.py)."""
     s = Server("port", tmp_path)
     try:
         c = s.cl
@@ -902,10 +903,9 @@ def test_unported_planes_answer_not_implemented(tmp_path):
         r = requests.post(s.srv.endpoint() + "/",
                           data=b"Action=AssumeRole&Version=2011-06-15")
         assert r.status_code == 501
-        # objects the JAX package stored compressed or transitioned
+        # an object the JAX package transitioned to a tier
         layer = s.srv.obj
-        for key, meta in (("z", "x-minio-internal-compression"),
-                          ("t", "x-minio-internal-transition-tier")):
+        for key, meta in (("t", "x-minio-internal-transition-tier"),):
             c.put_object("b", key, b"y" * 100)
             layer.update_object_meta("b", key, {meta: "v"})
             for method in ("GET", "HEAD"):
@@ -965,7 +965,8 @@ def test_cli_needs_the_card_unless_cpu_is_asked(tmp_path):
 @pytest.mark.parametrize("argv,item", [
     (["/one/disk"], "item 7"),
     (["http://h{1...4}/d"], "item 9"),
-    (["--address", "127.0.0.1:1,127.0.0.1:2", "/d{1...4}"], "item 9"),
+    (["--address", "127.0.0.1:1,127.0.0.1:2", "http://h{1...4}/d"],
+     "item 9"),
     (["--gateway", "nas", "/mnt"], "item 10"),
     (["/p{1...4}", "/plain"], "ellipses"),
 ])

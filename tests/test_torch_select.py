@@ -340,13 +340,28 @@ def test_bad_request_refused_before_any_read(stored, body, err):
 
 
 def test_compressed_object_waits_for_the_object_layer(stored):
-    disks, er, chunk, _, objs = stored
-    size, _ = objs["plain"]
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        select_object_content(
-            _body(QUERY_A), er, [None] * (K + M), size,
-            {"x-minio-internal-compression": "klauspost/compress/s2"}, {},
-            "b", "plain", io.BytesIO(), device="cpu")
+    """A compressed object (an S2 stream the JAX package's compressor
+    made) is inflated before the scan: the records equal the plain
+    object's, BytesScanned is the stored size."""
+    from minio_tpu.utils import compress as jcz
+    disks, er, chunk, plain, objs = stored
+    comp = jcz.S2CompressReader(io.BytesIO(plain)).read()
+    ws = [new_bitrot_writer(d.create_file_writer("b", "s2"), ALGO, chunk)
+          for d in disks]
+    assert erasure_encode(er, io.BytesIO(comp), ws, K) == len(comp)
+    for w in ws:
+        w.close()
+    readers = [new_bitrot_reader(d.read_file_at("b", "s2"), ALGO,
+                                 er.shard_file_size(len(comp)), chunk)
+               for d in disks]
+    out = io.BytesIO()
+    st = select_object_content(
+        _body(OBJ_SQL), er, readers, len(comp),
+        {"x-minio-internal-compression": jcz.ALGO_S2}, {}, "b", "s2", out,
+        device="cpu")
+    want, _ = _select(stored, "plain", OBJ_SQL)
+    assert records(out.getvalue()) == records(want) and records(want)
+    assert st["scanned"] == len(comp) < len(plain) == st["processed"]
 
 
 def test_lineitem_text_holds_no_fallback_bytes():
