@@ -41,7 +41,7 @@ Phases, each printing one JSON line:
    detected with the GET still exact, and erasure_heal of all 64 objects
    with the healed files byte-identical to the originals. One object's
    first block is also checked against the host reference math.
-6. SSE path (HighwayHash256S, the default bitrot algorithm) — 64 SSE-C
+6. SSE path (HighwayHash256S, the default bitrot algorithm) — 32 SSE-C
    ChaCha20-Poly1305 objects of 4 MiB (every second one 333 bytes short,
    so it ends in a short package), each under its own customer key made
    from --seed, at 16+4 / 1 MiB / 16 KiB chunks: PUT through
@@ -64,15 +64,15 @@ Phases, each printing one JSON line:
    ServerPools over one pool of two 16+4 erasure sets (40 disk
    directories, ErasureSets placing each name by SipHash under a
    deployment id made from --seed), 1 MiB blocks, HighwayHash256S with
-   16 KiB chunks. PUT of 128 objects of 4 MiB from 64 threads (each fused
+   16 KiB chunks. PUT of 64 objects of 4 MiB from 64 threads (each fused
    ETag equal to pipeline_etag_reference of the body, every xl.meta
    naming its set's geometry), 64 objects of 100 KiB (MD5 ETags) and one
    multipart object of 8 MiB + 8 MiB + 5 MiB and 333 bytes (the -3 ETag of
-   etag_from_parts); list_objects of all 193 in order with sizes and
+   etag_from_parts); list_objects of all 129 in order with sizes and
    ETags; GET of all, byte-exact, and ranged GETs across a block and a
    part boundary; two drives of each set replaced by empty ones (their
-   files kept aside) and heal_bucket; degraded GET of the 128 big objects,
-   counting those that needed a rebuild; heal_object of all 193 from 128
+   files kept aside) and heal_bucket; degraded GET of the 64 big objects,
+   counting those that needed a rebuild; heal_object of all 129 from 128
    threads, per-object p50/p99, every healed xl.meta and part.* equal to
    the kept files; one flipped byte in a data shard: the GET stays exact,
    on_partial reports a deep scan, and a deep heal restores the shard.
@@ -157,7 +157,7 @@ Phases, each printing one JSON line:
 11. background path — the background heal plane over the S3 server
    (S3Server over one pool of two 16+4 sets, 40 disk directories, 1 MiB
    blocks, HighwayHash256S, start_background_services(): the MRF, the data
-   scanner, the auto-heal monitor): 256 objects of 4 MiB under two levels
+   scanner, the auto-heal monitor): 128 objects of 4 MiB under two levels
    of prefixes in 4 buckets and 64 of 100 KiB, from --seed. A normal
    scanner cycle whose usage snapshot, per-prefix trees and size classes
    equal the script's own count, as GET /minio/admin/v3/datausageinfo
@@ -166,7 +166,7 @@ Phases, each printing one JSON line:
    tracker); a flipped byte in 16 shard files, which the deep cycle queues
    to the MRF and the MRF heals (verify_file then passes); two drives of
    each set wiped, their healing trackers set and the monitor kicked: its
-   global heal of all 328 objects from 128 workers, the per-object heal
+   global heal of all 200 objects from 128 workers, the per-object heal
    wall p50/p99, every shard on the replaced drives verified and the
    trackers cleared; one drive's root renamed away until its health
    tracker trips, 16 PUTs to its set, the root renamed back: the probe
@@ -183,7 +183,7 @@ Phases, each printing one JSON line:
 12. host path — the host pieces of the object path over the S3 server
    (S3Server over one pool of two 16+4 sets, 40 disk directories, 1 MiB
    blocks, HighwayHash256S, 32 signing clients; the MRF running). (a)
-   With MINIO_TPU_COMPRESSION=on, 64 objects of TPC-H lineitem text (the
+   With MINIO_TPU_COMPRESSION=on, 32 objects of TPC-H lineitem text (the
    select path's table, each cut at the first row boundary at or past 4
    MiB) PUT as .csv: each stored as an S2 stream, its ETag the plaintext's
    MD5 from the shared MD5 lanes (rounds and streams per round printed);
@@ -192,7 +192,7 @@ Phases, each printing one JSON line:
    compressed objects held to the rows built from the generated columns
    (BytesScanned the stored size); the stored-over-plain ratio, the PUT
    and GET walls and plaintext GiB/s. (b) A 300 ms delay rule on the
-   shard reads of one drive of each set; GET of the 64 from 32 clients
+   shard reads of one drive of each set; GET of the 32 from 32 clients
    with hedging on (the default adaptive threshold, each turn from an
    empty shard-read window) and off, one ABBA block (on, off, off, on):
    GET p50/p99 per turn, the threshold at each turn's start and end,
@@ -207,6 +207,33 @@ Phases, each printing one JSON line:
    in-process PUT, then a new layer over the same directories (startup
    recovery) and a janitor sweep: the object absent or whole. K1, K2, K5
    and K6 must launch.
+13. iam path — a multi-tenant deployment on one S3Server with IAM
+   (``enable_iam()``) over one 16+4 set, 20 disk directories, 1 MiB
+   blocks, HighwayHash256S, entry points without a device argument (the
+   card). Over the admin API through ``minio_tpu_torch.madmin``: 40 canned
+   policies, 200 users in 20 groups with group policies and 16 service
+   accounts, each mutation rewriting ``.minio.sys/config/iam/state.json``
+   on every drive (the mutation walls' p50/p99 and the document's size).
+   40 buckets, created by root in order, so the first 32 (the bucket
+   analytics' ``top_n``) are tracked and the rest fold into
+   ``_overflow_``. 16 tenants from 32 client threads: 8 users, 4 service
+   accounts, 2 AssumeRole sessions under a session policy that narrows a
+   readwrite parent to the tenant's bucket and 2 AssumeRoleWithWebIdentity
+   sessions from an HS256 OpenID provider (MINIO_TPU_OPENID_HMAC_SECRET),
+   each PUTting 4 objects of 4 MiB into its bucket, GETting them back
+   exact and again with two drives' copies taken away (K1), with walls,
+   GiB/s and p50/p99 per principal kind. Each tenant's PUT and GET in
+   another tenant's bucket answer 403 AccessDenied, the refused PUTs
+   launching no K2; an expired STS credential is refused; a public-read
+   bucket policy serves an anonymous GET. One ABBA block of 16 PUTs of 4
+   MiB by root and by an IAM user, and the policy gate alone in process.
+   The admin bucketstats report equals the clients' own count of requests,
+   body bytes taken in and bytes sent back per tracked bucket and for the
+   ``_overflow_`` row; a scanner cycle's reconcile finds exactly the
+   overwritten ABBA bytes as drift (the live deltas count an overwrite as
+   a new object) and a second cycle finds none. A loopback receiver as the
+   audit webhook gets one entry per request issued (S3 and admin), each
+   ``request_id`` a trace id, none dropped. K1, K2 and K5 must launch.
 
 Each sub-phase of a path reports, beside its wall and GiB/s, the streams'
 occupancy (``stream_occupancy``: the union of the flushes' CUDA-event
@@ -269,8 +296,8 @@ BLOCK = 1 << 20
 CHUNK = 16384
 N_OBJECTS = 128
 #: the SSE path's objects: cut from 128 when the background path came, to
-#: keep the script near 750 s
-SSE_OBJECTS = 64
+#: keep the script near 750 s, and from 64 when the iam path came
+SSE_OBJECTS = 32
 #: the MUR3X256S path's objects: cut from 128 so that the whole script,
 #: the select path included, stays near four minutes
 MUR3_OBJECTS = 64
@@ -298,11 +325,13 @@ QUERY_A = ("SELECT s._1, s._2, s._5 FROM s3object s "
 QUERY_B = "SELECT s._1 FROM s3object s WHERE s._6 < 1000.5"
 SSE_EVERY = 9
 DEGRADED_EVERY = 4
-#: the object layer path: one pool of OL_SETS 16+4 sets; 128 objects of
-#: 4 MiB PUT and GET from 64 threads, OL_SMALL of 100 KiB, one multipart
-#: object of OL_PARTS; two drives of each set (OL_LOST) replaced by empty
-#: ones; every object healed from 128 threads
+#: the object layer path: one pool of OL_SETS 16+4 sets; OL_BIG objects of
+#: 4 MiB PUT and GET from 64 threads (N_OBJECTS, 128, until the iam path
+#: came), OL_SMALL of 100 KiB, one multipart object of OL_PARTS; two drives
+#: of each set (OL_LOST) replaced by empty ones; every object healed from
+#: 128 threads
 OL_SETS = 2
+OL_BIG = 64
 OL_SMALL = 64
 OL_SMALL_BYTES = 100 << 10
 OL_PARTS = (8 << 20, 8 << 20, (5 << 20) + 333)
@@ -2373,12 +2402,15 @@ def phase_objectlayer(device, n_big: int, big_bytes: int, n_small: int,
 
 class _S3Client:
     """A signing S3 client over http.client, as a user's SDK drives the
-    server: SigV4 from the port's server/auth.py, one keep-alive connection
-    per thread, the latency of every request kept for the step's p50/p99."""
+    server: SigV4 from the port's server/auth.py under the root credentials
+    or the given ones, one keep-alive connection per thread, the latency of
+    every request kept for the step's p50/p99."""
 
-    def __init__(self, port: int):
+    def __init__(self, port: int, access_key: str = S3_ACCESS_KEY,
+                 secret_key: str = S3_SECRET_KEY):
         from minio_tpu_torch.server.auth import SigV4Verifier
         self.port = port
+        self.access_key, self.secret_key = access_key, secret_key
         self.host = f"127.0.0.1:{port}"
         self.signer = SigV4Verifier(lambda ak: None, S3_REGION)
         self._local = threading.local()
@@ -2463,7 +2495,7 @@ class _S3Client:
         query = {k: [v] for k, v in (query or {}).items()}
         h = {"host": self.host, **(headers or {})}
         h["authorization"] = self.signer.sign_request(
-            S3_ACCESS_KEY, S3_SECRET_KEY, method, path, query, h,
+            self.access_key, self.secret_key, method, path, query, h,
             UNSIGNED_PAYLOAD)
         qs = urllib.parse.urlencode([(k, v[0]) for k, v in query.items()])
         url = urllib.parse.quote(path) + (f"?{qs}" if qs else "")
@@ -4014,9 +4046,10 @@ def phase_obs(device, n_objects: int, obj_bytes: int, card: str,
 #: while BG_TRIP_PUTS objects land on its set; the wrapper's cost is the
 #: in-process PUT and GET of BG_WRAP objects with MINIO_TPU_HEALTH off and
 #: on, a warm-up turn then one ABBA block (three until the SSE-KMS path
-#: came, to keep the script well inside its time limit)
+#: came, to keep the script well inside its time limit); BG_BIG was 256
+#: until the iam path came, for the same reason
 BG_BUCKETS = ("logs", "media", "backup", "data")
-BG_BIG = 256
+BG_BIG = 128
 BG_SMALL = 64
 BG_NEW = 8
 BG_CORRUPT = 16
@@ -4569,7 +4602,7 @@ def phase_background(device, sizes: dict, card: str, seed: int) -> dict:
 #: lanes) PUT as .csv with compression on, HOST_RANGES ranged GETs; the
 #: hedge segment's straggler delay on one drive of each set and its ABBA
 #: turns (hedging on = A); the fault segment's objects
-HOST_OBJECTS = 64
+HOST_OBJECTS = 32
 HOST_RANGES = 64
 HOST_DELAY_MS = 300
 HOST_TURNS = ("on", "off", "off", "on")
@@ -4996,6 +5029,567 @@ def phase_hostpath(device, table: dict, n_objects: int, obj_bytes: int,
     return result
 
 
+IAM_USERS = 200
+IAM_GROUPS = 20
+IAM_POLICIES = 40
+IAM_SERVICE_ACCOUNTS = 16
+IAM_BUCKETS = 40
+IAM_OBJECTS = 4
+IAM_ABBA = 16
+IAM_DENIED_BYTES = 64 << 10
+IAM_LOST = (0, 9)
+IAM_TURNS = ("root", "user", "user", "root")
+IAM_GATE_CALLS = 20000
+IAM_OPENID_SECRET = "smoke-openid-hs256-secret"
+#: the 16 tenants' principal kinds: 8 users, 4 service accounts, 2
+#: AssumeRole sessions under a narrowing session policy, 2 web-identity
+#: sessions from the HS256 OpenID provider
+IAM_KINDS = ("user",) * 8 + ("service_account",) * 4 + \
+    ("sts_assume_role",) * 2 + ("sts_web_identity",) * 2
+
+
+class _AuditReceiver:
+    """A loopback audit webhook: keeps the request id of every entry the
+    server's audit target POSTs."""
+
+    def __init__(self):
+        import http.server
+        self.ids: list = []
+        self.lock = threading.Lock()
+        rx = self
+
+        class H(http.server.BaseHTTPRequestHandler):
+            def do_POST(self):
+                doc = json.loads(self.rfile.read(
+                    int(self.headers["Content-Length"])))
+                with rx.lock:
+                    rx.ids.append((doc.get("request_id", ""),
+                                   doc.get("trace_id", ""),
+                                   doc.get("api", "")))
+                self.send_response(200)
+                self.send_header("Content-Length", "0")
+                self.end_headers()
+
+            def log_message(self, *a):
+                pass
+
+        self.httpd = http.server.ThreadingHTTPServer(("127.0.0.1", 0), H)
+        self.thread = threading.Thread(target=self.httpd.serve_forever,
+                                       name="smoke-audit-receiver",
+                                       daemon=True)
+        self.thread.start()
+        self.url = f"http://127.0.0.1:{self.httpd.server_port}/audit"
+
+    def close(self):
+        self.httpd.shutdown()
+        self.httpd.server_close()
+        self.thread.join(timeout=5)
+
+
+def _hs256(claims: dict, secret: str) -> str:
+    """An HS256 JWT, as a development OpenID provider signs one."""
+    import base64
+    import hashlib
+    import hmac
+
+    def b64(raw: bytes) -> str:
+        return base64.urlsafe_b64encode(raw).rstrip(b"=").decode()
+
+    head = b64(json.dumps({"alg": "HS256", "typ": "JWT"}).encode())
+    body = b64(json.dumps(claims).encode())
+    sig = hmac.new(secret.encode(), f"{head}.{body}".encode(),
+                   hashlib.sha256).digest()
+    return f"{head}.{body}.{b64(sig)}"
+
+
+def phase_iam(device, sizes: dict, card: str, seed: int) -> dict:
+    """The multi-tenant path (module docstring, step 13): IAM state made
+    over the admin API, 16 principals of four kinds PUT, GET and degraded
+    GET in their own buckets, refused in each other's, the bucket analytics
+    against the clients' counts, the scanner's reconcile, and the audit log
+    on a loopback webhook."""
+    import http
+    import re
+    import urllib.parse
+    import numpy as np
+    from minio_tpu_torch.config import get_config_sys
+    from minio_tpu_torch.madmin import AdminClient
+    from minio_tpu_torch.objectlayer import ErasureObjects
+    from minio_tpu_torch.obs import bucketstats
+    from minio_tpu_torch.obs import logger as obs_logger
+    from minio_tpu_torch.obs.metrics import counters_snapshot
+    from minio_tpu_torch.runtime.dispatch import global_queue
+    from minio_tpu_torch.scanner.scanner import DataScanner
+    from minio_tpu_torch.server import S3Server
+    from minio_tpu_torch.storage.xlstorage import XLStorage
+
+    n_obj, obj_bytes, n_abba = sizes["objects"], sizes["bytes"], \
+        sizes["abba"]
+    n_disks = K + M
+    root = _disk_root("iam")
+    disk_dirs = [os.path.join(root, f"d{i:02d}") for i in range(n_disks)]
+    on_card = device.type == "cuda"
+    # the card's entry points take no device argument; the rehearsal names
+    # the host
+    kw = {} if on_card else {"device": "cpu"}
+    layer = ErasureObjects([XLStorage(d) for d in disk_dirs],
+                           default_parity=M, block_size=BLOCK, **kw)
+    q = global_queue(device)
+    get_config_sys().obj = None
+    bucketstats.reset()
+    receiver = _AuditReceiver()
+    old_env = _env({"MINIO_TPU_AUDIT_WEBHOOK_ENDPOINT": receiver.url,
+                    "MINIO_TPU_OPENID_HMAC_SECRET": IAM_OPENID_SECRET})
+    obs_logger.reset()
+    srv = S3Server(layer, "127.0.0.1", 0, access_key=S3_ACCESS_KEY,
+                   secret_key=S3_SECRET_KEY, region=S3_REGION, **kw)
+    iam = srv.enable_iam()
+    srv.start_background()
+    host = f"127.0.0.1:{srv.port}"
+    result = {"deployment": f"1 set x {n_disks} drives", "geometry":
+              f"{K}+{M}", "block": BLOCK, "bitrot": "HighwayHash256S",
+              "card": card, "client_threads": S3_THREADS,
+              "cut": "one process over local disk directories, clients "
+                     "and the audit receiver over loopback"}
+    reset_launches()
+
+    # every request the clients issue, by bucket: requests, body bytes the
+    # server took in (a refused request's body is drained unread), bytes
+    # on the wire back (status line, headers, body); and the request ids
+    acct: dict = {}
+    issued: list = []
+    lock = threading.Lock()
+
+    def wire_bytes(status: int, headers: dict, data: bytes) -> int:
+        line = f"HTTP/1.1 {status} {http.HTTPStatus(status).phrase}\r\n"
+        return len(line) + sum(len(f"{k}: {v}\r\n")
+                               for k, v in headers.items()) + 2 + len(data)
+
+    def call(client, method, path, body=b"", headers=None, query=None,
+             signed=True):
+        if signed:
+            st, h, data = client.request(method, path, query=query,
+                                         body=body, headers=headers)
+        else:
+            st, h, data = client.send(method, path, body, {
+                "host": host, **(headers or {})})
+        bucket = path.lstrip("/").split("/", 1)[0]
+        with lock:
+            issued.append(h.get("x-amz-request-id", ""))
+            if bucket:
+                row = acct.setdefault(bucket, [0, 0, 0])
+                row[0] += 1
+                row[1] += len(body) if 200 <= st < 300 else 0
+                row[2] += wire_bytes(st, h, data)
+        return st, h, data
+
+    def ok(st, want, what):
+        check(st == want, f"{what}: HTTP {st}, want {want}")
+
+    admin_calls = [0]
+    adm = AdminClient(srv.endpoint(), S3_ACCESS_KEY, S3_SECRET_KEY,
+                      region=S3_REGION)
+
+    def admin(fn, *args, **kwargs):
+        t0 = time.monotonic()
+        out = fn(*args, **kwargs)
+        admin_calls[0] += 1
+        return out, time.monotonic() - t0
+
+    # IAM state over the admin API: every mutation rewrites state.json
+    # through the erasure set's config plane
+    tenants = [f"t{i:02d}" for i in range(len(IAM_KINDS))]
+    buckets = tenants + [f"s{i:02d}" for i in range(len(tenants),
+                                                    IAM_BUCKETS)]
+    mut_walls: list = []
+    for i, b in enumerate(buckets[:IAM_POLICIES]):
+        doc = json.dumps({"Version": "2012-10-17", "Statement": [{
+            "Effect": "Allow", "Action": ["s3:*"],
+            "Resource": [f"arn:aws:s3:::{b}", f"arn:aws:s3:::{b}/*"]}]})
+        mut_walls.append(admin(adm.add_canned_policy, f"p{i:02d}",
+                               doc.encode())[1])
+    users = [f"u{i:03d}" for i in range(IAM_USERS)]
+    secret = {u: f"{u}-secret-{seed % 1000:03d}" for u in users}
+    for i, u in enumerate(users):
+        # tenants' owners hold their tenant's policy; the AssumeRole
+        # parents a broad one their session policy narrows
+        kind = IAM_KINDS[i] if i < len(IAM_KINDS) else "spare"
+        pol = ["readwrite"] if kind == "sts_assume_role" else \
+            [f"p{i:02d}"] if kind in ("user", "service_account") else []
+        mut_walls.append(admin(adm.add_user, u, secret[u], pol)[1])
+    for g in range(IAM_GROUPS):
+        members = users[g::IAM_GROUPS]
+        mut_walls.append(admin(adm.add_user_to_group, f"g{g:02d}",
+                               members)[1])
+        mut_walls.append(admin(adm.set_policy, f"g{g:02d}",
+                               [f"p{len(tenants) + g:02d}"],
+                               group=True)[1])
+    sa_creds = []
+    for j in range(IAM_SERVICE_ACCOUNTS):
+        parent = users[8 + j] if j < 4 else users[len(IAM_KINDS) + j]
+        out, wall = admin(adm.add_service_account, parent)
+        mut_walls.append(wall)
+        sa_creds.append((out["accessKey"], out["secretKey"]))
+    state = layer.get_config("iam/state.json")
+    check(len(iam.users) == IAM_USERS + IAM_SERVICE_ACCOUNTS and
+          len(iam.groups) == IAM_GROUPS and
+          len(iam.policies) == IAM_POLICIES + 4,
+          "the IAM state does not hold what the admin calls made")
+    result["iam_state"] = {
+        "users": IAM_USERS, "groups": IAM_GROUPS,
+        "canned_policies": IAM_POLICIES,
+        "service_accounts": IAM_SERVICE_ACCOUNTS,
+        "mutations": len(mut_walls),
+        "mutation_p50_ms": _percentile(mut_walls, 0.50) * 1e3,
+        "mutation_p99_ms": _percentile(mut_walls, 0.99) * 1e3,
+        "mutation_wall_s": sum(mut_walls),
+        "state_json_bytes": len(state),
+        "state_json_copies": sum(os.path.exists(os.path.join(
+            d, ".minio.sys", "config", "iam", "state.json"))
+            for d in disk_dirs)}
+
+    # the buckets, by root, in order (the first top_n are tracked)
+    rootc = _S3Client(srv.port)
+    for b in buckets:
+        ok(call(rootc, "PUT", f"/{b}")[0], 200, f"PUT bucket {b}")
+
+    # the 16 principals' credentials
+    principals = []
+    for i, kind in enumerate(IAM_KINDS):
+        if kind == "user":
+            ak, sk = users[i], secret[users[i]]
+        elif kind == "service_account":
+            ak, sk = sa_creds[i - 8]
+        elif kind == "sts_assume_role":
+            session = json.dumps({"Statement": [{
+                "Effect": "Allow", "Action": ["s3:*"],
+                "Resource": [f"arn:aws:s3:::{tenants[i]}",
+                             f"arn:aws:s3:::{tenants[i]}/*"]}]})
+            parent = _S3Client(srv.port, users[i], secret[users[i]])
+            form = urllib.parse.urlencode({
+                "Action": "AssumeRole", "Version": "2011-06-15",
+                "DurationSeconds": "3600", "Policy": session}).encode()
+            st, _h, data = call(parent, "POST", "/", form, {
+                "content-type": "application/x-www-form-urlencoded"})
+            ok(st, 200, f"AssumeRole of {users[i]}")
+            ak = re.search(rb"<AccessKeyId>([^<]+)<", data).group(1)
+            sk = re.search(rb"<SecretAccessKey>([^<]+)<", data).group(1)
+            ak, sk = ak.decode(), sk.decode()
+            parent.close()
+        else:
+            token = _hs256({"sub": f"tenant-{i}", "exp": int(time.time())
+                            + 3600, "policy": f"p{i:02d}"},
+                           IAM_OPENID_SECRET)
+            form = urllib.parse.urlencode({
+                "Action": "AssumeRoleWithWebIdentity",
+                "WebIdentityToken": token,
+                "Version": "2011-06-15"}).encode()
+            st, _h, data = call(rootc, "POST", "/", form, {
+                "content-type": "application/x-www-form-urlencoded"},
+                signed=False)
+            ok(st, 200, f"AssumeRoleWithWebIdentity of tenant {i}")
+            ak = re.search(rb"<AccessKeyId>([^<]+)<", data).group(1)
+            sk = re.search(rb"<SecretAccessKey>([^<]+)<", data).group(1)
+            ak, sk = ak.decode(), sk.decode()
+        principals.append((kind, tenants[i], _S3Client(srv.port, ak, sk)))
+
+    gen = np.random.default_rng(seed + 13)
+    bodies = {(t, j): gen.bytes(obj_bytes) for t in tenants
+              for j in range(n_obj)}
+    # object-major: every wave of the 32 threads holds every principal
+    # kind, so no kind waits behind another's requests
+    jobs = [(p, j) for j in range(n_obj) for p in principals]
+
+    def run(label, fn, items, nbytes, kernels=()):
+        _reset(q)
+        before = read_launches()
+        with _HashClocks() as hashes:
+            t0 = time.monotonic()
+            with ThreadPoolExecutor(max_workers=S3_THREADS) as ex:
+                res = list(ex.map(fn, items))
+            wall = time.monotonic() - t0
+        row = _phase_row(q, nbytes, wall, hashes)
+        after = read_launches()
+        row["launches"] = {k: after[k] - before.get(k, 0) for k in after}
+        # per principal kind: requests, wall (first start to last end),
+        # GiB/s and the request p50/p99
+        kinds: dict = {}
+        for kind, t0k, t1k, n in res:
+            kinds.setdefault(kind, []).append((t0k, t1k, n))
+        row["by_kind"] = {k: {
+            "requests": len(v),
+            "wall_s": max(e for _, e, _ in v) - min(s for s, _, _ in v),
+            "gib_s": sum(n for *_, n in v) / 2**30 /
+            (max(e for _, e, _ in v) - min(s for s, _, _ in v)),
+            "p50_ms": _percentile([e - s for s, e, _ in v], 0.50) * 1e3,
+            "p99_ms": _percentile([e - s for s, e, _ in v], 0.99) * 1e3}
+            for k, v in sorted(kinds.items())}
+        result[label] = row
+        if on_card:
+            for name in kernels:
+                check(row["launches"][name] > 0,
+                      f"kernel {name} never launched in iam {label}")
+        return res
+
+    def put(job):
+        (kind, tenant, client), j = job
+        t0 = time.monotonic()
+        st, _h, data = call(client, "PUT", f"/{tenant}/obj-{j}",
+                            bodies[(tenant, j)])
+        ok(st, 200, f"{kind} PUT {tenant}/obj-{j}: {data[:200]!r}")
+        return kind, t0, time.monotonic(), obj_bytes
+
+    def get(job):
+        (kind, tenant, client), j = job
+        t0 = time.monotonic()
+        st, _h, data = call(client, "GET", f"/{tenant}/obj-{j}")
+        ok(st, 200, f"{kind} GET {tenant}/obj-{j}")
+        check(data == bodies[(tenant, j)],
+              f"{kind} GET {tenant}/obj-{j} is not exact")
+        return kind, t0, time.monotonic(), obj_bytes
+
+    total = len(jobs) * obj_bytes
+    run("put", put, jobs, total, ("gf_encode_batched",
+                                  "highwayhash256_chunks"))
+    run("get", get, jobs, total, ("highwayhash256_chunks",))
+    # two drives' copies of every tenant bucket taken away, then back
+    aside = os.path.join(root, "offline")
+    os.makedirs(aside, exist_ok=True)
+    for i in IAM_LOST:
+        for t in tenants:
+            os.rename(os.path.join(disk_dirs[i], t),
+                      os.path.join(aside, f"{i}-{t}"))
+    run("degraded_get", get, jobs, total, ("gf_matmul_batched",
+                                           "highwayhash256_chunks"))
+    for i in IAM_LOST:
+        for t in tenants:
+            os.rename(os.path.join(aside, f"{i}-{t}"),
+                      os.path.join(disk_dirs[i], t))
+
+    # each principal's cross-tenant PUT and GET: 403 AccessDenied, and no
+    # encode launched for the refused PUTs
+    denied = {"put": [], "get": []}
+    denied_body = gen.bytes(IAM_DENIED_BYTES)
+    before = read_launches()
+    for n, (kind, tenant, client) in enumerate(principals):
+        other = tenants[(n + 1) % len(tenants)]
+        st, _h, data = call(client, "PUT", f"/{other}/intruder",
+                            denied_body)
+        denied["put"].append(st)
+        check(st == 403 and b"<Code>AccessDenied</Code>" in data,
+              f"{kind} PUT into {other}: HTTP {st}")
+    after = read_launches()
+    k2_denied = after["gf_encode_batched"] - before["gf_encode_batched"]
+    check(k2_denied == 0, f"the refused PUTs launched K2 {k2_denied} times")
+    for n, (kind, tenant, client) in enumerate(principals):
+        other = tenants[(n + 1) % len(tenants)]
+        st, _h, data = call(client, "GET", f"/{other}/obj-0")
+        denied["get"].append(st)
+        check(st == 403 and b"<Code>AccessDenied</Code>" in data,
+              f"{kind} GET from {other}: HTTP {st}")
+    # an expired STS credential is refused
+    parent = _S3Client(srv.port, users[0], secret[users[0]])
+    form = urllib.parse.urlencode({"Action": "AssumeRole",
+                                   "DurationSeconds": "900"}).encode()
+    st, _h, data = call(parent, "POST", "/", form, {
+        "content-type": "application/x-www-form-urlencoded"})
+    ok(st, 200, "AssumeRole to expire")
+    ak = re.search(rb"<AccessKeyId>([^<]+)<", data).group(1).decode()
+    sk = re.search(rb"<SecretAccessKey>([^<]+)<", data).group(1).decode()
+    expired = _S3Client(srv.port, ak, sk)
+    ok(call(expired, "GET", f"/{tenants[0]}/obj-0")[0], 200,
+       "GET with the fresh STS credential")
+    iam.users[ak].expiration = time.time() - 1
+    expired_st, _h, data = call(expired, "GET", f"/{tenants[0]}/obj-0")
+    check(expired_st == 403 and b"InvalidAccessKeyId" in data,
+          f"an expired STS credential answered HTTP {expired_st}")
+    # a public-read bucket policy serves an anonymous GET
+    public = buckets[len(tenants)]
+    pub_body = gen.bytes(obj_bytes)
+    ok(call(rootc, "PUT", f"/{public}/index.bin", pub_body)[0], 200,
+       "PUT into the public bucket")
+    anon = _S3Client(srv.port)
+    ok(call(anon, "GET", f"/{public}/index.bin", signed=False)[0], 403,
+       "anonymous GET before the bucket policy")
+    pol = json.dumps({"Statement": [{
+        "Effect": "Allow", "Principal": "*", "Action": "s3:GetObject",
+        "Resource": f"arn:aws:s3:::{public}/*"}]}).encode()
+    ok(call(rootc, "PUT", f"/{public}", pol, query={"policy": ""})[0], 204,
+       "PUT bucket policy")
+    anon_st, _h, data = call(anon, "GET", f"/{public}/index.bin",
+                             signed=False)
+    check(anon_st == 200 and data == pub_body,
+          f"anonymous GET: HTTP {anon_st}")
+    ok(call(anon, "PUT", f"/{public}/evil", b"x", signed=False)[0], 403,
+       "anonymous PUT")
+    # the spare buckets past the tracked ones take a small object each
+    for b in buckets[bucketstats.top_n():]:
+        ok(call(rootc, "PUT", f"/{b}/spare", gen.bytes(1000))[0], 200,
+           f"PUT into {b}")
+    result["denials"] = {"cross_tenant_put": denied["put"],
+                         "cross_tenant_get": denied["get"],
+                         "k2_launches_for_refused_puts": k2_denied,
+                         "expired_sts": expired_st,
+                         "anonymous_public_get": anon_st}
+
+    # one ABBA block: root against an IAM user on the same PUTs; and the
+    # policy gate alone, in process
+    abba_client = {"root": rootc, "user": principals[0][2]}
+    abba_keys = [f"abba/{j}" for j in range(n_abba)]
+    abba_body = gen.bytes(obj_bytes)
+    turns = []
+
+    def abba_put(arg):
+        who, key = arg
+        t0 = time.monotonic()
+        st, _h, _d = call(abba_client[who], "PUT", f"/{tenants[0]}/{key}",
+                          abba_body)
+        ok(st, 200, f"{who} PUT {key}")
+        return time.monotonic() - t0
+
+    for who in IAM_TURNS:
+        t0 = time.monotonic()
+        with ThreadPoolExecutor(max_workers=S3_THREADS) as ex:
+            lat = list(ex.map(abba_put, [(who, k) for k in abba_keys]))
+        wall = time.monotonic() - t0
+        turns.append({"principal": who, "wall_s": wall,
+                      "gib_s": n_abba * obj_bytes / wall / 2**30,
+                      "p50_ms": _percentile(lat, 0.5) * 1e3,
+                      "p99_ms": _percentile(lat, 0.99) * 1e3,
+                      "mean_ms": statistics.fmean(lat) * 1e3})
+    pairs = [(turns[1], turns[0]), (turns[2], turns[3])]
+    gate = {}
+    user_ak = principals[0][2].access_key
+    for who, ak in (("root", S3_ACCESS_KEY), ("user", user_ak)):
+        per_call = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            for _ in range(IAM_GATE_CALLS):
+                srv.authorize(ak, "s3:PutObject", tenants[0], "abba/0")
+            per_call.append((time.perf_counter() - t0) / IAM_GATE_CALLS)
+        gate[who] = {"calls": 5 * IAM_GATE_CALLS,
+                     "us_per_call_median": statistics.median(per_call) * 1e6,
+                     "us_per_call_min": min(per_call) * 1e6,
+                     "us_per_call_max": max(per_call) * 1e6}
+    result["abba_root_vs_user"] = {
+        "turns": turns,
+        "user_over_root_wall": [u["wall_s"] / r["wall_s"] for u, r in pairs],
+        "gate_cost_per_request_ms": [u["mean_ms"] - r["mean_ms"]
+                                     for u, r in pairs],
+        "gate_in_process": gate}
+    kinds = result["put"]["by_kind"]
+    kinds["root"] = {"requests": n_abba * 2,
+                     "wall_s": turns[0]["wall_s"] + turns[3]["wall_s"],
+                     "gib_s": 2 * n_abba * obj_bytes / 2**30 /
+                     (turns[0]["wall_s"] + turns[3]["wall_s"]),
+                     "p50_ms": statistics.median(
+                         [turns[0]["p50_ms"], turns[3]["p50_ms"]]),
+                     "p99_ms": max(turns[0]["p99_ms"], turns[3]["p99_ms"]),
+                     "from": "the ABBA block's root turns"}
+
+    # the bucket analytics against the clients' counts
+    stats, _ = admin(adm.bucket_stats)
+    top_n = stats["top_n"]
+    tracked = buckets[:top_n]
+    check(stats["tracked"] == len(tracked) and
+          set(stats["buckets"]) == set(tracked) | {bucketstats.OVERFLOW},
+          f"tracked buckets {sorted(stats['buckets'])}")
+    want = {b: acct.get(b, [0, 0, 0]) for b in tracked}
+    over = [0, 0, 0]
+    for b, row in acct.items():
+        if b not in tracked:
+            over = [x + y for x, y in zip(over, row)]
+    want[bucketstats.OVERFLOW] = over
+    got = {b: [r["requests_total"], r["bytes_in"], r["bytes_out"]]
+           for b, r in stats["buckets"].items()}
+    for b in want:
+        check(got[b] == want[b], f"bucketstats of {b}: server {got[b]}, "
+                                 f"clients {want[b]}")
+    check(over[0] > 0, "no request reached the _overflow_ row")
+    # a scanner cycle snaps the live usage to the scanned usage. The live
+    # deltas charge an overwrite as a new object (as the JAX package's
+    # do): the first reconcile's drift is exactly the ABBA block's
+    # overwritten PUTs in its bucket; a second cycle with no traffic in
+    # between finds a drift of 0
+    live = {b: r["usage"] for b, r in stats["buckets"].items()}
+    scanner = DataScanner(layer, sleep_per_object=0)
+    snap = scanner.scan_cycle()
+    first, _ = admin(adm.bucket_stats)
+    overwritten = (len(IAM_TURNS) - 1) * n_abba * obj_bytes
+    check(first["drift_bytes"] == {tenants[0]: overwritten},
+          f"first reconcile drift {first['drift_bytes']}, want "
+          f"{ {tenants[0]: overwritten} }")
+    snap = scanner.scan_cycle()
+    after_scan, _ = admin(adm.bucket_stats)
+    check(after_scan["drift_bytes"] == {},
+          f"second reconcile drift {after_scan['drift_bytes']}")
+    for b in tracked:
+        check(after_scan["buckets"][b]["usage"]["bytes"] ==
+              snap["buckets"].get(b, {}).get("size", 0),
+              f"usage of {b} after reconcile")
+    result["bucketstats"] = {
+        "top_n": top_n, "tracked": stats["tracked"],
+        "folds": stats["folds"],
+        "overflow": {"requests": over[0], "bytes_in": over[1],
+                     "bytes_out": over[2]},
+        "tenants": {b: {"requests": got[b][0], "bytes_in": got[b][1],
+                        "bytes_out": got[b][2]} for b in tenants},
+        "matches_clients": True,
+        "live_usage_bytes_before_scan": sum(
+            u["bytes"] for u in live.values()),
+        "scanned_bytes": snap["size_total"],
+        "first_reconcile_drift": first["drift_bytes"],
+        "reconcile_drift": after_scan["drift_bytes"]}
+
+    # the audit log: one entry per request issued, none dropped
+    target = obs_logger.log_sys().audit_target
+    n_s3 = len(issued)
+    expect = n_s3 + admin_calls[0]
+    deadline = time.monotonic() + 120
+    while target.sent + target.dropped < expect:
+        check(time.monotonic() < deadline,
+              f"the audit target sent {target.sent} of {expect}")
+        time.sleep(0.05)
+    with receiver.lock:
+        got_ids = list(receiver.ids)
+    dropped = sum(v for k, v in counters_snapshot().items()
+                  if k.startswith("minio_tpu_log_target_dropped_total"))
+    check(target.dropped == 0 and dropped == 0,
+          f"the audit target dropped {target.dropped} entries")
+    check(len(got_ids) == expect,
+          f"the receiver got {len(got_ids)} audit entries, want {expect}")
+    check(all(re.fullmatch("[0-9a-f]{32}", rid) and rid == tid
+              for rid, tid, _api in got_ids),
+          "an audit entry's request_id is not its trace id")
+    check(set(issued) <= {rid for rid, _t, _a in got_ids},
+          "a request the clients issued has no audit entry")
+    result["audit"] = {"entries": len(got_ids), "s3_requests": n_s3,
+                       "admin_requests": admin_calls[0],
+                       "sent": target.sent, "dropped": target.dropped,
+                       "retries": target.retries}
+
+    for _kind, _t, client in principals:
+        client.close()
+    for c in (rootc, anon, parent, expired):
+        c.close()
+    srv.shutdown()
+    obs_logger.reset()
+    receiver.close()
+    _restore(old_env)
+    get_config_sys().obj = None
+    bucketstats.reset()
+    launches = read_launches()
+    result["launches"] = launches
+    result["launch_sizes"] = read_launch_sizes()
+    if on_card:
+        for kname in ("gf_encode_batched", "gf_matmul_batched",
+                      "highwayhash256_chunks"):
+            check(launches[kname] > 0,
+                  f"kernel {kname} never launched on the iam path")
+    shutil.rmtree(root, ignore_errors=True)
+    return result
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--cpu-rehearsal", action="store_true",
@@ -5039,7 +5633,7 @@ def main() -> int:
     # for every part but the last)
     ol_sizes = (4, int(2.1 * 2**20), 4, OL_SMALL_BYTES,
                 (5 << 20, 333)) if rehearsal else \
-        (N_OBJECTS, OBJECT_BYTES, OL_SMALL, OL_SMALL_BYTES, OL_PARTS)
+        (OL_BIG, OBJECT_BYTES, OL_SMALL, OL_SMALL_BYTES, OL_PARTS)
     # the S3 server path: plain and SSE-C objects (count, bytes), CSV
     # objects, the multipart object's parts
     s3_sizes = {"big": (4, int(2.1 * 2**20)), "sse": (2, 1 << 20),
@@ -5064,6 +5658,10 @@ def main() -> int:
     # take the MD5 lanes)
     host_sizes = (1, OBJECT_BYTES) if rehearsal else \
         (HOST_OBJECTS, OBJECT_BYTES)
+    # the iam path: objects per tenant, their bytes, the ABBA block's PUTs
+    iam_sizes = {"objects": 1, "bytes": 64 << 10, "abba": 2} if rehearsal \
+        else {"objects": IAM_OBJECTS, "bytes": OBJECT_BYTES,
+              "abba": IAM_ABBA}
     phase = "build"
     try:
         phase_build(rehearsal)
@@ -5130,11 +5728,16 @@ def main() -> int:
             hostres["cut"] += f"; {host_sizes[0]} objects of about " \
                               f"{host_sizes[1]} bytes"
         emit({"phase": "hostpath_path", **hostres})
+        phase = "iam_path"
+        iamres = phase_iam(device, iam_sizes, card, args.seed)
+        if rehearsal:
+            iamres["cut"] += f"; {iam_sizes}"
+        emit({"phase": "iam_path", **iamres})
         paths = {"mur3x256s_path": res, "sse_hh256s_path": sres,
                  "select_path": selres, "objectlayer_path": olres,
                  "s3server_path": s3res, "sse_kms_path": kmsres,
                  "obs_path": obsres, "background_path": bgres,
-                 "hostpath_path": hostres}
+                 "hostpath_path": hostres, "iam_path": iamres}
         for name, row in rows.items():
             by_path = {p: r["launches"][name] for p, r in paths.items()}
             row["launches"] = sum(by_path.values())

@@ -486,7 +486,8 @@ def apply_config(cfg) -> None:
         try:
             r = parse_rule(spec)
         except ValueError:
-            log.warning("fault: bad config rule %r ignored", spec)
+            from ..obs.logger import log_sys
+            log_sys().event("warning", "fault", f"bad KVS rule {spec!r}")
             continue
         r._from_config = True
         _registry.arm(r)

@@ -26,10 +26,13 @@ cooldown probe re-onlines it and the set forwards the transition to its
 (``scanner.janitor.startup_recovery``: all tmp staging swept, aged
 multipart uploads expired), so build every set over a directory before
 traffic starts on it; PUT, delete and bucket delete mark the scanner's
-change tracker, and a bucket delete drops its usage tree.
+change tracker, and a bucket delete drops its usage tree. A committed PUT
+or multipart object and a delete charge the bucket's live usage delta
+(``obs/bucketstats``), which the scanner's reconcile snaps back each
+cycle.
 
 What the JAX package's engine also does and the port does not yet: the
-per-bucket usage feed (``obs/bucketstats``) and the QoS lane affinity. The
+QoS lane affinity. The
 ``on_partial``, ``on_disk_state`` and ``ns_lock`` hooks are plain
 attributes, as in the JAX package.
 """
@@ -50,6 +53,7 @@ from ..erasure.streaming import (PreallocSink, erasure_decode,
                                  erasure_encode, erasure_heal)
 from .. import qos as _qos
 from ..obs import attribution as _attr
+from ..obs import bucketstats as _bs
 from ..obs import latency as _lat
 from ..obs import metrics as _mx
 from ..obs import spans as _spans
@@ -186,8 +190,12 @@ class ErasureObjects(MultipartMixin, ObjectLayer):
         # reconcile
         try:
             startup_recovery(self)
-        except Exception:  # noqa: BLE001 — never blocks a boot, but logged
-            log.exception("startup recovery failed")
+        except Exception as e:  # noqa: BLE001 — never blocks a boot, but
+            # a pass failing on every boot must be visible
+            from ..obs.logger import log_sys
+            log_sys().log_once(
+                f"startup-recovery:{type(e).__name__}", "warning",
+                "durability", f"startup recovery failed: {e!r}")
 
     def _rrs_parity(self) -> int:
         """REDUCED_REDUNDANCY's parity for this set."""
@@ -522,7 +530,13 @@ class ErasureObjects(MultipartMixin, ObjectLayer):
             self._notify_partial(bucket, object, fi.version_id)
         global_tracker().mark(bucket, object)
         self.metacache.on_write(bucket)
-        return ObjectInfo.from_file_info(fi, bucket, object, opts.versioned)
+        oi = ObjectInfo.from_file_info(fi, bucket, object, opts.versioned)
+        try:  # live usage delta, reconciled each scanner cycle
+            _bs.on_put(bucket, fi.size)
+        except Exception:  # noqa: BLE001 — obs must never fail a put
+            log.warning("usage delta of %s/%s not charged", bucket, object,
+                        exc_info=True)
+        return oi
 
     def _arm_pipeline_etag(self, hr: HashReader, size: int,
                            etag_known: bool = False, algo=None,
@@ -757,6 +771,16 @@ class ErasureObjects(MultipartMixin, ObjectLayer):
 
         vid = "" if opts.version_id in ("", "null") else opts.version_id
         mark_delete = opts.versioned and not opts.version_id
+        # the size of the doomed version, read BEFORE the quorum delete
+        # (the live usage delta cannot read it afterwards); a miss charges
+        # 0 and the scanner's reconcile zeroes the drift
+        del_size = 0
+        if not mark_delete and _bs.enabled():
+            try:
+                del_size = self.get_object_info(
+                    bucket, object, ObjectOptions(version_id=vid)).size or 0
+            except Exception:  # noqa: BLE001 — an object already gone
+                del_size = 0
         if mark_delete:
             fi = FileInfo(volume=bucket, name=object,
                           version_id=FileInfo.new_version_id(), deleted=True,
@@ -797,6 +821,14 @@ class ErasureObjects(MultipartMixin, ObjectLayer):
         # started between the pre-bump and the quorum delete would have
         # captured the old namespace under the new sequence
         self.metacache.on_write(bucket)
+        try:  # live usage delta: a delete marker adds a version row
+            if mark_delete:
+                _bs.on_put(bucket, 0, versions=1, objects=0)
+            else:
+                _bs.on_delete(bucket, del_size)
+        except Exception:  # noqa: BLE001 — obs must never fail a delete
+            log.warning("usage delta of %s/%s not charged", bucket, object,
+                        exc_info=True)
         return ObjectInfo(bucket=bucket, name=object,
                           version_id=fi.version_id if opts.versioned else "",
                           delete_marker=fi.deleted, mod_time=fi.mod_time)

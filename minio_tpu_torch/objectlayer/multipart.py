@@ -14,6 +14,7 @@ from dataclasses import replace
 from ..erasure import Erasure, new_bitrot_writer
 from ..erasure.codec import ceil_div
 from ..erasure.streaming import erasure_encode
+from ..obs import bucketstats as _bs
 from ..scanner.tracker import global_tracker
 from ..storage.datatypes import ErasureInfo, FileInfo, ObjectPartInfo
 from ..storage.xlstorage import META_MULTIPART, META_TMP, new_tmp_id
@@ -384,6 +385,10 @@ class MultipartMixin:
                 pass
         global_tracker().mark(bucket, object)
         self.metacache.on_write(bucket)
+        try:  # live usage delta, reconciled each scanner cycle
+            _bs.on_put(bucket, fi.size)
+        except Exception:  # noqa: BLE001 — obs must never fail a commit
+            pass
         return ObjectInfo.from_file_info(fi, bucket, object, opts.versioned)
 
     def _commit_one_disk(self, d, upath: str, tmp_id: str, fi: FileInfo,

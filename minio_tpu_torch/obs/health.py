@@ -99,8 +99,15 @@ def _rollup(nodes: list[dict]) -> dict:
         for cls, ent in n.get("slo", {}).get("classes", {}).items():
             for kind, hit in ent.get("breach", {}).items():
                 if hit:
-                    breaches.append({"node": n.get("endpoint", ""),
-                                     "class": cls, "slo": kind})
+                    row = {"node": n.get("endpoint", ""),
+                           "class": cls, "slo": kind}
+                    # the top offending bucket of the slo report's
+                    # attribution: the verdict points at a tenant
+                    tops = ent.get("top_buckets", {}).get(kind) or []
+                    if tops:
+                        row["top_bucket"] = tops[0].get("bucket", "")
+                        row["top_bucket_share"] = tops[0].get("share", 0.0)
+                    breaches.append(row)
     disks_faulty = sum(1 for d in disks.values() if d["faulty"])
     return {
         "nodes": len(nodes),

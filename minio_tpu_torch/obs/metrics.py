@@ -13,9 +13,10 @@ Two layers:
   reads, so a scrape storm cannot hammer /proc or statvfs.
 
 Only the groups whose subsystem the port has: software, capacity,
-device (the flight recorder's lanes), usage (the data scanner's snapshot:
-one row per bucket, unfolded, since the port has no bucket analytics to
-fold by), dispatch, disk_latency, kernel, qos (admission and the class
+device (the flight recorder's lanes), usage (the data scanner's snapshot,
+its bucket rows through the bucket analytics' fold gate), bucket (the
+per-bucket analytics of ``obs/bucketstats``), dispatch, disk_latency,
+kernel, qos (admission and the class
 windows), lane, pipeline, disk_health (the health trackers' states),
 durability (the fsync policy and flusher), workloads (the SSE package
 cipher), slo (objectives, windows, burn rates, breaches), profiler (the
@@ -31,8 +32,11 @@ ride the counter store, as do the hedged reads
 (``minio_tpu_hedged_reads_total{outcome}``, beside the
 ``minio_tpu_hedge_threshold_seconds`` gauge of the disk_health group) and
 the fault plane's injections (``minio_tpu_fault_injected_total{layer,
-action}``). The groups of planes the port has not (bucket analytics,
-replication, cache, notification, ILM, locks) are absent, not faked, as is
+action}``) and the log plane's sent and dropped entries
+(``minio_tpu_log_target_{sent,dropped}_total``,
+``minio_tpu_log_pubsub_dropped_total``). The groups of planes the port has
+not (replication, cache, notification, ILM, locks) are absent, not faked,
+as is
 the scan lane's gauge. The names are the JAX package's, so one dashboard
 reads both servers; the port adds
 ``minio_tpu_device_obs_stream_occupancy_ratio`` (the share of the last
@@ -211,8 +215,12 @@ def _g_capacity(server) -> list[str]:
 
 
 def _g_usage(server) -> list[str]:
-    """Scanner-derived usage (reference getBucketUsageMetrics)."""
+    """Scanner-derived usage (reference getBucketUsageMetrics). Bucket
+    rows go through the bucket analytics' fold gate: a namespace of many
+    buckets renders at most ``top_n`` tracked rows plus one
+    ``_overflow_`` row summing the rest."""
     from ..scanner.usage import load_usage
+    from . import bucketstats as _bs
     usage = load_usage(server.obj)
     lines = [
         "# TYPE minio_tpu_cluster_usage_object_total gauge",
@@ -223,14 +231,28 @@ def _g_usage(server) -> list[str]:
         "# TYPE minio_tpu_bucket_usage_total_bytes gauge",
         "# TYPE minio_tpu_bucket_usage_object_total gauge",
     ]
-    for b, st in sorted(usage.get("buckets", {}).items()):
+    folded: dict[str, list[int]] = {}
+    for b, st in usage.get("buckets", {}).items():
+        row = folded.setdefault(_bs.fold_label(b), [0, 0])
+        row[0] += st.get("size", 0)
+        row[1] += st.get("objects", 0)
+    for lab, (size, objs) in sorted(folded.items()):
         lines.append(
-            f'minio_tpu_bucket_usage_total_bytes{{bucket="{_esc(b)}"}} '
-            f'{st.get("size", 0)}')
+            f'minio_tpu_bucket_usage_total_bytes{{bucket="{_esc(lab)}"}} '
+            f'{size}')
         lines.append(
-            f'minio_tpu_bucket_usage_object_total{{bucket="{_esc(b)}"}} '
-            f'{st.get("objects", 0)}')
+            f'minio_tpu_bucket_usage_object_total{{bucket="{_esc(lab)}"}} '
+            f'{objs}')
     return lines
+
+
+def _g_bucket(server) -> list[str]:
+    """Per-bucket analytics (obs/bucketstats): requests, traffic and
+    latency per tracked bucket, live usage, drift, SLO burn contribution
+    and growth projection, bounded by the registry's top_n plus the
+    ``_overflow_`` row."""
+    from . import bucketstats as _bs
+    return _bs.metric_lines()
 
 
 def _g_dispatch(server) -> list[str]:
@@ -929,6 +951,9 @@ _GROUPS = [
     # interval 0 so a lane's busy ratio is live on every scrape
     MetricsGroup("device", "node", _g_device, interval=0),
     MetricsGroup("usage", "cluster", _g_usage),
+    # the bounded registry in memory: interval 0 so request counters and
+    # drift are live per scrape
+    MetricsGroup("bucket", "node", _g_bucket, interval=0),
     MetricsGroup("dispatch", "node", _g_dispatch),
     # latency groups read in-memory windows — interval 0 keeps scrapes
     # (and tests driving heals) fresh at negligible cost

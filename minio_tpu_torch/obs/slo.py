@@ -26,19 +26,21 @@ Objectives resolve env > stored > default through the dynamic ``slo``
 config subsystem; latency thresholds left empty are seeded from
 ``qos.interactive_budget_ms`` / ``qos.background_budget_ms``.
 
-Fed by the request plane (``server/s3api.py``, every admitted request)
-and by the dispatch queue (background items, failed ones included).
-Surfaced as the ``minio_tpu_slo_*`` metric family, the admin ``slo`` op
-and inside ``GET /minio/admin/v3/health``. Left out until their planes
-are ported: the per-bucket burn attribution (``top_buckets``, from
-``obs/bucketstats``, stays empty) and the async-plane objectives (the
-replication lag probe).
+Fed by the request plane (``server/s3api.py``, every admitted request,
+each S3 one also charged to its bucket's minute ring in
+``obs/bucketstats``, so a class breach names its top offending buckets in
+``top_buckets``) and by the dispatch queue (background items, failed ones
+included). Surfaced as the ``minio_tpu_slo_*`` metric family, the admin
+``slo`` op and inside ``GET /minio/admin/v3/health``. Left out until its
+plane is ported: the async-plane objectives (the replication lag
+probe).
 """
 from __future__ import annotations
 
 import threading
 import time
 
+from . import bucketstats
 from .latency import Window
 
 #: objective classes
@@ -165,12 +167,14 @@ def _cell(cls: str, win: str, span: int) -> dict[str, Window]:
 
 def record(cls: str, duration_s: float, status: int = 200,
            error: bool = False, trace_id: str = "",
-           now: float | None = None) -> None:
+           now: float | None = None, bucket: str = "") -> None:
     """Fold one finished request/work item into the class's SLO windows.
     Server-side failures (5xx, including admission 503 SlowDown, or
     ``error=True``) burn availability budget; good outcomes over the
     class latency threshold burn latency budget. 4xx are the client's
-    fault and count as good."""
+    fault and count as good. A non-empty ``bucket`` also charges the
+    outcome to that bucket's ring (obs/bucketstats): one judgement feeds
+    both ledgers, so the class verdict and its attribution agree."""
     if cls not in CLASSES or not enabled():
         return
     err = error or status >= 500
@@ -183,6 +187,8 @@ def record(cls: str, duration_s: float, status: int = 200,
             cell["err"].observe(duration_s, 0, now, trace_id)
         elif slow:
             cell["slow"].observe(duration_s, 0, now, trace_id)
+    if bucket:
+        bucketstats.record_slo(bucket, cls, err, slow, now)
     from . import metrics as mx
     outcome = "error" if err else ("slow" if slow else "ok")
     mx.inc("minio_tpu_slo_requests_total", outcome=outcome,
@@ -274,6 +280,14 @@ def report(now: float | None = None) -> dict:
         worst_win = max((wins[w] for w, _ in WINDOWS),
                         key=lambda w: w["worst_slow_s"])
         worst_tid = worst_win["worst_slow_trace_id"]
+        # the fast window's top offending buckets per slo kind, so a
+        # breach names the tenant causing it
+        top_buckets: dict = {}
+        for slo_kind in ("availability", "latency"):
+            rows = bucketstats.top_offenders(cls, slo_kind, WINDOWS[0][1],
+                                             now)
+            if rows:
+                top_buckets[slo_kind] = rows
         out["classes"][cls] = {
             "objective": {
                 # rounded: 99.9/100 is 0.9990000000000001 in binary
@@ -288,8 +302,7 @@ def report(now: float | None = None) -> dict:
             "windows": wins,
             "breach": breach,
             "breach_profile": profile_link,
-            # per-bucket attribution waits for obs/bucketstats
-            "top_buckets": {},
+            "top_buckets": top_buckets,
             "worst_breach": {
                 "trace_id": worst_tid,
                 "seconds": worst_win["worst_slow_s"],

@@ -17,7 +17,6 @@ never moves work to the host, so background heals stay on the card.
 from __future__ import annotations
 
 import json
-import logging
 import threading
 import time
 from collections import deque
@@ -30,8 +29,6 @@ from ..storage.xlstorage import META_BUCKET
 from ..utils import errors
 
 HEALING_TRACKER = "healing.bin"
-
-log = logging.getLogger("minio_tpu_torch.autoheal")
 
 
 def set_healing_tracker(disk, info: dict | None = None):
@@ -174,8 +171,11 @@ class AutoHealMonitor:
                 return
             try:
                 self.check_and_heal()
-            except Exception:  # noqa: BLE001 — the loop survives, logged
-                log.exception("background heal cycle failed")
+            except Exception as e:  # noqa: BLE001 — the loop survives
+                from ..obs.logger import log_sys
+                log_sys().log_once(
+                    f"autoheal:{type(e).__name__}", "warning", "autoheal",
+                    f"background heal cycle failed: {e!r}")
 
     def check_and_heal(self) -> bool:
         tracked = [(d, t) for d in self.local_disks

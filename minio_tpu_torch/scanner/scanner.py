@@ -6,11 +6,14 @@ buckets the update tracker saw no writes in, verifies object health every
 True, scan_mode="deep")``, K5 on the card, whose findings go to the MRF)
 and runs the durability janitor's sweep each cycle.
 
-What the JAX package's scanner also does and the port does not: the
-lifecycle and replication hooks (``bucket/lifecycle`` and
-``bucket/replicate`` are not ported) and the
-per-bucket analytics reconcile (``obs/bucketstats`` is not ported), so
-the constructor takes no ``lifecycle`` and no ``replication``.
+Each cycle's snapshot also reconciles the per-bucket analytics
+(``obs/bucketstats.reconcile``: the live usage deltas snap back to the
+scanned usage, the drift is recorded, and the capacity history takes a
+sample). What the JAX package's scanner also does and the port does not:
+the lifecycle and replication hooks (``bucket/lifecycle`` and
+``bucket/replicate`` are not ported), so the constructor takes no
+``lifecycle`` and no ``replication``. A failed cycle or sweep is reported
+once per error type through the log plane (``obs/logger``).
 
 Cycles run under ``qos.background()``. In the JAX package that class
 spills to the CPU first under device backlog; the port's queue on the card
@@ -25,8 +28,10 @@ import threading
 import time
 
 from .. import qos
+from ..obs import bucketstats
 from ..obs import metrics as _mx
 from ..obs import trace as _trc
+from ..obs.logger import log_sys
 from ..storage.xlstorage import META_BUCKET
 from . import usage as usage_mod
 from .janitor import DurabilityJanitor
@@ -71,8 +76,10 @@ class DataScanner:
         while not self._stop.wait(self.interval):
             try:
                 self.scan_cycle()
-            except Exception:  # noqa: BLE001 — the scanner never dies
-                log.exception("scan cycle failed")
+            except Exception as e:  # noqa: BLE001 — the scanner never dies
+                log_sys().log_once(
+                    f"scanner:{type(e).__name__}", "warning", "scanner",
+                    f"scan cycle failed: {e!r}")
 
     def scan_cycle(self) -> dict:
         """One crawl; returns the usage snapshot (also persisted). Buckets
@@ -92,8 +99,10 @@ class DataScanner:
             # the cheap jobs every cycle; the O(namespace) reconcile only on
             # deep cycles, the cadence of the bitrot verify walk
             self.janitor.sweep(reconcile=deep)
-        except Exception:  # noqa: BLE001 — best-effort, but logged
-            log.exception("durability sweep failed")
+        except Exception as e:  # noqa: BLE001 — best-effort, but logged
+            log_sys().log_once(
+                f"janitor:{type(e).__name__}", "warning", "scanner",
+                f"durability sweep failed: {e!r}")
         tracker = global_tracker()
         gen = tracker.begin_cycle()
         prev_buckets = self.last_usage.get("buckets", {}) \
@@ -146,6 +155,12 @@ class DataScanner:
             usage_mod.save_usage(self.obj, snapshot)
         except Exception:  # noqa: BLE001
             log.warning("usage snapshot not saved", exc_info=True)
+        try:
+            # the live usage deltas snap back to this tree (drift measured
+            # and zeroed) and the capacity history takes a sample
+            bucketstats.reconcile(snapshot, objlayer=self.obj)
+        except Exception:  # noqa: BLE001 — accounting is best-effort
+            log.warning("bucket analytics not reconciled", exc_info=True)
         _trc.publish_scanner(func="scanner.cycle",
                              path=f"cycle={self.cycle} deep={deep}",
                              duration_s=time.perf_counter() - t_cycle,

@@ -27,13 +27,20 @@ for a stored breach capture), ``profiling/start`` (``?profilerType=cpu|
 mem|threads``), ``profiling/download`` and ``profiling/threads``,
 ``healthinfo`` / ``obdinfo``, ``top/locks`` (the distributed lock table:
 empty until ``dist/`` is ported), the SLO plane's ``slo`` and the health
-snapshot ``health``, and the fault plane's ``fault`` (GET lists the armed
+snapshot ``health``, the fault plane's ``fault`` (GET lists the armed
 rules and the disks' health, POST arms one, DELETE ``?id=`` disarms one or,
-without an id, clears them all).
-Every other admin op (IAM, tier, replication, bucket analytics and logs,
-bandwidth, update) answers ``501 NotImplemented`` in the reference's
-error XML: those planes are not ported. The ``?peers=1`` fan-outs wait for
-the port of ``dist/``'s RPC plane.
+without an id, clears them all), the bucket analytics report
+``bucketstats``, the log rings ``logs`` (``?n=``, ``?type=audit`` for the
+audit ring), and, once ``S3Server.enable_iam()`` has run, the IAM ops
+(``add-user``, ``remove-user``, ``list-users``, ``set-user-status``,
+``add-canned-policy``, ``remove-canned-policy``, ``list-canned-policies``,
+``set-user-or-group-policy``, ``add-user-to-group``, ``remove-group``,
+``list-groups``, ``add-service-account``), with the JAX server's statuses
+and JSON bodies.
+Every other admin op (the IAM ops without IAM, tier, replication,
+bandwidth, update) answers ``501 NotImplemented`` in the reference's error
+XML: those planes are not ported. The ``?peers=1`` fan-outs wait for the
+port of ``dist/``'s RPC plane.
 """
 from __future__ import annotations
 
@@ -147,7 +154,75 @@ def _dispatch_admin(h, op: str) -> None:
         return _fault_op(h)
     if op.startswith("profiling/") or op in ("healthinfo", "obdinfo"):
         return _profiling_obd(h, op)
+    if op == "bucketstats" and h.q("peers") != "1":
+        # the bounded per-bucket registry: requests, traffic, latency,
+        # live usage and drift, SLO burn contribution, growth projection
+        from ..obs import bucketstats
+        return _json(h, {**bucketstats.report(),
+                         "endpoint": f"{h.s3.address}:{h.s3.port}"})
+    if op == "logs":
+        # recent structured log entries; ?type=audit serves the
+        # per-request audit ring
+        from ..obs.logger import log_sys
+        n = int(h.q("n", "100"))
+        ring = log_sys().audit_ring if h.q("type") == "audit" \
+            else log_sys().ring
+        return _json(h, list(ring)[-n:])
+    if _iam_op(h, op):
+        return
     h._not_implemented(f"admin {op} is not implemented")
+
+
+def _iam_op(h, op: str) -> bool:
+    """The IAM admin surface (reference admin-handlers-users.go), JSON in
+    and out, root credentials only (``handle_admin``); False when IAM is
+    off or the op is not one of its."""
+    iam = h.s3.iam
+    if iam is None:
+        return False
+    q = {k: v[0] for k, v in h.query.items()}
+    out: dict = {}
+    if op == "add-user":
+        body = json.loads(h._read_body() or b"{}")
+        iam.add_user(q["accessKey"], body.get("secretKey", ""),
+                     body.get("policies", []))
+    elif op == "remove-user":
+        iam.remove_user(q["accessKey"])
+    elif op == "list-users":
+        out = {ak: {"status": u.status, "policies": u.policies,
+                    "groups": u.groups, "parent": u.parent}
+               for ak, u in iam.users.items()}
+    elif op == "set-user-status":
+        iam.set_user_status(q["accessKey"], q.get("status", "enabled"))
+    elif op == "add-canned-policy":
+        iam.set_policy(q["name"], h._read_body())
+    elif op == "remove-canned-policy":
+        iam.delete_policy(q["name"])
+    elif op == "list-canned-policies":
+        out = {name: json.loads(p.dump())
+               for name, p in iam.policies.items()}
+    elif op == "set-user-or-group-policy":
+        names = [n for n in q.get("policyName", "").split(",") if n]
+        if q.get("isGroup", "") == "true":
+            iam.set_group_policy(q["userOrGroup"], names)
+        else:
+            iam.set_user_policy(q["userOrGroup"], names)
+    elif op == "add-user-to-group":
+        body = json.loads(h._read_body() or b"{}")
+        iam.add_group(body["group"], body.get("members", []))
+    elif op == "remove-group":
+        iam.remove_group(q["group"])
+    elif op == "list-groups":
+        out = iam.groups
+    elif op == "add-service-account":
+        body = json.loads(h._read_body() or b"{}")
+        u = iam.new_service_account(body.get("parent", h.s3.access_key),
+                                    body.get("policy", "").encode())
+        out = {"accessKey": u.access_key, "secretKey": u.secret_key}
+    else:
+        return False
+    _json(h, out)
+    return True
 
 
 _CONFIG_OPS = ("get-config", "set-config-kv", "del-config-kv",

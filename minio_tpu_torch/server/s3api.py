@@ -32,12 +32,26 @@ node}`` and ``/minio/metrics`` serve the Prometheus exposition
 (``?attribution=1`` adds the stage families), ``/minio/admin/`` the
 admin observability, heal and usage ops (``server/admin.py``).
 
+IAM (``S3Server.enable_iam()``, as the JAX package's server offers it;
+off by default, when only the root credentials authenticate): users,
+groups, service accounts and STS credentials authenticate through
+``iam/``; every handler asks the gate for its S3 action, and a denied
+principal, or an anonymous one, may still be granted by the bucket's
+policy (``?policy`` PUT, GET and DELETE); STS answers ``POST /``
+(``AssumeRole``, ``AssumeRoleWithWebIdentity``,
+``AssumeRoleWithClientGrants``, ``AssumeRoleWithLDAPIdentity``).
+
+Every finished request is charged to its bucket's analytics
+(``obs/bucketstats``: request counts, bytes in and out through a counting
+response writer, TTFB and wall) and leaves one audit entry
+(``obs/logger``, its ``request_id`` the trace id), and its SLO outcome
+feeds the bucket's burn-attribution ring.
+
 Every API whose plane is not ported answers S3's ``501 NotImplemented``
-in the reference's error XML: STS, federation and internal RPC, the
-other admin ops and the console plane, POST policy uploads,
-notifications, bucket policies, lifecycle, replication, object lock
-(retention, legal hold, lock-enabled buckets), restore and transitioned
-objects. The audit log is not ported.
+in the reference's error XML: STS without IAM, federation and internal
+RPC, the other admin ops and the console plane, POST policy uploads,
+notifications, lifecycle, replication, object lock (retention, legal
+hold, lock-enabled buckets), restore and transitioned objects.
 
 Transparent compression (``utils/compress.py``): with
 ``MINIO_TPU_COMPRESSION=on`` a PUT of compressible content (by extension
@@ -71,12 +85,14 @@ import xml.etree.ElementTree as ET
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 from ..bucket import metadata as bucket_metadata
+from ..obs import bucketstats as _bs
 from ..obs import latency as _lat
 from ..obs import metrics as _mx
 from ..obs import profiler as _prof
 from ..obs import slo as _slo
 from ..obs import spans as _sp
 from ..obs import trace as _trc
+from ..obs.logger import log_sys
 from ..objectlayer import ObjectOptions
 from ..objectlayer import datatypes as dt
 from ..scanner import usage as usage_mod
@@ -145,6 +161,8 @@ class S3Server:
         from ..crypto import kms as _kms_mod
         _kms_mod.configure(self.secret_key)
         self.bucket_meta = bucket_metadata.BucketMetadataSys(objlayer)
+        #: the IAM subsystem (``enable_iam``); None: root credentials only
+        self.iam = None
         #: the admin ``service`` op's hook (action "restart" or "stop");
         #: the CLI installs one, None acknowledges and does nothing
         self.on_service_signal = None
@@ -196,9 +214,45 @@ class S3Server:
         _prof.ensure_started()
 
     def lookup_secret(self, access_key: str) -> str | None:
-        """The secret of an access key: root credentials only (IAM users
-        wait for the port of iam/)."""
+        """The secret of an access key: IAM's once it is enabled (root,
+        users, service accounts, unexpired STS credentials), else the
+        root credentials only."""
+        if self.iam is not None:
+            return self.iam.lookup_secret(access_key)
         return self.secret_key if access_key == self.access_key else None
+
+    def enable_iam(self):
+        """Attach the IAM subsystem: per-user credentials, policy
+        enforcement, STS, anonymous bucket-policy access. Its state loads
+        from (and every mutation rewrites) ``.minio.sys/config/iam/
+        state.json`` through the object layer."""
+        from ..iam import IAMSys
+        self.iam = IAMSys(self.obj, self.access_key, self.secret_key)
+        return self.iam
+
+    def authorize(self, access_key: str, action: str, bucket: str,
+                  object: str) -> bool:
+        """The policy gate of one request: without IAM any authenticated
+        principal (root) may do anything and an anonymous one nothing;
+        with IAM the principal's effective policies decide, and failing
+        them the bucket's policy may grant the (possibly anonymous)
+        principal."""
+        if self.iam is None:
+            return access_key != ""
+        if self.iam.is_allowed(access_key, action, bucket, object):
+            return True
+        if bucket:
+            from ..iam.policy import Policy, policy_allows
+            meta = self.bucket_meta.get(bucket)
+            if meta.policy_json:
+                try:
+                    bp = Policy.parse(meta.policy_json)
+                except ValueError:
+                    return False
+                resource = f"{bucket}/{object}" if object else bucket
+                return policy_allows([bp], action, resource,
+                                     principal=access_key or "*")
+        return False
 
     def create_bucket(self, bucket: str, object_lock: bool = False):
         """Bucket creation: the object layer's bucket plus its metadata
@@ -393,6 +447,26 @@ class _ChunkedWriter:
         self.wfile.write(b"0\r\n\r\n")
 
 
+class _CountingWriter:
+    """The response stream, counting the bytes written: the per-bucket
+    traffic counters read each request's ``sent`` delta, so streamed GET
+    bodies are charged with no hook inside the streaming loops."""
+
+    __slots__ = ("_w", "sent")
+
+    def __init__(self, w):
+        self._w = w
+        self.sent = 0
+
+    def write(self, b) -> int:
+        n = self._w.write(b)
+        self.sent += len(b)
+        return n
+
+    def __getattr__(self, name):
+        return getattr(self._w, name)
+
+
 class _S3Handler(BaseHTTPRequestHandler):
     protocol_version = "HTTP/1.1"
     s3: S3Server = None  # set by subclass factory
@@ -400,6 +474,10 @@ class _S3Handler(BaseHTTPRequestHandler):
     _expect_100 = False
     #: when the response's status line went out (TTFB); None before
     _t_first = None
+
+    def setup(self):
+        super().setup()
+        self.wfile = _CountingWriter(self.wfile)
 
     def log_message(self, fmt, *args):  # noqa: A003
         pass
@@ -565,10 +643,62 @@ class _S3Handler(BaseHTTPRequestHandler):
         return self.s3.verifier.verify(
             self.command, self.url_path, self.query, headers)
 
-    def _authorize(self, access_key: str):
-        # root credentials only: IAM users and policies wait for iam/
-        if access_key == "":
-            raise AuthError("AccessDenied", "anonymous access denied")
+    def _authorize(self, access_key: str, action: str,
+                   bucket: str | None = None, key: str | None = None):
+        """The server's policy gate for ``action`` on this request's bucket
+        and key (or the given ones); a denial is 403 AccessDenied."""
+        bucket = self.bucket if bucket is None else bucket
+        key = self.key if key is None else key
+        if not self.s3.authorize(access_key, action, bucket, key):
+            raise AuthError("AccessDenied",
+                            f"not allowed to {action}" if self.s3.iam
+                            is not None else "anonymous access denied")
+
+    def _sts(self, body: bytes):
+        """STS (reference cmd/sts-handlers.go:43-93): AssumeRole for a
+        signed caller, AssumeRoleWithWebIdentity and
+        AssumeRoleWithClientGrants for an OpenID token against the
+        configured provider, AssumeRoleWithLDAPIdentity by a simple
+        bind. The answer carries the temporary credentials."""
+        form = dict(urllib.parse.parse_qsl(body.decode("utf-8", "replace")))
+        action = form.get("Action", "AssumeRole")
+        try:
+            duration = int(form.get("DurationSeconds", "3600") or "3600")
+        except ValueError:
+            return self._error("InvalidParameterValue",
+                               "DurationSeconds must be an integer", 400)
+        session_policy = form.get("Policy", "").encode()
+        iam = self.s3.iam
+        try:
+            if action == "AssumeRoleWithWebIdentity":
+                cred = iam.assume_role_with_web_identity(
+                    form.get("WebIdentityToken", ""), duration,
+                    session_policy)
+            elif action == "AssumeRoleWithClientGrants":
+                cred = iam.assume_role_with_client_grants(
+                    form.get("Token", ""), duration, session_policy)
+            elif action == "AssumeRoleWithLDAPIdentity":
+                cred = iam.assume_role_with_ldap_identity(
+                    form.get("LDAPUsername", ""),
+                    form.get("LDAPPassword", ""), duration,
+                    session_policy)
+            elif action == "AssumeRole":
+                try:
+                    ak = self._authenticate()
+                except AuthError as e:
+                    return self._error(e.code, e.message, e.status)
+                cred = iam.assume_role(ak, duration, session_policy)
+            else:
+                return self._error("InvalidAction",
+                                   f"unsupported STS action {action}", 400)
+        except ValueError as e:
+            return self._error("InvalidParameterValue", str(e), 400)
+        import datetime
+        exp = datetime.datetime.fromtimestamp(
+            cred.expiration, tz=datetime.timezone.utc
+        ).strftime("%Y-%m-%dT%H:%M:%SZ")
+        self._send(200, xu.sts_credentials_xml(
+            action, cred.access_key, cred.secret_key, exp))
 
     def _body_stream(self, size: int):
         """Request-body reader honoring aws-chunked streaming signatures:
@@ -629,7 +759,14 @@ class _S3Handler(BaseHTTPRequestHandler):
             return self._not_implemented(
                 f"{self.url_path} is not implemented")
         if self.command == "POST" and self.url_path == "/":
-            return self._not_implemented("STS is not implemented")
+            if self.s3.iam is None:
+                return self._not_implemented("STS is not implemented")
+            # the STS actions carry their credential in the form (a web
+            # identity token has no Authorization header): the Action
+            # decides
+            body = self._read_body()
+            if b"Action=Assume" in body or b"Action=assume" in body:
+                return self._sts(body)
         if self.command == "POST" and self.key == "" and \
                 self.bucket and self.hdr.get("content-type", "").startswith(
                     "multipart/form-data"):
@@ -638,7 +775,13 @@ class _S3Handler(BaseHTTPRequestHandler):
         try:
             access_key = self._authenticate()
         except AuthError as e:
-            return self._error(e.code, e.message, e.status)
+            # with IAM an unsigned request goes on as the anonymous
+            # principal, which only a bucket policy can grant
+            if self.s3.iam is not None and e.code == "AccessDenied" and \
+                    "no authentication" in e.message:
+                access_key = ""
+            else:
+                return self._error(e.code, e.message, e.status)
         try:
             self._dispatch(access_key)
         except dt.ObjectAPIError as e:
@@ -669,9 +812,9 @@ class _S3Handler(BaseHTTPRequestHandler):
             return self._bucket_op(m, access_key)
         return self._object_op(m, access_key)
 
-    #: bucket sub-resources whose planes are not ported (policy needs
-    #: iam/, the rest bucket/'s lifecycle, events, replication, lock)
-    _BUCKET_501 = ("policy", "notification", "lifecycle", "replication",
+    #: bucket sub-resources whose planes are not ported (bucket/'s
+    #: lifecycle, events, replication, lock)
+    _BUCKET_501 = ("notification", "lifecycle", "replication",
                    "object-lock", "encryption", "events")
 
     def _bucket_op(self, m: str, ak: str):
@@ -683,6 +826,8 @@ class _S3Handler(BaseHTTPRequestHandler):
                 return s.put_versioning(ak)
             if s.has_q("tagging"):
                 return s.put_bucket_tagging(ak)
+            if s.has_q("policy"):
+                return s.put_bucket_policy(ak)
             return s.put_bucket(ak)
         if m in ("GET", "HEAD"):
             if s.has_q("location"):
@@ -691,6 +836,8 @@ class _S3Handler(BaseHTTPRequestHandler):
                 return s.get_versioning(ak)
             if s.has_q("tagging"):
                 return s.get_bucket_tagging(ak)
+            if s.has_q("policy"):
+                return s.get_bucket_policy(ak)
             if s.has_q("uploads"):
                 return s.list_uploads(ak)
             if s.has_q("versions"):
@@ -701,6 +848,8 @@ class _S3Handler(BaseHTTPRequestHandler):
         if m == "DELETE":
             if s.has_q("tagging"):
                 return s.delete_bucket_tagging(ak)
+            if s.has_q("policy"):
+                return s.delete_bucket_policy(ak)
             return s.delete_bucket(ak)
         if m == "POST":
             if s.has_q("delete"):
@@ -748,7 +897,7 @@ class _S3Handler(BaseHTTPRequestHandler):
         pkg/s3select): run the SQL over the object and stream event-stream
         frames; a CSV WHERE scans on the server's device (K6 on the card).
         Encrypted objects are decrypted first."""
-        self._authorize(ak)
+        self._authorize(ak, "s3:GetObject")
         from ..erasure.streaming import BufferSink
         from ..s3select import S3SelectRequest, parse_select, run_select
         from ..s3select.sql import SQLError
@@ -878,6 +1027,7 @@ class _S3Handler(BaseHTTPRequestHandler):
         if _sp.enabled() and not self._exempt:
             root, tok = _sp.begin_request(rid)
         t0 = time.perf_counter()
+        sent_mark = self.wfile.sent
         release = None
         try:
             proceed, release = self._admit()
@@ -900,11 +1050,14 @@ class _S3Handler(BaseHTTPRequestHandler):
                 self._drain_body()
             except Exception:  # noqa: BLE001
                 self.close_connection = True
-            self._observe(rid, root, tok, time.perf_counter() - t0, t0)
+            self._observe(rid, root, tok, time.perf_counter() - t0, t0,
+                          self.wfile.sent - sent_mark)
 
-    def _observe(self, rid: str, root, tok, dur: float, t0: float) -> None:
-        """The finished request's counters, latency window, trace event
-        and root span (with the tail-sampling decision)."""
+    def _observe(self, rid: str, root, tok, dur: float, t0: float,
+                 sent: int) -> None:
+        """The finished request's counters, latency window, bucket
+        analytics, trace event, audit entry and root span (with the
+        tail-sampling decision). ``sent`` is the bytes of its response."""
         status = self._last_status
         path = getattr(self, "url_path", self.path)
         api = f"s3.{self.command}"
@@ -927,25 +1080,42 @@ class _S3Handler(BaseHTTPRequestHandler):
             if root is not None:
                 _lat.observe("api", dur, 0, trace_id=rid if traced else "",
                              api=name)
+            # the bucket's analytics (bounded registry); long-polls stay
+            # out, their duration being the client's choice
+            bkt = getattr(self, "bucket", "")
+            if bkt and not self._exempt:
+                _bs.record_request(bkt, name, status, dur, ttfb_s=ttfb,
+                                   bytes_in=getattr(self, "_consumed", 0),
+                                   bytes_out=sent)
         elif api == "admin" and root is not None:
             _lat.observe("api", dur, 0, trace_id=rid if traced else "",
                          api="admin")
         node = f"{self.s3.address}:{self.s3.port}"
-        _trc.publish(_trc.TraceInfo(
+        info = _trc.TraceInfo(
             node=node, func=api, method=self.command, path=path,
             query=getattr(self, "raw_query", ""), status=status,
             duration_s=dur, ttfb_s=ttfb,
             input_bytes=int(getattr(self, "hdr", {}).get(
                 "content-length", "0") or 0),
             remote=self.client_address[0], trace_id=rid,
-            span_id=root.span_id if root is not None else ""))
+            span_id=root.span_id if root is not None else "")
+        _trc.publish(info)
+        if api != "internal":
+            # the audit entry: the trace record, joined to the trace by
+            # its request id, with the API's name
+            entry = info.to_dict()
+            entry["request_id"] = rid
+            entry["api"] = api_detail
+            log_sys().audit(entry)
         # the SLO plane: an admitted request (an admission 503 included)
         # burns its class's error budget; the exempt planes carry no
         # objective, and a trace follow's duration is the client's choice
         qcls = getattr(self, "_qos_class", None)
         if qcls is not None and not self._exempt:
             _slo.record(qcls, dur, status=status,
-                        trace_id=rid if traced else "")
+                        trace_id=rid if traced else "",
+                        bucket=getattr(self, "bucket", "")
+                        if api.startswith("s3.") else "")
         if root is not None:
             _sp.finish_request(
                 root, tok, name=api_detail, method=self.command, path=path,
@@ -971,13 +1141,13 @@ class _S3Handler(BaseHTTPRequestHandler):
     # --- service ------------------------------------------------------------
 
     def list_buckets(self, ak):
-        self._authorize(ak)
+        self._authorize(ak, "s3:ListAllMyBuckets")
         self._send(200, xu.list_buckets_xml(self.s3.obj.list_buckets()))
 
     # --- bucket -------------------------------------------------------------
 
     def put_bucket(self, ak):
-        self._authorize(ak)
+        self._authorize(ak, "s3:CreateBucket")
         self.s3.create_bucket(
             self.bucket,
             object_lock=self.hdr.get(
@@ -985,12 +1155,12 @@ class _S3Handler(BaseHTTPRequestHandler):
         self._send(200, headers={"Location": f"/{self.bucket}"})
 
     def head_bucket(self, ak):
-        self._authorize(ak)
+        self._authorize(ak, "s3:ListBucket")
         self.s3.obj.get_bucket_info(self.bucket)
         self._send(200)
 
     def delete_bucket(self, ak):
-        self._authorize(ak)
+        self._authorize(ak, "s3:DeleteBucket")
         force = self.hdr.get("x-minio-force-delete", "") == "true"
         self.s3.remove_bucket(self.bucket, force=force)
         self._send(204)
@@ -1008,7 +1178,7 @@ class _S3Handler(BaseHTTPRequestHandler):
         return r
 
     def list_objects(self, ak):
-        self._authorize(ak)
+        self._authorize(ak, "s3:ListBucket")
         prefix = self.q("prefix")
         delimiter = self.q("delimiter")
         max_keys = min(int(self.q("max-keys", "1000") or "1000"), 10_000)
@@ -1026,7 +1196,7 @@ class _S3Handler(BaseHTTPRequestHandler):
             self.bucket, prefix, delimiter, marker, max_keys, r))
 
     def list_versions(self, ak):
-        self._authorize(ak)
+        self._authorize(ak, "s3:ListBucketVersions")
         prefix = self.q("prefix")
         delimiter = self.q("delimiter")
         max_keys = min(int(self.q("max-keys", "1000") or "1000"), 10_000)
@@ -1037,7 +1207,7 @@ class _S3Handler(BaseHTTPRequestHandler):
             self.bucket, prefix, delimiter, max_keys, r))
 
     def put_versioning(self, ak):
-        self._authorize(ak)
+        self._authorize(ak, "s3:PutBucketVersioning")
         self.s3.obj.get_bucket_info(self.bucket)
         enabled = xu.parse_versioning(self._read_body())
         was = self.s3.bucket_meta.get(self.bucket)
@@ -1054,33 +1224,52 @@ class _S3Handler(BaseHTTPRequestHandler):
         self._send(200)
 
     def get_versioning(self, ak):
-        self._authorize(ak)
+        self._authorize(ak, "s3:GetBucketVersioning")
         self.s3.obj.get_bucket_info(self.bucket)
         meta = self.s3.bucket_meta.get(self.bucket)
         self._send(200, xu.versioning_xml(meta.versioning_enabled,
                                           meta.versioning_suspended))
 
     def put_bucket_tagging(self, ak):
-        self._authorize(ak)
+        self._authorize(ak, "s3:PutBucketTagging")
         self.s3.obj.get_bucket_info(self.bucket)
         tags = xu.parse_tagging(self._read_body())
         self.s3.bucket_meta.update(self.bucket, tagging=tags)
         self._send(200)
 
     def get_bucket_tagging(self, ak):
-        self._authorize(ak)
+        self._authorize(ak, "s3:GetBucketTagging")
         meta = self.s3.bucket_meta.get(self.bucket)
         if not meta.tagging:
             return self._error("NoSuchTagSet", "no tags", 404)
         self._send(200, xu.tagging_xml(meta.tagging))
 
     def delete_bucket_tagging(self, ak):
-        self._authorize(ak)
+        self._authorize(ak, "s3:PutBucketTagging")
         self.s3.bucket_meta.update(self.bucket, tagging={})
         self._send(204)
 
+    def put_bucket_policy(self, ak):
+        self._authorize(ak, "s3:PutBucketPolicy")
+        self.s3.obj.get_bucket_info(self.bucket)
+        self.s3.bucket_meta.update(self.bucket,
+                                   policy_json=self._read_body())
+        self._send(204)
+
+    def get_bucket_policy(self, ak):
+        self._authorize(ak, "s3:GetBucketPolicy")
+        meta = self.s3.bucket_meta.get(self.bucket)
+        if not meta.policy_json:
+            return self._error("NoSuchBucketPolicy", "no policy", 404)
+        self._send(200, meta.policy_json, "application/json")
+
+    def delete_bucket_policy(self, ak):
+        self._authorize(ak, "s3:DeleteBucketPolicy")
+        self.s3.bucket_meta.update(self.bucket, policy_json=b"")
+        self._send(204)
+
     def delete_multiple(self, ak):
-        self._authorize(ak)
+        self._authorize(ak, "s3:DeleteObject")
         self._refuse_locked_bucket()
         objs, quiet = xu.parse_delete_objects(self._read_body())
         versioned = self.s3.bucket_meta.versioning_enabled(self.bucket)
@@ -1115,7 +1304,7 @@ class _S3Handler(BaseHTTPRequestHandler):
             raise dt.NotImplemented(self.bucket, self.key)
 
     def put_object(self, ak):
-        self._authorize(ak)
+        self._authorize(ak, "s3:PutObject")
         self._refuse_locked_bucket()
         size = int(self.hdr.get("content-length", "-1") or "-1")
         if self.hdr.get("x-amz-content-sha256", "") == STREAMING_PAYLOAD:
@@ -1241,7 +1430,7 @@ class _S3Handler(BaseHTTPRequestHandler):
         return start, min(end, total - 1)
 
     def get_object(self, ak):
-        self._authorize(ak)
+        self._authorize(ak, "s3:GetObject")
         opts = self._opts()
         oi = self.s3.obj.get_object_info(self.bucket, self.key, opts)
         self._check_preconditions(oi)
@@ -1294,7 +1483,7 @@ class _S3Handler(BaseHTTPRequestHandler):
                                    offset, length, opts)
 
     def head_object(self, ak):
-        self._authorize(ak)
+        self._authorize(ak, "s3:GetObject")
         oi = self.s3.obj.get_object_info(self.bucket, self.key, self._opts())
         self._check_preconditions(oi)
         self._refuse_unported(oi)
@@ -1343,7 +1532,7 @@ class _S3Handler(BaseHTTPRequestHandler):
                 f"quota {meta.quota} would be exceeded")
 
     def delete_object(self, ak):
-        self._authorize(ak)
+        self._authorize(ak, "s3:DeleteObject")
         self._refuse_locked_bucket()
         oi = self.s3.obj.delete_object(self.bucket, self.key, self._opts())
         self._send(204, headers={
@@ -1351,7 +1540,7 @@ class _S3Handler(BaseHTTPRequestHandler):
             "x-amz-delete-marker": "true" if oi.delete_marker else None})
 
     def copy_object(self, ak):
-        self._authorize(ak)
+        self._authorize(ak, "s3:PutObject")
         self._refuse_locked_bucket()
         src = urllib.parse.unquote(self.hdr["x-amz-copy-source"])
         src_vid = ""
@@ -1359,6 +1548,9 @@ class _S3Handler(BaseHTTPRequestHandler):
             src, _, src_vid = src.partition("?versionId=")
         src = src.lstrip("/")
         src_bucket, _, src_key = src.partition("/")
+        # the caller must be allowed to read the source too, or a copy
+        # would exfiltrate an object it cannot GET
+        self._authorize(ak, "s3:GetObject", src_bucket, src_key)
         src_opts = ObjectOptions(version_id=src_vid)
         # SSE copy (decrypt source / re-encrypt destination) is not wired
         # in either package; refuse instead of copying ciphertext
@@ -1392,7 +1584,7 @@ class _S3Handler(BaseHTTPRequestHandler):
     # --- object tagging -----------------------------------------------------
 
     def put_object_tagging(self, ak):
-        self._authorize(ak)
+        self._authorize(ak, "s3:PutObjectTagging")
         tags = xu.parse_tagging(self._read_body())
         self.s3.obj.put_object_tags(self.bucket, self.key,
                                     urllib.parse.urlencode(tags),
@@ -1400,20 +1592,20 @@ class _S3Handler(BaseHTTPRequestHandler):
         self._send(200)
 
     def get_object_tagging(self, ak):
-        self._authorize(ak)
+        self._authorize(ak, "s3:GetObjectTagging")
         enc = self.s3.obj.get_object_tags(self.bucket, self.key,
                                           self._opts())
         self._send(200, xu.tagging_xml(dict(urllib.parse.parse_qsl(enc))))
 
     def delete_object_tagging(self, ak):
-        self._authorize(ak)
+        self._authorize(ak, "s3:PutObjectTagging")
         self.s3.obj.delete_object_tags(self.bucket, self.key, self._opts())
         self._send(204)
 
     # --- multipart ----------------------------------------------------------
 
     def initiate_upload(self, ak):
-        self._authorize(ak)
+        self._authorize(ak, "s3:PutObject")
         self._refuse_locked_bucket()
         if self.hdr.get("x-amz-server-side-encryption") or self.hdr.get(
                 "x-amz-server-side-encryption-customer-algorithm"):
@@ -1426,7 +1618,7 @@ class _S3Handler(BaseHTTPRequestHandler):
         self._send(200, xu.initiate_multipart_xml(self.bucket, self.key, uid))
 
     def put_part(self, ak):
-        self._authorize(ak)
+        self._authorize(ak, "s3:PutObject")
         part_id = int(self.q("partNumber"))
         uid = self.q("uploadId")
         size = int(self.hdr.get("content-length", "-1") or "-1")
@@ -1445,7 +1637,7 @@ class _S3Handler(BaseHTTPRequestHandler):
         self._send(200, headers={"ETag": f'"{pi.etag}"'})
 
     def list_parts(self, ak):
-        self._authorize(ak)
+        self._authorize(ak, "s3:ListMultipartUploadParts")
         info = self.s3.obj.list_object_parts(
             self.bucket, self.key, self.q("uploadId"),
             int(self.q("part-number-marker", "0") or "0"),
@@ -1453,7 +1645,7 @@ class _S3Handler(BaseHTTPRequestHandler):
         self._send(200, xu.list_parts_xml(info))
 
     def list_uploads(self, ak):
-        self._authorize(ak)
+        self._authorize(ak, "s3:ListBucketMultipartUploads")
         self.s3.obj.get_bucket_info(self.bucket)
         prefix = self.q("prefix")
         max_uploads = min(int(self.q("max-uploads", "1000") or "1000"),
@@ -1464,13 +1656,13 @@ class _S3Handler(BaseHTTPRequestHandler):
                                             info))
 
     def abort_upload(self, ak):
-        self._authorize(ak)
+        self._authorize(ak, "s3:AbortMultipartUpload")
         self.s3.obj.abort_multipart_upload(self.bucket, self.key,
                                            self.q("uploadId"))
         self._send(204)
 
     def complete_upload(self, ak):
-        self._authorize(ak)
+        self._authorize(ak, "s3:PutObject")
         parts = xu.parse_complete_multipart(self._read_body())
         oi = self.s3.obj.complete_multipart_upload(
             self.bucket, self.key, self.q("uploadId"), parts, self._opts())

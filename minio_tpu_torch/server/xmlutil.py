@@ -289,3 +289,22 @@ def parse_tagging(body: bytes) -> dict[str, str]:
 def parse_versioning(body: bytes) -> bool:
     root = parse_xml(body)
     return root.findtext("Status", "") == "Enabled"
+
+
+def sts_credentials_xml(action: str, access_key: str, secret_key: str,
+                        expiration: str) -> bytes:
+    """An STS action's answer (reference cmd/sts-datatypes.go): the
+    temporary credentials under ``<{action}Result>``, byte for byte the
+    JAX server's."""
+    result = f"{action}Result"
+    return (
+        '<?xml version="1.0" encoding="UTF-8"?>'
+        f'<{action}Response xmlns='
+        '"https://sts.amazonaws.com/doc/2011-06-15/">'
+        f"<{result}><Credentials>"
+        f"<AccessKeyId>{access_key}</AccessKeyId>"
+        f"<SecretAccessKey>{secret_key}</SecretAccessKey>"
+        f"<SessionToken>minio-tpu-session</SessionToken>"
+        f"<Expiration>{expiration}</Expiration>"
+        f"</Credentials></{result}></{action}Response>"
+    ).encode()

@@ -24,7 +24,6 @@ default ``off``), and the flusher's window its ``batch_interval_ms``:
 """
 from __future__ import annotations
 
-import logging
 import os
 import threading
 import time
@@ -37,10 +36,6 @@ FSYNC_MODES = (FSYNC_ALWAYS, FSYNC_BATCHED, FSYNC_OFF)
 #: the JAX package's defaults (durability.fsync, batch_interval_ms)
 DEFAULT_FSYNC = FSYNC_OFF
 DEFAULT_BATCH_INTERVAL_S = 0.02
-
-log = logging.getLogger("minio_tpu_torch.durability")
-_warned: set = set()
-
 
 #: stored/default policy cache (GIL-atomic dict slot). fsync_mode runs on
 #: every commit on every disk; reading it through ConfigSys.get's lock
@@ -73,10 +68,11 @@ def fsync_mode() -> str:
     mode = (mode or DEFAULT_FSYNC).strip().lower()
     if mode in FSYNC_MODES:
         return mode
-    if mode not in _warned:
-        _warned.add(mode)
-        log.warning("unknown fsync mode %r — falling back to 'off' "
-                    "(valid: %s)", mode, ", ".join(FSYNC_MODES))
+    from ..obs.logger import log_sys
+    log_sys().log_once(
+        f"fsync-mode:{mode}", "warning", "durability",
+        f"unknown fsync mode {mode!r} — falling back to 'off' "
+        f"(valid: {', '.join(FSYNC_MODES)})")
     return FSYNC_OFF
 
 
@@ -201,7 +197,10 @@ class _Flusher:
                     fsync_path(d)
                 self.flushed += ok
             except Exception as e:  # noqa: BLE001 — flusher must survive
-                log.warning("batched fsync failed: %r", e)
+                from ..obs.logger import log_sys
+                log_sys().log_once(
+                    f"fsync-flusher:{type(e).__name__}", "warning",
+                    "durability", f"batched fsync failed: {e!r}")
             finally:
                 with self._cv:
                     self._busy = False

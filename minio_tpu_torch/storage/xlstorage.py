@@ -283,8 +283,11 @@ class XLStorage(StorageAPI):
             else:
                 # the rule fired (and spent its budget) at a step that owns
                 # no pending tmp file: say so rather than pass silently
-                log.warning("torn rule fired at step %r, which owns no "
-                            "pending tmp file: nothing was torn", step)
+                from ..obs.logger import log_sys
+                log_sys().log_once(
+                    f"torn-no-tmp:{step}", "warning", "fault",
+                    f"torn rule fired at step {step!r} which owns no "
+                    f"pending tmp file — nothing was torn")
 
     def get_disk_id(self) -> str:
         return self._disk_id

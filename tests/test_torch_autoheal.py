@@ -168,9 +168,12 @@ def _no_clock(doc: dict) -> dict:
 def test_admin_heal_usage_and_bg_status_match(tmp_path):
     # the JAX package's bucket analytics registry is process-wide: the
     # buckets of earlier tests in the worker fill its tracked slots, and
-    # its usage rows then fold this test's bucket into "_overflow_"
+    # its usage rows then fold this test's bucket into "_overflow_" (the
+    # port's registry likewise)
     from minio_tpu.obs import bucketstats
+    from minio_tpu_torch.obs import bucketstats as pbucketstats
     bucketstats.reset()
+    pbucketstats.reset()
     out = {}
     for pkg in PKGS:
         s = _server(pkg, tmp_path / pkg)

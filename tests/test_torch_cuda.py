@@ -10,9 +10,10 @@ at B = 1, 16 and 128, the edge-case block and the edge blocks of the chip
 smoke (a row longer than a tile and its halo, no newline, wide rows), also
 with tiles forced small so that many rows cross tiles, and one select_scan
 flush and one select through the CUDA queue; the object layer and the S3
-server (signed requests over HTTP, the MRF healing lost drives) and the
-auto-heal monitor's global heal on the card against the CPU, file for
-file; an injected kernel fault failing its flush on the card, and a
+server (signed requests over HTTP, the MRF healing lost drives), an IAM
+user's PUT and GET through a server with IAM, and the auto-heal monitor's
+global heal on the card against the CPU, file for file; an injected
+kernel fault failing its flush on the card, and a
 hedged GET rebuilding through K1. Marked ``cuda``: they skip on hosts
 without a CUDA card. On the card:
 
@@ -865,6 +866,111 @@ def test_s3server_on_card_matches_cpu(dev, tmp_path, monkeypatch):
     assert card[0][-1][2] == OL_BODIES["o1048583"][65530:70001]
     for name in ("gf_encode_batched", "gf_matmul_batched", "chacha20_xor",
                  "highwayhash256_chunks", "scan_codes"):
+        assert launched[name] > 0, name
+
+
+def _iam_run(root, device, monkeypatch) -> tuple:
+    """An S3 server with IAM over one 16+4 / 1 MiB set on ``device`` (None
+    = the card): root creates a user through the admin client, the user
+    PUTs and GETs the bodies in its bucket and is refused another's.
+    Returns each response's status, ETag and body, and every file of the
+    set, ``.minio.sys/config/iam/state.json`` included."""
+    import hashlib
+    import http.client
+    import itertools
+    import json
+    import os
+    import re
+    import types
+    import urllib.parse
+    from minio_tpu_torch.iam import sys as iam_sys
+    from minio_tpu_torch.madmin import AdminClient
+    from minio_tpu_torch.objectlayer import ErasureObjects
+    from minio_tpu_torch.server import S3Server
+    from minio_tpu_torch.server.auth import UNSIGNED_PAYLOAD, SigV4Verifier
+    from minio_tpu_torch.storage.xlstorage import XLStorage
+    _pin_object_ids(monkeypatch)
+    draws = itertools.count(1)
+    monkeypatch.setattr(iam_sys, "secrets", types.SimpleNamespace(
+        token_hex=lambda n: hashlib.sha256(b"%d" % next(draws)).hexdigest()
+        [:2 * n], token_urlsafe=lambda n: "s" * n))
+    monkeypatch.setattr(iam_sys, "time", types.SimpleNamespace(
+        time=lambda: 1.75e9))
+    dirs = [os.path.join(str(root), f"d{i:02d}") for i in range(20)]
+    ol = ErasureObjects([XLStorage(d) for d in dirs], default_parity=4,
+                        block_size=1 << 20, device=device)
+    srv = S3Server(ol, "127.0.0.1", 0, access_key=S3_AK, secret_key=S3_SK,
+                   device=device)
+    srv.enable_iam()
+    srv.start_background()
+    signer = SigV4Verifier(lambda ak: None)
+    conn = http.client.HTTPConnection("127.0.0.1", srv.port, timeout=300)
+
+    def req(ak, sk, method, path, body=b""):
+        h = {"host": f"127.0.0.1:{srv.port}"}
+        h["authorization"] = signer.sign_request(
+            ak, sk, method, path, {}, h, UNSIGNED_PAYLOAD)
+        conn.request(method, urllib.parse.quote(path), body=body, headers=h)
+        r = conn.getresponse()
+        data = r.read()
+        if r.status >= 400:  # the error XML's request id is per request
+            data = re.search(rb"<Code>([^<]+)</Code>", data).group(1)
+        return r.status, r.getheader("ETag"), data
+
+    try:
+        adm = AdminClient(srv.endpoint(), S3_AK, S3_SK)
+        adm.add_canned_policy("tenant", json.dumps({"Statement": [{
+            "Effect": "Allow", "Action": ["s3:*"],
+            "Resource": ["arn:aws:s3:::tenant-a",
+                         "arn:aws:s3:::tenant-a/*"]}]}).encode())
+        adm.add_user("tenant-a-user", "tenant-a-secret", ["tenant"])
+        out = [req(S3_AK, S3_SK, "PUT", "/tenant-b")]
+        user = ("tenant-a-user", "tenant-a-secret")
+        out.append(req(*user, "PUT", "/tenant-a"))
+        out += [req(*user, "PUT", f"/tenant-a/{n}", d)
+                for n, d in OL_BODIES.items()]
+        out += [req(*user, "GET", f"/tenant-a/{n}") for n in OL_BODIES]
+        out.append(req(*user, "PUT", "/tenant-b/x", b"denied"))
+        out.append(req(*user, "GET", "/tenant-b/x"))
+    finally:
+        conn.close()
+        srv.shutdown()
+    files = {}
+    for d, _sub, fnames in os.walk(str(root)):
+        # of the system volume, the IAM document only (the bucket records
+        # carry their creation time)
+        if ".minio.sys" in d and not d.endswith(os.path.join("config",
+                                                             "iam")):
+            continue
+        for n in fnames:
+            with open(os.path.join(d, n), "rb") as f:
+                files[os.path.relpath(os.path.join(d, n), str(root))] = \
+                    f.read()
+    return out, files
+
+
+def test_iam_user_put_and_get_on_card_match_cpu(dev, tmp_path, monkeypatch):
+    """An IAM user's PUT and GET on the card leave the same files as on
+    the CPU (the objects and the IAM state document) and answer alike;
+    the user's PUT and GET in another tenant's bucket are refused."""
+    import json as _json
+    from minio_tpu_torch.ops import hh_cuda, rs_cuda
+    for mod in (rs_cuda, hh_cuda):
+        mod.reset_launches()
+    card = _iam_run(tmp_path / "card", None, monkeypatch)
+    launched = {**rs_cuda.launches, **hh_cuda.launches}
+    host = _iam_run(tmp_path / "cpu", "cpu", monkeypatch)
+    n = len(OL_BODIES)
+    assert [r[0] for r in card[0]] == [200] * (2 + 2 * n) + [403, 403]
+    assert [r[2] for r in card[0][-2:]] == [b"AccessDenied"] * 2
+    assert card[0] == host[0]
+    assert card[1] == host[1]
+    assert [r[2] for r in card[0][2 + n:2 + 2 * n]] == \
+        list(OL_BODIES.values())
+    state = [k for k in card[1] if k.endswith("iam/state.json")]
+    assert len(state) == 20
+    assert "tenant-a-user" in _json.loads(card[1][state[0]])["users"]
+    for name in ("gf_encode_batched", "highwayhash256_chunks"):
         assert launched[name] > 0, name
 
 

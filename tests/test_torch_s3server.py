@@ -880,7 +880,7 @@ def test_unported_planes_answer_not_implemented(tmp_path):
         c.put_bucket("b")
         c.put_object("b", "o", b"x" * 100)
         calls = [
-            ("GET", "/b", {"policy": ""}, {}),
+            ("DELETE", "/b", {"lifecycle": ""}, {}),
             ("PUT", "/b", {"lifecycle": ""}, {}),
             ("GET", "/b", {"notification": ""}, {}),
             ("GET", "/b", {"object-lock": ""}, {}),

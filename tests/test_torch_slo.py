@@ -23,6 +23,7 @@ from minio_tpu.obs import profiler as jprof  # noqa: E402
 from minio_tpu.obs import slo as jslo  # noqa: E402
 from minio_tpu.qos import budget as jbudget  # noqa: E402
 from minio_tpu_torch.config import kvs as pkvs  # noqa: E402
+from minio_tpu_torch.obs import bucketstats as pbucketstats  # noqa: E402
 from minio_tpu_torch.obs import metrics as pmx  # noqa: E402
 from minio_tpu_torch.obs import profiler as pprof  # noqa: E402
 from minio_tpu_torch.obs import slo as pslo  # noqa: E402
@@ -52,12 +53,15 @@ def fresh(monkeypatch):
     monkeypatch.setenv("MINIO_TPU_PROFILER", "0")
     for prof in (jprof, pprof):
         prof.reset()
-    jbucketstats.reset()
+    for bs in (jbucketstats, pbucketstats):
+        bs.reset()
     for slo in SLO.values():
         slo.reset()
     yield monkeypatch
     for slo in SLO.values():
         slo.reset()
+    for bs in (jbucketstats, pbucketstats):
+        bs.reset()
 
 
 def _outcomes(n: int) -> list[tuple]:
@@ -170,6 +174,11 @@ def _admin(c, op, **query):
 def test_snapshots_and_health_ops_match_jax(fresh, tmp_path):
     from minio_tpu.obs import health as jhealth
     from minio_tpu_torch.obs import health as phealth
+    # an interactive budget above either server's slowest request (the
+    # port's CPU PUT takes ~1.6 s): no request crosses it on either side,
+    # so the bucket attribution's latency rows (top_buckets) cannot differ
+    # by which server ran slower
+    fresh.setenv("MINIO_TPU_QOS_INTERACTIVE_BUDGET_MS", "600000")
     got = {}
     for pkg in ("jax", "port"):
         for slo in SLO.values():
