@@ -21,8 +21,17 @@ Phases, each printing one JSON line:
    it, batched and single-block, held bit-exact against its plain PyTorch
    version on the card, timed as one CUDA-event pair around a run of
    launches on cold inputs (``time_ms``), with the plain version's time,
-   the computed bound and a device-to-device copy of the same bytes as the
-   measured memory floor. K2 runs at B = 1, 16, 64 and 128 at 16+4, at
+   the computed bound, a device-to-device copy of the same bytes as the
+   measured memory floor (``copy_ms``) and, for K1 and K4, an empty kernel
+   of the same library at the launch's grid and block (``floor_ms``). K1
+   runs at B = 128 (o = 2 and o = 20) and at the batches the paths launch,
+   B = 1, 2, 4 and 8 by o = 1 and 2; K4 at I = 128 and at I = 1, 4, 16
+   and 64 (16 packages of 64 KiB); each row with its launch plan
+   (rs_cuda.matmul_plan, chacha_cuda.launch_plan), registers and CTAs per
+   SM, a four-lane K4 row also with one thread per block timed beside it
+   (``earlier_design_ms``), and the SASS mix of the kernels of K1's B =
+   128 and B = 1 rows and K4's I = 128 and I = 1 rows. K2 runs at B = 1,
+   16, 64 and 128 at 16+4, at
    B = 128 at 8+4 and on an unaligned view, with its launch plan,
    registers and (at 16+4) its static SASS mix. K3 and K5 run at the chunk
    counts the paths launch (1, 256, 1,024 and 10,240 chunks of 16 KiB),
@@ -256,7 +265,8 @@ and read just after; every kernel a path should run must have launched.
 Launches are also counted by size (``launch_sizes``, printed per path):
 K3's and K5's by chunk count, K1's and K2's by batch size B and K4's by
 item count I (powers of two), K1's also by output rows o
-(``gf_matmul_batched_by_o``), K6's by batch size.
+(``gf_matmul_batched_by_o``), K4's also by package count P
+(``chacha20_xor_by_p``), K6's by batch size.
 Then the {"kernels": [...]} summary line and, last, the ok line. Any
 failure exits non-zero without the ok line; so does a host without CUDA.
 """
@@ -306,6 +316,12 @@ OBJECT_BYTES = 4 << 20
 TAIL_SHORT = 333
 #: CUDA-event timings per kernel: the mean of a run of this many launches
 REPS = 50
+#: K1's and K4's rows at the batches the paths launch (PERF.md §6: K1
+#: never above B = 8, K4 at I = 1 for most of its launches): K1 at B x o
+#: of SMALL_B x SMALL_O, K4 at I of SMALL_I (16 packages of 64 KiB)
+SMALL_B = (1, 2, 4, 8)
+SMALL_O = (1, 2)
+SMALL_I = (1, 4, 16, 64)
 #: the plain versions' timings: the mean of a run of this many calls
 PLAIN_REPS = 3
 #: a timed kernel's inputs are rotated over copies of at least this many
@@ -407,15 +423,17 @@ def cold_copies(args: tuple, total: int = COLD_BYTES) -> list:
             for i in range(k)]
 
 
-def time_ms(fn, args: tuple, reps: int, device, cold: bool = True) -> float:
+def time_ms(fn, args: tuple, reps: int, device, cold: bool = True,
+            spin: bool | None = None) -> float:
     """Milliseconds per call of ``fn(*args)``: on the card, one CUDA-event
     pair around a run of ``reps`` calls after a warm-up call, divided by
     ``reps``; with ``cold``, the calls rotate over copies of the inputs
-    (``cold_copies``, past the 50 MB L2, read out of it before the run), and
-    a spin kernel holds the stream while the host enqueues the run, so that
-    the host's wrapper time does not enter the window. On the CPU
-    (rehearsal only) the host clock."""
+    (``cold_copies``, past the 50 MB L2, read out of it before the run);
+    with ``spin`` (default: ``cold``), a spin kernel holds the stream while
+    the host enqueues the run, so that the host's wrapper time does not
+    enter the window. On the CPU (rehearsal only) the host clock."""
     import torch
+    spin = cold if spin is None else spin
     sets = cold_copies(args) if cold and device.type == "cuda" else [args]
     fn(*sets[-1])
     if device.type != "cuda":
@@ -426,15 +444,17 @@ def time_ms(fn, args: tuple, reps: int, device, cold: bool = True) -> float:
     torch.cuda.synchronize()
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
-    if cold:
+    if spin:
         t0 = time.perf_counter()
         for i in range(3):
             fn(*sets[-1 - i % len(sets)])
         host_s = (time.perf_counter() - t0) / 3
         torch.cuda.synchronize()
-        flush = torch.empty(COLD_BYTES // 4, dtype=torch.int32, device=device)
-        flush.sum()
-        del flush
+        if cold:
+            flush = torch.empty(COLD_BYTES // 4, dtype=torch.int32,
+                                device=device)
+            flush.sum()
+            del flush
         torch.cuda._sleep(int(min(2 * host_s * reps + 1e-3, 1.0) *
                               SPIN_CYCLES_S))
     a.record()
@@ -811,12 +831,13 @@ def _err(got, want) -> int:
 
 def kernel_row(name: str, source: str, replaces: str, shape: str, run,
                plain, args: tuple, nbytes: int, ops: tuple[int, int], device,
-               **extra) -> dict:
+               floor=None, **extra) -> dict:
     """One kernel at one shape: ``run(*args)`` held word for word against
     its plain version ``plain(*args)``, then both timed (``time_ms``, the
-    kernel on cold inputs), with the bound of the work, what bounds it, and
-    a device-to-device copy of the same bytes as the measured memory
-    floor."""
+    kernel on cold inputs), with the bound of the work, what bounds it, a
+    device-to-device copy of the same bytes as the measured memory floor
+    (``copy_ms``) and, given ``floor`` (a call that launches an empty
+    kernel at the kernel's geometry), the launch floor (``floor_ms``)."""
     err = _err(run(*args), plain(*args))
     check(err == 0, f"{name} at {shape} disagrees with its plain version: "
           f"max_abs_err {err}")
@@ -826,7 +847,11 @@ def kernel_row(name: str, source: str, replaces: str, shape: str, run,
            "ms": time_ms(run, args, REPS, device),
            "plain_ms": time_ms(plain, args, PLAIN_REPS, device, cold=False),
            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-           "copy_floor_ms": copy_floor_ms(nbytes, REPS, device), **extra}
+           "copy_ms": copy_floor_ms(nbytes, REPS, device)}
+    if floor is not None:
+        row["floor_ms"] = time_ms(floor, (), REPS, device, cold=False,
+                                  spin=True)
+    row.update(extra)
     emit({"phase": "kernel", **row})
     return row
 
@@ -1082,6 +1107,134 @@ def scan_ops(x, program: tuple, cols: tuple, delim: int, max_rows: int
     return n + 3 * cell_bytes, n + cell_bytes
 
 
+def occupancy(threads: int, registers, smem_bytes: int) -> int | None:
+    """Resident CTAs per SM on Hopper for a kernel of ``threads`` threads,
+    ``registers`` per thread and ``smem_bytes`` of shared memory per CTA:
+    at most 32 CTAs and 64 warps, registers allocated 256 per warp from
+    65,536, shared memory from 228 KB with 1 KB kept per CTA."""
+    if registers is None:
+        return None
+    warps = -(-threads // 32)
+    warp_regs = -(-registers * 32 // 256) * 256
+    return min(32, 64 // warps, 65536 // warp_regs // warps,
+               233_472 // (smem_bytes + 1024))
+
+
+def matmul_geometry(plan) -> dict:
+    """K1's plan with the registers, spills and static shared memory of the
+    kernel it launches (its build log's ptxas lines) and the CTAs per SM
+    they allow."""
+    sym = (f"gf_matmul_batched_kernelILi{plan.jmax}"
+           f"ELi{plan.words_per_thread}E")
+    res = next((r for k, r in ptxas_info("gf_matmul").items() if sym in k),
+               {})
+    smem = plan.smem_bytes + res.get("static_smem_bytes", 0)
+    return {"plan": plan._asdict(), "kernel": sym,
+            "registers": res.get("registers"),
+            "spill_bytes": res.get("spill_bytes"),
+            "smem_bytes_per_cta": smem,
+            "ctas_per_sm": occupancy(plan.threads, res.get("registers"),
+                                     smem)}
+
+
+def chacha_geometry(plan) -> dict:
+    """K4's plan with its kernel's registers and spills and the CTAs per SM
+    they allow."""
+    sym = "chacha20_quad_kernel" if plan.lanes_per_block == 4 \
+        else "chacha20_kernelILb1E"
+    res = next((r for k, r in ptxas_info("chacha20").items() if sym in k),
+               {})
+    return {"plan": plan._asdict(), "kernel": sym,
+            "registers": res.get("registers"),
+            "spill_bytes": res.get("spill_bytes"),
+            "ctas_per_sm": occupancy(plan.threads, res.get("registers"), 0)}
+
+
+def rebuild_masks(gen, codec, b: int, o: int):
+    """K1's masks [b, 8, o, K] of b rebuilds: for each element M of the
+    K + M shards lost at random, the first o of them rebuilt from K
+    survivors (o = K + M: every shard, as reconstruct_batch asks)."""
+    import numpy as np
+    from minio_tpu_torch.ops import gf256
+    masks = np.empty((b, 8, o, K), dtype=np.uint32)
+    for e in range(b):
+        lost = sorted(gen.choice(K + M, size=M, replace=False))
+        present = tuple(i for i in range(K + M) if i not in lost)[:K]
+        targets = tuple(int(t) for t in lost[:o]) if o <= M \
+            else tuple(range(K + M))
+        masks[e] = gf256.coeff_masks(codec.rebuild_rows(present, targets))
+    return masks.view(np.int32)
+
+
+def matmul_rows(device, gen, x, codec, shapes) -> list:
+    """K1 rows over x [B, K, W] for each (b, o, replaces) of ``shapes``: the
+    kernel at ``rs_cuda.matmul_plan``'s geometry and its launch floor."""
+    import torch
+    from minio_tpu_torch.ops import rs_cuda
+    w = x.shape[-1]
+    sms = torch.cuda.get_device_properties(device).multi_processor_count \
+        if device.type == "cuda" else rs_cuda.SMS
+    out = []
+    for b, o, replaces in shapes:
+        mk = torch.from_numpy(rebuild_masks(gen, codec, b, o)).to(device)
+        xb = x[:b]
+        extra, floor = {}, None
+        if device.type == "cuda":
+            plan = rs_cuda.matmul_plan(b, o, K, w, xb.data_ptr() % 16 == 0,
+                                       sms)
+            floor = (lambda plan=plan: rs_cuda.launch_empty(plan, device))
+            extra = matmul_geometry(plan)
+        out.append(kernel_row(
+            "gf_matmul_batched", "minio_tpu_torch/csrc/gf_matmul.cu",
+            replaces, f"B={b} o={o} i={K} W={w}",
+            rs_cuda.gf_matmul_batched, rs_cuda.gf_matmul_batched_ref,
+            (mk, xb), 4 * b * (K * w + o * w + 8 * o * K),
+            (b * w * o * (8 * K + 35), b * w * o * (8 * K + 21)), device,
+            floor=floor, **extra))
+    return out
+
+
+def chacha_rows(device, shapes) -> list:
+    """K4 rows for each (keys, nonces, data, replaces) of ``shapes``: the
+    kernel at ``chacha_cuda.launch_plan``'s geometry, its launch floor,
+    and, where the plan is four threads per block, one thread per block
+    (K4's only layout before the four-lane one) timed in the same run
+    (``earlier_design_ms``)."""
+    import torch
+    from minio_tpu_torch.ops import chacha_cuda, chacha_torch
+    sms = torch.cuda.get_device_properties(device).multi_processor_count \
+        if device.type == "cuda" else chacha_cuda.SMS
+    out = []
+    for keys, nonces, data, replaces in shapes:
+        items, pkgs, pw = data.shape
+        extra, floor = {}, None
+        if device.type == "cuda":
+            plan = chacha_cuda.launch_plan(items, pkgs, pw, sms)
+            floor = (lambda plan=plan: chacha_cuda.launch_empty(plan,
+                                                                device))
+            extra = chacha_geometry(plan)
+        row = kernel_row(
+            "chacha20_xor", "minio_tpu_torch/csrc/chacha20.cu", replaces,
+            f"I={items} P={pkgs} W={pw}",
+            chacha_cuda.chacha20_xor, chacha_torch.multi_xor,
+            (keys, nonces, data), chacha_bytes(items, pkgs, pw),
+            chacha_ops(items, pkgs, pw), device, floor=floor, **extra)
+        one = chacha_cuda.one_lane_plan(items, pkgs, pw)
+        if device.type == "cuda" and plan != one:
+            row["earlier_design_ms"] = time_ms(
+                lambda k, n, d, p=one: chacha_cuda.launch(
+                    k, n, d, torch.empty_like(d),
+                    torch.empty((items, pkgs, 8), dtype=torch.int32,
+                                device=device), p),
+                (keys, nonces, data), REPS, device)
+            row["earlier_design"] = chacha_geometry(one)
+            emit({"phase": "kernel_earlier_design", "name": row["name"],
+                  "shape": row["shape"], "ms": row["ms"],
+                  "earlier_design_ms": row["earlier_design_ms"]})
+        out.append(row)
+    return out
+
+
 def phase_kernels(device, small: bool, table: dict) -> dict:
     """Each kernel against its plain version at the shapes the paths give
     it: the batched shapes of a 128-object flush and the B = 1 / I = 1
@@ -1099,7 +1252,6 @@ def phase_kernels(device, small: bool, table: dict) -> dict:
     gen = np.random.default_rng(7)
     x = _words(gen, (B, K, W), device)
     codec = get_codec(K, M, device=device)
-    gf_src = "minio_tpu_torch/csrc/gf_matmul.cu"
     rows = {}
 
     # K2: the encode matrix compiled into its kernel, over the batch (B =
@@ -1143,33 +1295,28 @@ def phase_kernels(device, small: bool, table: dict) -> dict:
     # K1: per-element masks, known only at run time, so every coefficient
     # bit costs one LOP3 ((mask & x) ^ acc), plus 7 doublings of 5 ops (3
     # of them logic) per output word — o=2 (two lost data shards per
-    # item: degraded GET and heal), o=20 (reconstruct_batch), and o=2 at
-    # B = 1 (ReedSolomon.reconstruct of one block)
-    mm = []
-    for b, o, replaces in ((B, 2, "minio_tpu/ops/rs_pallas.py:147"),
-                           (B, K + M, "minio_tpu/ops/rs_pallas.py:147"),
-                           (1, 2, "minio_tpu/ops/rs_pallas.py:89")):
-        masks = np.empty((b, 8, o, K), dtype=np.uint32)
-        for e in range(b):
-            lost = sorted(gen.choice(K + M, size=M, replace=False))
-            present = tuple(i for i in range(K + M) if i not in lost)[:K]
-            targets = tuple(int(t) for t in lost[:2]) if o == 2 \
-                else tuple(range(K + M))
-            masks[e] = gf256.coeff_masks(codec.rebuild_rows(present, targets))
-        mk = torch.from_numpy(masks.view(np.int32)).to(device)
-        xb = x[:b]
-        mm.append(kernel_row(
-            "gf_matmul_batched", gf_src, replaces, f"B={b} o={o} i={K} W={W}",
-            rs_cuda.gf_matmul_batched, rs_cuda.gf_matmul_batched_ref,
-            (mk, xb), 4 * b * (K * W + o * W + 8 * o * K),
-            (b * W * o * (8 * K + 35), b * W * o * (8 * K + 21)), device))
+    # item: degraded GET and heal), o=20 (reconstruct_batch) at B = 128,
+    # and the batches the paths launch (SMALL_B x SMALL_O: B = 1 is
+    # ReedSolomon.reconstruct of one block)
+    mm = matmul_rows(device, gen, x, codec, [
+        (B, 2, "minio_tpu/ops/rs_pallas.py:147"),
+        (B, K + M, "minio_tpu/ops/rs_pallas.py:147")] + [
+        (min(b, B), o, "minio_tpu/ops/rs_pallas.py:" + (
+            "89" if b == 1 else "147"))
+        for b in SMALL_B if b <= B for o in SMALL_O])
     rows["gf_matmul_batched"] = {**mm[0], "also": mm[1:]}
+    if not small:
+        # the SASS of the kernels of the B = 128 and the B = 1 rows
+        for row in (mm[0], next(r for r in mm if r["shape"].startswith(
+                "B=1 o=2"))):
+            row["sass"] = sass_mix("gf_matmul", row["kernel"])
+            emit({"phase": "sass", "kernel": row["kernel"], **row["sass"]})
 
     # K4: the sse_xor flush (128 objects of 16 packages of 64 KiB, each
-    # object under its own key), and one object's packages under one key
-    # (I = 1, the shape of xor_packages, whose wrapper is held to its plain
-    # version too; the row times the kernel alone, without that wrapper's
-    # nonce read-back)
+    # object under its own key), the item counts the paths launch
+    # (SMALL_I), and one object's packages under one key (I = 1, the shape
+    # of xor_packages, whose wrapper is held to its plain version too; the
+    # row times the kernel alone, without that wrapper's nonce read-back)
     items, pkgs, pw = (3, 2, 64) if small else (N_OBJECTS, 16, 16384)
     keys = _words(gen, (items, 8), device)
     nonces = _words(gen, (items, pkgs, 3), device)
@@ -1178,13 +1325,6 @@ def phase_kernels(device, small: bool, table: dict) -> dict:
                                         device=device)
     keys[:, 0] |= -2**31
     payload = _words(gen, (items, pkgs, pw), device)
-    ch_src = "minio_tpu_torch/csrc/chacha20.cu"
-    multi = kernel_row(
-        "chacha20_xor", ch_src, "minio_tpu/ops/chacha_pallas.py:210",
-        f"I={items} P={pkgs} W={pw}",
-        chacha_cuda.chacha20_xor, chacha_torch.multi_xor,
-        (keys, nonces, payload), chacha_bytes(items, pkgs, pw),
-        chacha_ops(items, pkgs, pw), device)
     key0 = gen.bytes(32)
     one_nonce = nonces[0].clone()
     one_nonce[:, :2] = one_nonce[0, :2]
@@ -1193,17 +1333,19 @@ def phase_kernels(device, small: bool, table: dict) -> dict:
     check(err == 0, f"xor_packages disagrees with its plain version: "
           f"max_abs_err {err}")
     kw0 = chacha_torch.key_words(key0, device)
-    single = kernel_row(
-        "chacha20_xor", ch_src, "minio_tpu/ops/chacha_pallas.py:92",
-        f"I=1 P={pkgs} W={pw}",
-        chacha_cuda.chacha20_xor, chacha_torch.multi_xor,
-        (kw0, one_nonce[None], payload[:1]), chacha_bytes(1, pkgs, pw),
-        chacha_ops(1, pkgs, pw), device)
-    rows["chacha20_xor"] = {**multi, "also": [single]}
+    ch = chacha_rows(device, [
+        (keys, nonces, payload, "minio_tpu/ops/chacha_pallas.py:210"),
+        (kw0, one_nonce[None], payload[:1],
+         "minio_tpu/ops/chacha_pallas.py:92")] + [
+        (keys[:i], nonces[:i], payload[:i],
+         "minio_tpu/ops/chacha_pallas.py:210")
+        for i in SMALL_I if 1 < i < items])
+    rows["chacha20_xor"] = {**ch[0], "also": ch[1:]}
     if not small:
-        multi["sass"] = sass_mix("chacha20", "chacha20_kernelILb1E")
-        emit({"phase": "sass", "kernel": "chacha20_kernel<true>",
-              **multi["sass"]})
+        # the SASS of the flush's one-lane kernel and the I = 1 row's
+        for row in ch[:2]:
+            row["sass"] = sass_mix("chacha20", row["kernel"])
+            emit({"phase": "sass", "kernel": row["kernel"], **row["sass"]})
 
     # K3 and K5 at the chunk counts the paths launch (launch_sizes): every
     # 16 KiB chunk of a 128-item 16+4 flush (10,240), one chunk (the serial
@@ -1341,7 +1483,9 @@ def read_launch_sizes() -> dict:
     and K2's by batch size B and K4's by item count I, {kernel: {"<=2^k":
     launches}}, a launch of n under the least power of two at or above n;
     K1's also by output rows, {"gf_matmul_batched_by_o": {"o=2":
-    launches}}; K6's by batch size, {"scan_codes": {"B": launches}}."""
+    launches}}; K4's also by package count P, {"chacha20_xor_by_p":
+    {"<=16": launches}}; K6's by batch size, {"scan_codes": {"B":
+    launches}}."""
     from minio_tpu_torch.ops import (chacha_cuda, hh_cuda, mur3_cuda,
                                      rs_cuda, scan_cuda)
     out = {}
@@ -1350,6 +1494,8 @@ def read_launch_sizes() -> dict:
             out[name] = {f"<={b}": hist[b] for b in sorted(hist)}
     for name, hist in rs_cuda.launch_rows.items():
         out[f"{name}_by_o"] = {f"o={o}": hist[o] for o in sorted(hist)}
+    for name, hist in chacha_cuda.launch_pkgs.items():
+        out[f"{name}_by_p"] = {f"<={p}": hist[p] for p in sorted(hist)}
     for name, hist in scan_cuda.launch_sizes.items():
         out[name] = {str(b): hist[b] for b in sorted(hist)}
     return out
@@ -5743,7 +5889,8 @@ def main() -> int:
             row["launches"] = sum(by_path.values())
             row["launches_by_path"] = by_path
             for key, field in ((name, "launch_sizes_by_path"),
-                               (f"{name}_by_o", "launch_rows_by_path")):
+                               (f"{name}_by_o", "launch_rows_by_path"),
+                               (f"{name}_by_p", "launch_pkgs_by_path")):
                 if key in res["launch_sizes"]:
                     row[field] = {p: r["launch_sizes"].get(key, {})
                                   for p, r in paths.items()}
@@ -5751,7 +5898,10 @@ def main() -> int:
             name: row["launch_sizes_by_path"] for name, row in rows.items()
             if "launch_sizes_by_path" in row}, **{
             f"{name}_by_o": row["launch_rows_by_path"]
-            for name, row in rows.items() if "launch_rows_by_path" in row}})
+            for name, row in rows.items() if "launch_rows_by_path" in row},
+            **{f"{name}_by_p": row["launch_pkgs_by_path"]
+               for name, row in rows.items()
+               if "launch_pkgs_by_path" in row}})
     except Exception as e:  # noqa: BLE001 — report the phase, exit non-zero
         import traceback
         traceback.print_exc()

@@ -44,7 +44,9 @@ _ULL = ctypes.c_ulonglong
 #: the C entry points of each library: name -> (argtypes, restype)
 SIGNATURES = {
     "gf_matmul": {
-        "gfk_matmul_batched": ([_P, _P, _P, _I, _I, _I, _LL, _P], _I),
+        "gfk_matmul_batched": ([_P, _P, _P, _I, _I, _I, _LL, _I, _I, _I,
+                                _U, _I, _P], _I),
+        "gfk_empty": ([_U, _U, _I, _I, _P], _I),
     },
     "gf_encode": {
         "gfk_encode": ([_P, _P, _I, _I, _I, _LL, _P], _I),
@@ -54,7 +56,9 @@ SIGNATURES = {
                         _I),
     },
     "chacha20": {
-        "chacha20_xor": ([_P, _P, _P, _P, _P, _LL, _I, _I, _P], _I),
+        "chacha20_xor": ([_P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _U, _P],
+                         _I),
+        "chacha20_empty": ([_U, _I, _P], _I),
     },
     "highwayhash": {
         "hh256_chunks": ([_P, _P, _LL, _I, _I, _I, _I, _I, _I, _ULL, _ULL,

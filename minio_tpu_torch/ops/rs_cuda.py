@@ -2,7 +2,9 @@
 
 - ``gf_matmul_batched`` (K1, csrc/gf_matmul.cu): per-element coefficient
   masks [B, 8, o, i] x words [B, i, W] -> [B, o, W]; replaces
-  rs_pallas._dyn_batch_kernel (and _dyn_kernel as B = 1).
+  rs_pallas._dyn_batch_kernel (and _dyn_kernel as B = 1). Its CTA geometry
+  is ``matmul_plan``'s (``launch_matmul`` takes any of
+  ``candidate_plans``).
 - ``gf_encode_batched`` (K2, csrc/gf_encode.cu): one fixed uint8 matrix
   [o, i] for the whole batch, compiled into the kernel: one library per
   matrix (``prepare_encode``, a few seconds of ``nvcc`` the first time a
@@ -21,7 +23,9 @@ current stream or raises. ``launches`` counts kernel launches per wrapper,
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -42,6 +46,127 @@ launch_rows: dict[str, dict[int, int]] = {"gf_matmul_batched": {}}
 #: K2's largest input count (its kernel keeps the i input words of a
 #: column in registers)
 ENCODE_MAX_INPUTS = 32
+#: K1's largest input count (the input words of a thread live in registers)
+MATMUL_MAX_INPUTS = 32
+#: the H100 SXM's SMs, the default of ``matmul_plan``
+SMS = 132
+#: dynamic shared memory a Hopper CTA may take (227 KB)
+MAX_SMEM = 232_448
+#: K1's geometries: slices per CTA, words per thread, threads per CTA (each
+#: slice whole warps); a thread's J * V input words live in registers, at
+#: most MAX_THREAD_WORDS
+SLICES = (1, 2, 4)
+WORDS = (4, 2, 1)
+THREADS = (128, 64, 32)
+MAX_THREAD_WORDS = 64
+#: CTAs per SM a plan reaches where it can: with fewer, a launch leaves SMs
+#: idle and has too few warps on each to hide its round trip
+CTAS_PER_SM = 2
+#: CTAs per SM from which 16-byte words pay (the large flushes, bound by
+#: bytes); below it 8-byte words with more threads were faster on an H100
+#: SXM (tools/kernel_rows.py --sweep, PERF.md §6)
+WIDE_CTAS_PER_SM = 8
+
+
+class MatmulPlan(NamedTuple):
+    """CTA geometry of a K1 launch. ``grid`` is (CTAs per element, B); a
+    CTA of ``threads`` threads covers ``threads // slices *
+    words_per_thread`` neighbouring words of its element, each of its
+    ``slices`` groups of threads over its own share of the i inputs, J =
+    ceil(i / slices), at most ``jmax`` (the kernel's template bound). Its
+    shared memory holds the masks as [8*o][slices][JP] words (JP: J
+    rounded up to a power of two, at least 4), then, with more than one
+    slice, the slices' partial rows [slices][o][threads // slices *
+    words_per_thread]."""
+    words_per_thread: int
+    slices: int
+    jmax: int
+    threads: int
+    grid: tuple[int, int]
+    smem_bytes: int
+
+
+def _check_matmul_shape(B: int, o: int, i: int, W: int) -> None:
+    if not (0 < B <= 65535 and o > 0 and 0 < i <= MATMUL_MAX_INPUTS
+            and W > 0):
+        raise ValueError(f"K1 cannot take B={B} o={o} i={i} W={W}")
+
+
+def _bound(n: int) -> int:
+    """The kernel's template bound on a thread's inputs at or above n."""
+    return next(b for b in (4, 8, 16, 32) if b >= n)
+
+
+def make_plan(B: int, o: int, i: int, W: int, aligned: bool = True,
+              slices: int = 1, words_per_thread: int = 1,
+              threads: int = 128) -> MatmulPlan:
+    """K1 at one geometry (``MatmulPlan``); ``aligned``: the words are
+    16-byte aligned. Raises for a geometry the kernel cannot take."""
+    _check_matmul_shape(B, o, i, W)
+    s, v, t = slices, words_per_thread, threads
+    j = -(-i // s)
+    if s not in SLICES or v not in WORDS or t not in THREADS \
+            or t // s < 32 or j * v > MAX_THREAD_WORDS \
+            or (v > 1 and (not aligned or W % v)):
+        raise ValueError(f"K1 has no geometry S={s} V={v} T={t} for i={i} "
+                         f"W={W} aligned={aligned}")
+    jp = max(4, 1 << (j - 1).bit_length())
+    smem = 4 * o * (8 * s * jp + (t * v if s > 1 else 0))
+    if smem > MAX_SMEM:
+        raise ValueError(f"K1 at S={s} V={v} T={t}, o={o} i={i} takes "
+                         f"{smem} bytes of shared memory")
+    return MatmulPlan(v, s, _bound(j), t, (-(-W // (t // s * v)), B), smem)
+
+
+def candidate_plans(B: int, o: int, i: int, W: int, aligned: bool = True
+                    ) -> list[MatmulPlan]:
+    """Every geometry the kernel takes at a shape."""
+    plans = []
+    for s in SLICES:
+        for v in WORDS:
+            for t in THREADS:
+                try:
+                    plans.append(make_plan(B, o, i, W, aligned, s, v, t))
+                except ValueError:
+                    pass
+    return plans
+
+
+def matmul_plan(B: int, o: int, i: int, W: int, aligned: bool = True,
+                sms: int = SMS) -> MatmulPlan:
+    """K1's geometry for B elements of masks [8, o, i] x words [i, W];
+    ``aligned``: the words are 16-byte aligned. 16-byte words in
+    128-thread CTAs when that runs ``WIDE_CTAS_PER_SM`` CTAs per SM; else,
+    in this order, 8-byte words, then slices of one word, then one word a
+    thread without slices (two slices first where no 8-byte words can be
+    had: odd W, unaligned), each at the largest CTA that still runs
+    ``CTAS_PER_SM`` CTAs per SM; the most CTAs when none does. Raises for
+    shapes the kernel cannot take."""
+    _check_matmul_shape(B, o, i, W)
+    pairs = [(1, 2), (2, 1), (4, 1), (1, 1)]
+    if not aligned or W % 2:
+        pairs = [(1, 1), (2, 1), (4, 1)]
+    order = [(1, 4, 128)] + [(s, v, t) for s, v in pairs for t in THREADS]
+    best = None
+    for s, v, t in order:
+        try:
+            plan = make_plan(B, o, i, W, aligned, s, v, t)
+        except ValueError:
+            continue
+        ctas = plan.grid[0] * B
+        if ctas >= (WIDE_CTAS_PER_SM if v == 4 else CTAS_PER_SM) * sms:
+            return plan
+        if v < 4 and (best is None or plan.grid[0] > best.grid[0]):
+            best = plan
+    if best is None:
+        raise ValueError(f"K1's masks of o={o} i={i} exceed a CTA's shared "
+                         "memory")
+    return best
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def reset_launches() -> None:
@@ -104,10 +229,22 @@ def gf_matmul_batched(masks: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     out = torch.empty((bsz, o, w), dtype=torch.int32, device=x.device)
     if out.numel() == 0:
         return out
+    plan = matmul_plan(bsz, o, i, w, x.data_ptr() % 16 == 0,
+                       _sms(x.device.index or 0))
+    return launch_matmul(masks, x, out, plan)
+
+
+def launch_matmul(masks: torch.Tensor, x: torch.Tensor, out: torch.Tensor,
+                  plan: MatmulPlan) -> torch.Tensor:
+    """K1 at ``plan`` on checked CUDA tensors (``gf_matmul_batched`` gives
+    it ``matmul_plan``'s); counts the launch."""
+    bsz, _, o, i = masks.shape
     lib = cuda_build.library("gf_matmul")
     with torch.cuda.device(x.device):
         err = lib.gfk_matmul_batched(
-            masks.data_ptr(), x.data_ptr(), out.data_ptr(), bsz, o, i, w,
+            masks.data_ptr(), x.data_ptr(), out.data_ptr(), bsz, o, i,
+            x.shape[-1], plan.words_per_thread, plan.slices, plan.threads,
+            plan.grid[0], plan.smem_bytes,
             torch.cuda.current_stream().cuda_stream)
     cuda_build.check(err, "gf_matmul_batched")
     count_launch(launches, launch_sizes, "gf_matmul_batched", bsz)
@@ -115,6 +252,17 @@ def gf_matmul_batched(masks: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         rows = launch_rows["gf_matmul_batched"]
         rows[o] = rows.get(o, 0) + 1
     return out
+
+
+def launch_empty(plan: MatmulPlan, device) -> None:
+    """An empty kernel of K1's library at ``plan``'s grid, block and shared
+    memory (a launch's floor at that geometry; not counted)."""
+    lib = cuda_build.library("gf_matmul")
+    with torch.cuda.device(device):
+        err = lib.gfk_empty(plan.grid[0], plan.grid[1], plan.threads,
+                            plan.smem_bytes,
+                            torch.cuda.current_stream().cuda_stream)
+    cuda_build.check(err, "gfk_empty")
 
 
 def encode_defines(mat: np.ndarray) -> tuple[tuple[str, str], ...]:

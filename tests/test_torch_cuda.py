@@ -1,6 +1,8 @@
 """The port's hand-written CUDA kernels held to their plain PyTorch versions
 on the card, bit for bit, over shapes the CPU tests cannot reach (ragged
-word counts, every template bound of K1, K2 built for the codecs' encode
+word counts, every template bound and every CTA geometry of K1 at the
+batches of either side of each switch of its plan, both layouts of K4 at
+1-128 items, K2 built for the codecs' encode
 matrices and for random ones of 1-32 inputs, more than 32 output rows,
 chunk lengths with and without a HighwayHash remainder at the edges of the
 hash kernels' tiles and at the flush shape, unaligned views), the fused
@@ -120,17 +122,47 @@ def test_codec_on_card_prepares_its_encoder(dev):
                           gf256.gf_matmul_ref(codec.parity_rows, data))
 
 
-@pytest.mark.parametrize("o", [1, 2, 20, 40])
-@pytest.mark.parametrize("i,w", [(4, 4096), (16, 1029), (16, 16384),
-                                 (20, 2048)])
-def test_matmul_kernel_matches_plain(dev, o, i, w):
-    rng = np.random.default_rng(o * i)
-    mats = rng.integers(0, 256, (3, o, i), dtype=np.uint8)
+#: K1's shapes: the batches the paths launch and the flush's 128, on
+#: either side of each switch of rs_cuda.matmul_plan at W = 16384 (i = 16:
+#: two slices of one word at B = 1, 8-byte words in CTAs of 32 threads at
+#: 2, of 64 at 3-4, of 128 at 5-32, 16-byte words from 33), output rows of
+#: one and two lost shards and of a whole stripe, i of the template bounds,
+#: W whole, odd and ragged; views one word into their storage (not 16-byte
+#: aligned: one word per thread); and the earlier cases of three elements,
+#: more than 32 output rows among them
+MATMUL_SHAPES = [
+    (b, o, i, w, "aligned")
+    for b in (1, 2, 3, 5, 8, 32, 33, 128) for o in (1, 2, 20)
+    for i in (4, 16, 32) for w in (16384, 1029, 16383)] + [
+    (b, 2, 16, 16384, "unaligned") for b in (1, 4, 8, 128)] + [
+    (3, o, i, w, "aligned") for o in (1, 2, 20, 40)
+    for i, w in ((4, 4096), (20, 2048))] + [
+    (3, 40, 16, w, "aligned") for w in (1029, 16384)]
+
+
+@pytest.mark.parametrize("b,o,i,w,view", MATMUL_SHAPES)
+def test_matmul_kernel_matches_plain(dev, b, o, i, w, view):
+    """K1 at its plan, and at every other geometry it takes, word for word
+    against the plain version; the wrapper's launch counted by B and o."""
+    rng = np.random.default_rng(b * 1000 + o * i)
+    mats = rng.integers(0, 256, (b, o, i), dtype=np.uint8)
     masks = torch.from_numpy(np.stack(
         [gf256.coeff_masks(m) for m in mats]).view(np.int32)).to(dev)
-    x = words((3, i, w), o + w, dev)
-    got = rs_cuda.gf_matmul_batched(masks, x)
-    assert torch.equal(got, rs_cuda.gf_matmul_batched_ref(masks, x))
+    if view == "unaligned":
+        x = words((b * i * w + 1,), o + w, dev)[1:].view(b, i, w)
+        assert x.data_ptr() % 16
+    else:
+        x = words((b, i, w), o + w, dev)
+    want = rs_cuda.gf_matmul_batched_ref(masks, x)
+    rs_cuda.reset_launches()
+    assert torch.equal(rs_cuda.gf_matmul_batched(masks, x), want)
+    assert rs_cuda.launch_sizes["gf_matmul_batched"] == {
+        1 << (b - 1).bit_length(): 1}
+    assert rs_cuda.launch_rows["gf_matmul_batched"] == {o: 1}
+    for plan in rs_cuda.candidate_plans(b, o, i, w, view == "aligned"):
+        out = torch.empty_like(want)
+        assert torch.equal(rs_cuda.launch_matmul(masks, x, out, plan),
+                           want), plan
 
 
 #: chunk counts around one CTA per SM (132) and one chunk per CTA, and
@@ -200,17 +232,39 @@ def test_erasure_round_trip_on_card(dev):
     assert out.getvalue() == data
 
 
-@pytest.mark.parametrize("items,pkgs,w", [(1, 1, 16), (3, 2, 64),
-                                          (5, 16, 1024), (2, 3, 16384)])
-def test_chacha_kernel_matches_plain(dev, items, pkgs, w):
+#: K4's shapes: item counts on either side of launch_plan's switch (I = 3
+#: and 4 at 16 packages of 64 KiB) and the flush's 128, one and 16
+#: packages of one, four and 1,024 blocks, and the earlier cases
+CHACHA_SHAPES = [(i, p, w) for i in (1, 2, 3, 4, 64, 128) for p in (1, 16)
+                 for w in (16, 64, 16384)] + [
+    (3, 2, 64), (5, 16, 1024), (2, 3, 16384)]
+
+
+@pytest.mark.parametrize("lanes", [1, 4])
+@pytest.mark.parametrize("items,pkgs,w", CHACHA_SHAPES)
+def test_chacha_kernel_matches_plain(dev, items, pkgs, w, lanes):
+    """K4 with one and with four threads per 64-byte block, and at its
+    plan through the wrapper (counted by I and by P), word for word against
+    the plain version."""
     keys = words((items, 8), items, dev)
     keys[:, 0] |= -2**31
     nonces = words((items, pkgs, 3), pkgs, dev)
     nonces[:, :, 2] = -1 - torch.arange(pkgs, dtype=torch.int32, device=dev)
     data = words((items, pkgs, w), w, dev)
-    got = chacha_cuda.chacha20_xor(keys, nonces, data)
     want = chacha_torch.multi_xor(keys, nonces, data)
+    plan = (chacha_cuda.one_lane_plan if lanes == 1
+            else chacha_cuda.four_lane_plan)(items, pkgs, w)
+    got = chacha_cuda.launch(
+        keys, nonces, data, torch.empty_like(data),
+        torch.empty((items, pkgs, 8), dtype=torch.int32, device=dev), plan)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    chacha_cuda.reset_launches()
+    got = chacha_cuda.chacha20_xor(keys, nonces, data)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert chacha_cuda.launch_sizes["chacha20_xor"] == {
+        1 << (items - 1).bit_length(): 1}
+    assert chacha_cuda.launch_pkgs["chacha20_xor"] == {
+        1 << (pkgs - 1).bit_length(): 1}
 
 
 def test_chacha_single_object_and_unaligned_view(dev):
