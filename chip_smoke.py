@@ -243,6 +243,40 @@ Phases, each printing one JSON line:
    a new object) and a second cycle finds none. A loopback receiver as the
    audit webhook gets one entry per request issued (S3 and admin), each
    ``request_id`` a trace id, none dropped. K1, K2 and K5 must launch.
+14. bucket feature path — two S3Servers, each over one 16+4 set of 20
+   disk directories (1 MiB blocks, HighwayHash256S), the source with a
+   ReplicationPool (8 workers, S3Target to the second server), an FS tier
+   (a directory, added over the admin API) and a webhook event target on
+   a loopback receiver, every bucket's notification configuration naming
+   it for s3:ObjectCreated:*, s3:ObjectRemoved:* and s3:ObjectAccessed:*.
+   (a) 64 x 4 MiB PUT from 32 clients and replicated: lag (the notify
+   hook's charge to the replica's PUT answered) p50/p99, replicated GiB/s,
+   every replica's bytes and ETag equal to the source's; 16 more PUT
+   before the bucket has a target, two drives' copies of it taken away,
+   then the target attached and the bucket resynced, so every worker read
+   rebuilds (K1); a DELETE replicated to the target. (b) 16 x 4 MiB
+   replicated through a target throttled at 64 MiB/s, and 4 x 4 MiB
+   through one at 8 MiB/s (below the pipeline's own rate, so it binds):
+   the bytes the throttle let through at every read within its windows'
+   grants (``bucket.bandwidth.Throttle``: one window's bytes per 250 ms
+   window begun), the measured rate against the limit. (c) A one-day Transition
+   rule on 32 x 4 MiB and one scanner cycle whose lifecycle pass sees
+   every object two days older: all 32 become stubs and the tier holds
+   their bytes (the transition's wall per object); GETs of the 32 through
+   the tier against GETs of 32 local objects in one ABBA block (p50/p99
+   per turn), the webhook's listener down through the second turn; 8
+   restored by POST ?restore (K2, K5) and read back; an Expiration rule
+   (a date in the past) over half of them and a second cycle: 16 expired,
+   their tier copies gone. (d) A lock-enabled bucket with a COMPLIANCE
+   default: 16 x 4 MiB PUT, every version DELETE (with and without the
+   bypass header) 403; a GOVERNANCE object refused without the bypass,
+   refused with it under a legal hold, deleted with it once the hold is
+   off. (e) The webhook got every event the clients' successful requests
+   owe, none lost and none extra, the events queued during the outage
+   delivered after it: sent, queued, redelivered, lost, delivery latency
+   p50/p99 (event time to arrival). Each step reports its wall, the
+   streams' occupancy, the lanes' busy ratio and its K1, K2 and K5
+   launches by size. K1, K2 and K5 must launch.
 
 Each sub-phase of a path reports, beside its wall and GiB/s, the streams'
 occupancy (``stream_occupancy``: the union of the flushes' CUDA-event
@@ -5194,14 +5228,22 @@ IAM_KINDS = ("user",) * 8 + ("service_account",) * 4 + \
     ("sts_assume_role",) * 2 + ("sts_web_identity",) * 2
 
 
-class _AuditReceiver:
-    """A loopback audit webhook: keeps the request id of every entry the
-    server's audit target POSTs."""
+class _Receiver:
+    """A loopback HTTP receiver of JSON POSTs (the audit webhook, the event
+    webhook): ``record(doc)`` of every body, with its arrival time,
+    appended to ``got``. ``stop`` closes the listener (senders then fail
+    and retry), ``start`` binds the same port again."""
 
-    def __init__(self):
-        import http.server
-        self.ids: list = []
+    def __init__(self, record, path: str):
+        self.record = record
+        self.path = path
+        self.got: list = []
         self.lock = threading.Lock()
+        self.port = 0
+        self.start()
+
+    def start(self):
+        import http.server
         rx = self
 
         class H(http.server.BaseHTTPRequestHandler):
@@ -5209,9 +5251,7 @@ class _AuditReceiver:
                 doc = json.loads(self.rfile.read(
                     int(self.headers["Content-Length"])))
                 with rx.lock:
-                    rx.ids.append((doc.get("request_id", ""),
-                                   doc.get("trace_id", ""),
-                                   doc.get("api", "")))
+                    rx.got.append((*rx.record(doc), time.time()))
                 self.send_response(200)
                 self.send_header("Content-Length", "0")
                 self.end_headers()
@@ -5219,14 +5259,15 @@ class _AuditReceiver:
             def log_message(self, *a):
                 pass
 
-        self.httpd = http.server.ThreadingHTTPServer(("127.0.0.1", 0), H)
+        self.httpd = http.server.ThreadingHTTPServer(("127.0.0.1",
+                                                      self.port), H)
+        self.port = self.httpd.server_port
         self.thread = threading.Thread(target=self.httpd.serve_forever,
-                                       name="smoke-audit-receiver",
-                                       daemon=True)
+                                       name="smoke-receiver", daemon=True)
         self.thread.start()
-        self.url = f"http://127.0.0.1:{self.httpd.server_port}/audit"
+        self.url = f"http://127.0.0.1:{self.port}/{self.path}"
 
-    def close(self):
+    def stop(self):
         self.httpd.shutdown()
         self.httpd.server_close()
         self.thread.join(timeout=5)
@@ -5283,7 +5324,9 @@ def phase_iam(device, sizes: dict, card: str, seed: int) -> dict:
     q = global_queue(device)
     get_config_sys().obj = None
     bucketstats.reset()
-    receiver = _AuditReceiver()
+    receiver = _Receiver(lambda doc: (doc.get("request_id", ""),
+                                      doc.get("trace_id", ""),
+                                      doc.get("api", "")), "audit")
     old_env = _env({"MINIO_TPU_AUDIT_WEBHOOK_ENDPOINT": receiver.url,
                     "MINIO_TPU_OPENID_HMAC_SECRET": IAM_OPENID_SECRET})
     obs_logger.reset()
@@ -5697,7 +5740,7 @@ def phase_iam(device, sizes: dict, card: str, seed: int) -> dict:
               f"the audit target sent {target.sent} of {expect}")
         time.sleep(0.05)
     with receiver.lock:
-        got_ids = list(receiver.ids)
+        got_ids = [row[:3] for row in receiver.got]
     dropped = sum(v for k, v in counters_snapshot().items()
                   if k.startswith("minio_tpu_log_target_dropped_total"))
     check(target.dropped == 0 and dropped == 0,
@@ -5720,7 +5763,7 @@ def phase_iam(device, sizes: dict, card: str, seed: int) -> dict:
         c.close()
     srv.shutdown()
     obs_logger.reset()
-    receiver.close()
+    receiver.stop()
     _restore(old_env)
     get_config_sys().obj = None
     bucketstats.reset()
@@ -5732,6 +5775,591 @@ def phase_iam(device, sizes: dict, card: str, seed: int) -> dict:
                       "highwayhash256_chunks"):
             check(launches[kname] > 0,
                   f"kernel {kname} never launched on the iam path")
+    shutil.rmtree(root, ignore_errors=True)
+    return result
+
+
+BF_REPL = 64
+BF_DEGRADED = 16
+BF_THROTTLE = 16
+BF_THROTTLE_BPS = 64 << 20
+#: a second throttled bucket below what the replication pipeline moves on
+#: this deployment (17-23 MB/s on an H100 host), so that its throttle
+#: binds: objects and limit
+BF_BINDING = 4
+BF_BINDING_BPS = 8 << 20
+BF_COLD = 32
+BF_RESTORE = 8
+BF_WORM = 16
+BF_LOST = (2, 13)
+BF_WORKERS = 8
+BF_TURNS = ("tier", "local", "local", "tier")
+#: the lifecycle pass sees every object this much older than it is: the
+#: Transition rule's one day has passed
+BF_AGE_S = 2 * 86400
+BF_ARN = "arn:minio:sqs:us-east-1:smoke:webhook"
+BF_EVENTS = ("s3:ObjectCreated:*", "s3:ObjectRemoved:*",
+             "s3:ObjectAccessed:*")
+
+
+def _notification_xml() -> bytes:
+    events = "".join(f"<Event>{e}</Event>" for e in BF_EVENTS)
+    return (f"<NotificationConfiguration><QueueConfiguration><Id>smoke</Id>"
+            f"<Queue>{BF_ARN}</Queue>{events}</QueueConfiguration>"
+            f"</NotificationConfiguration>").encode()
+
+
+def _sizes_delta(before: dict, after: dict) -> dict:
+    """One step's ``read_launch_sizes``: the path's histograms after it
+    less those before it."""
+    out = {}
+    for name, hist in after.items():
+        d = {b: v - before.get(name, {}).get(b, 0) for b, v in hist.items()}
+        d = {b: v for b, v in d.items() if v}
+        if d:
+            out[name] = d
+    return out
+
+
+def phase_bucketfeatures(device, sizes: dict, card: str, seed: int) -> dict:
+    """The bucket feature planes and events (module docstring, step 14):
+    replication to a second server with its lag, a degraded source and a
+    DELETE; the bandwidth throttle; lifecycle transition to a tier, GETs
+    through it against local ones, restore and expiry; object lock; the
+    events of all of it on a loopback webhook with an outage."""
+    import calendar
+    import urllib.parse
+    import numpy as np
+    from minio_tpu_torch.bucket import bandwidth as bw
+    from minio_tpu_torch.bucket import transition as tx
+    from minio_tpu_torch.bucket.lifecycle import LifecycleSys
+    from minio_tpu_torch.bucket.replication import ReplicationPool, S3Target
+    from minio_tpu_torch.config import get_config_sys
+    from minio_tpu_torch.event import WebhookTarget
+    from minio_tpu_torch.objectlayer import ErasureObjects
+    from minio_tpu_torch.runtime.dispatch import global_queue
+    from minio_tpu_torch.scanner.scanner import DataScanner
+    from minio_tpu_torch.server import S3Server
+    from minio_tpu_torch.storage.xlstorage import XLStorage
+
+    obj_bytes = sizes["bytes"]
+    n_disks = K + M
+    root = _disk_root("bucketfeatures")
+    src_dirs = [os.path.join(root, f"s{i:02d}") for i in range(n_disks)]
+    dst_dirs = [os.path.join(root, f"t{i:02d}") for i in range(n_disks)]
+    tier_dir = os.path.join(root, "tier")
+    on_card = device.type == "cuda"
+    kw = {} if on_card else {"device": "cpu"}
+    q = global_queue(device)
+    get_config_sys().obj = None
+    src_layer = ErasureObjects([XLStorage(d) for d in src_dirs],
+                               default_parity=M, block_size=BLOCK, **kw)
+    dst_layer = ErasureObjects([XLStorage(d) for d in dst_dirs],
+                               default_parity=M, block_size=BLOCK, **kw)
+    src = S3Server(src_layer, "127.0.0.1", 0, access_key=S3_ACCESS_KEY,
+                   secret_key=S3_SECRET_KEY, region=S3_REGION, **kw)
+    dst = S3Server(dst_layer, "127.0.0.1", 0, access_key=S3_ACCESS_KEY,
+                   secret_key=S3_SECRET_KEY, region=S3_REGION, **kw)
+    receiver = _Receiver(lambda doc: (
+        doc["EventName"], doc["Key"], doc["Records"][0]["eventTime"]),
+        "events")
+    notifier = src.enable_events([WebhookTarget("smoke", receiver.url)],
+                                 queue_root=os.path.join(root, "events"))
+    store = notifier.stores[BF_ARN]
+    pool = ReplicationPool(src_layer, workers=BF_WORKERS).start()
+    src.enable_replication(pool)
+    src.start_background()
+    dst.start_background()
+    bw._monitor = None
+    result = {"deployment": f"source 1 set x {n_disks} drives, target 1 "
+                            f"set x {n_disks} drives",
+              "geometry": f"{K}+{M}", "block": BLOCK,
+              "bitrot": "HighwayHash256S", "card": card,
+              "client_threads": S3_THREADS, "replication_workers": BF_WORKERS,
+              "cut": "one process over local disk directories; both servers, "
+                     "the tier (a directory) and the webhook on loopback; "
+                     f"the lifecycle pass sees every object {BF_AGE_S} s "
+                     "older than it is (a one-day Transition rule)"}
+    reset_launches()
+    gen = np.random.default_rng(seed + 16)
+    clients = _S3Client(src.port)
+    target_client = _S3Client(dst.port)
+    #: what the webhook must receive: (event name, bucket/key) per
+    #: successful request in a bucket with the notification configuration
+    expected: list = []
+    exp_lock = threading.Lock()
+
+    def ok(st, want, what):
+        check(st == want, f"{what}: HTTP {st}, want {want}")
+
+    def expect(event: str, bucket: str, key: str):
+        with exp_lock:
+            expected.append((event, f"{bucket}/{key}"))
+
+    def bucket(name: str, lock: bool = False):
+        ok(clients.request("PUT", f"/{name}", headers={
+            "x-amz-bucket-object-lock-enabled": "true"} if lock else None)[0],
+           200, f"PUT bucket {name}")
+        ok(clients.request("PUT", f"/{name}", query={"notification": ""},
+                           body=_notification_xml())[0], 200,
+           f"PUT {name}?notification")
+
+    def put(name: str, key: str, data: bytes, headers=None):
+        t0 = time.monotonic()
+        st, h, body = clients.request("PUT", f"/{name}/{key}", body=data,
+                                      headers=headers)
+        ok(st, 200, f"PUT {name}/{key}: {body[:200]!r}")
+        expect("s3:ObjectCreated:Put", name, key)
+        return time.monotonic() - t0, h
+
+    def get(name: str, key: str, want: bytes):
+        t0 = time.monotonic()
+        st, h, body = clients.request("GET", f"/{name}/{key}")
+        ok(st, 200, f"GET {name}/{key}")
+        check(body == want, f"GET {name}/{key} is not exact")
+        expect("s3:ObjectAccessed:Get", name, key)
+        return time.monotonic() - t0
+
+    # charge (the notify hook, after the PUT's response) and landing (the
+    # worker's replica PUT answered) of every replication, by (bucket, key)
+    charged: dict = {}
+    landed: dict = {}
+    orig_event, orig_replicate = pool.on_event, pool._replicate
+
+    def on_event(event, b, oi):
+        if event.startswith("s3:ObjectCreated") and b in pool.targets:
+            charged[(b, oi.name)] = time.monotonic()
+        orig_event(event, b, oi)
+
+    def replicate(b, key, op):
+        orig_replicate(b, key, op)
+        landed[(b, key, op)] = time.monotonic()
+
+    pool.on_event, pool._replicate = on_event, replicate
+    # the throttled reads: (time, bytes) of every MonitoredReader read
+    reads: dict = {}
+    orig_read = bw.MonitoredReader.read
+
+    def timed_read(self, n=-1):
+        data = orig_read(self, n)
+        reads.setdefault(self.bucket, []).append((time.monotonic(),
+                                                  len(data)))
+        return data
+
+    bw.MonitoredReader.read = timed_read
+
+    def step(label: str, fn, kernels=()):
+        """One step inside the plane's instruments: its wall, the queue's
+        flushes, stream occupancy and lanes' busy ratio, and its K1, K2
+        and K5 launches by size."""
+        _reset(q)
+        before, sizes0 = read_launches(), read_launch_sizes()
+        with _HashClocks() as hashes:
+            t0 = time.monotonic()
+            extra = fn() or {}
+            wall = time.monotonic() - t0
+        row = _phase_row(q, extra.pop("bytes", 0), wall, hashes)
+        after = read_launches()
+        row["launches"] = {k: after[k] - before.get(k, 0) for k in after}
+        row["launch_sizes"] = {
+            k: v for k, v in _sizes_delta(sizes0,
+                                          read_launch_sizes()).items()
+            if k in ("gf_matmul_batched", "gf_encode_batched",
+                     "highwayhash256_chunks")}
+        row.update(extra)
+        result[label] = row
+        if on_card:
+            for name in kernels:
+                check(row["launches"][name] > 0,
+                      f"kernel {name} never launched in {label}")
+        return row
+
+    def wait_landed(keys, what, timeout=600):
+        deadline = time.monotonic() + timeout
+        while not all(k in landed for k in keys):
+            check(pool.failed == 0, f"{pool.failed} replications failed")
+            check(time.monotonic() < deadline,
+                  f"{what}: {sum(k in landed for k in keys)} of "
+                  f"{len(keys)} replicas landed")
+            time.sleep(0.01)
+
+    def lag_row(keys, nbytes):
+        lags = [landed[(b, k, "put")] - charged[(b, k)] for b, k in keys]
+        span = max(landed[(b, k, "put")] for b, k in keys) - \
+            min(charged[(b, k)] for b, k in keys)
+        return {"replicas": len(keys), "lag_p50_s": _percentile(lags, 0.5),
+                "lag_p99_s": _percentile(lags, 0.99), "lag_max_s": max(lags),
+                "replicated_gib_s": nbytes / span / 2**30,
+                "charge_to_last_landed_s": span}
+
+    # (a) replication: PUT, replica lag, bytes and ETags, degraded source,
+    # delete replication
+    n_repl, n_deg = sizes["repl"], sizes["degraded"]
+    bucket("repl")
+    pool.set_target("repl", S3Target(dst.endpoint(), S3_ACCESS_KEY,
+                                     S3_SECRET_KEY, "repl"))
+    bodies = {f"r{i:03d}": gen.bytes(obj_bytes) for i in range(n_repl)}
+
+    def replication():
+        with ThreadPoolExecutor(max_workers=S3_THREADS) as ex:
+            lat = [t for t, _h in ex.map(lambda k: put("repl", k, bodies[k]),
+                                         bodies)]
+        keys = [("repl", k) for k in bodies]
+        wait_landed([(b, k, "put") for b, k in keys], "replication")
+        return {"bytes": len(bodies) * obj_bytes,
+                "put_p50_ms": _percentile(lat, 0.5) * 1e3,
+                "put_p99_ms": _percentile(lat, 0.99) * 1e3,
+                **lag_row(keys, len(bodies) * obj_bytes)}
+
+    step("replication", replication, ("gf_encode_batched",
+                                      "highwayhash256_chunks"))
+    etags = 0
+    for k, want in bodies.items():
+        st, h, data = target_client.request("GET", f"/repl/{k}")
+        ok(st, 200, f"GET replica repl/{k}")
+        check(data == want, f"replica repl/{k} is not exact")
+        st, hs, _ = clients.request("HEAD", f"/repl/{k}")
+        check(hs["etag"] == h["etag"],
+              f"replica ETag {h['etag']} != source {hs['etag']}")
+        etags += 1
+    result["replication"]["replicas_exact_with_source_etag"] = etags
+    # a degraded source: two drives' copies of the bucket away, then the
+    # pool attached and resynced, so every read rebuilds (K1)
+    bucket("repl-deg")
+    deg = {f"d{i:03d}": gen.bytes(obj_bytes) for i in range(n_deg)}
+    for k, v in deg.items():
+        put("repl-deg", k, v)
+    aside = os.path.join(root, "offline")
+    os.makedirs(aside, exist_ok=True)
+    for i in BF_LOST:
+        os.rename(os.path.join(src_dirs[i], "repl-deg"),
+                  os.path.join(aside, f"{i}"))
+
+    def degraded():
+        pool.set_target("repl-deg", S3Target(dst.endpoint(), S3_ACCESS_KEY,
+                                             S3_SECRET_KEY, "repl-deg"))
+        t0 = time.monotonic()
+        for k in deg:
+            charged[("repl-deg", k)] = t0
+        check(pool.resync("repl-deg") == len(deg), "resync count")
+        keys = [("repl-deg", k) for k in deg]
+        wait_landed([(b, k, "put") for b, k in keys], "degraded resync")
+        return {"bytes": len(deg) * obj_bytes, "drives_away": list(BF_LOST),
+                **lag_row(keys, len(deg) * obj_bytes)}
+
+    step("replication_degraded_source", degraded,
+         ("gf_matmul_batched", "gf_encode_batched",
+          "highwayhash256_chunks"))
+    for i in BF_LOST:
+        os.rename(os.path.join(aside, f"{i}"),
+                  os.path.join(src_dirs[i], "repl-deg"))
+    for k, want in deg.items():
+        st, _h, data = target_client.request("GET", f"/repl-deg/{k}")
+        check(st == 200 and data == want, f"replica repl-deg/{k}")
+    # a DELETE with delete replication reaches the target
+    gone = next(iter(bodies))
+    st, _h, _d = clients.request("DELETE", f"/repl/{gone}")
+    ok(st, 204, "DELETE repl object")
+    expect("s3:ObjectRemoved:Delete", "repl", gone)
+    wait_landed([("repl", gone, "delete")], "delete replication")
+    st, _h, _d = target_client.request("GET", f"/repl/{gone}")
+    check(st == 404, f"the replicated delete left the target's copy "
+                     f"(HTTP {st})")
+    result["replication"]["delete_reached_target"] = True
+    result["replication"]["pool"] = {"replicated": pool.replicated,
+                                     "failed": pool.failed}
+
+    # (b) the bandwidth throttle: at a DR link's 64 MiB/s, and at a limit
+    # below the pipeline's own rate, where it binds
+    def throttled(name: str, limit: int, n: int):
+        bucket(name)
+        pool.set_target(name, S3Target(
+            dst.endpoint(), S3_ACCESS_KEY, S3_SECRET_KEY, name,
+            bandwidth_limit=limit))
+        thr = {f"b{i:03d}": gen.bytes(obj_bytes) for i in range(n)}
+        with ThreadPoolExecutor(max_workers=S3_THREADS) as ex:
+            list(ex.map(lambda k: put(name, k, thr[k]), thr))
+        keys = [(name, k) for k in thr]
+        wait_landed([(b, k, "put") for b, k in keys], name)
+        rs = reads[name]
+        t0 = rs[0][0]
+        per_window = max(1, int(limit * bw.WINDOW_S))
+        moved, worst = 0, 0.0
+        for t, n in rs:
+            moved += n
+            allowed = per_window * (int((t - t0) / bw.WINDOW_S) + 1)
+            worst = max(worst, moved / allowed)
+        span = rs[-1][0] - t0
+        allowed_rate = per_window * (int(span / bw.WINDOW_S) + 1) / span
+        check(worst <= 1.0, f"the throttle let {worst:.3f} of its windows' "
+                            f"bytes through")
+        rate = moved / span
+        check(rate <= allowed_rate,
+              f"throttled rate {rate} B/s over the windows' {allowed_rate}")
+        return {"bytes": moved, "limit_bytes_s": limit,
+                "measured_bytes_s": rate, "measured_over_limit":
+                rate / limit, "windows_allow_bytes_s": allowed_rate,
+                "throttled_span_s": span, "reads": len(rs),
+                "worst_share_of_window_grants": worst,
+                "monitor": bw.global_monitor().report([name]),
+                **lag_row(keys, moved)}
+
+    step("bandwidth_throttle", lambda: throttled(
+        "throttle", sizes["throttle_bps"], sizes["throttle"]),
+        ("gf_encode_batched", "highwayhash256_chunks"))
+    step("bandwidth_throttle_binding", lambda: throttled(
+        "throttle-low", sizes["binding_bps"], sizes["binding"]),
+        ("gf_encode_batched", "highwayhash256_chunks"))
+
+    # (c) lifecycle and transition to a tier
+    n_cold = sizes["cold"]
+    st, _h, data = clients.request(
+        "PUT", "/minio/admin/v3/tier", body=json.dumps(
+            {"kind": "fs", "name": "COLD", "dir": tier_dir}).encode())
+    ok(st, 200, f"admin tier add: {data[:200]!r}")
+    bucket("cold")
+    bucket("hot")
+    ok(clients.request("PUT", "/cold", query={"lifecycle": ""}, body=(
+        b"<LifecycleConfiguration><Rule><ID>to-cold</ID><Status>Enabled"
+        b"</Status><Filter><Prefix></Prefix></Filter><Transition><Days>1"
+        b"</Days><StorageClass>COLD</StorageClass></Transition></Rule>"
+        b"</LifecycleConfiguration>"))[0], 200, "PUT cold?lifecycle")
+    half = n_cold // 2
+    cold = {f"{'a' if i < half else 'b'}-{i:03d}": gen.bytes(obj_bytes)
+            for i in range(n_cold)}
+    hot = {f"h-{i:03d}": gen.bytes(obj_bytes) for i in range(n_cold)}
+    with ThreadPoolExecutor(max_workers=S3_THREADS) as ex:
+        list(ex.map(lambda kv: put("cold", *kv), cold.items()))
+        list(ex.map(lambda kv: put("hot", *kv), hot.items()))
+
+    class Aged(LifecycleSys):
+        def apply(self, b, oi):
+            oi.mod_time -= BF_AGE_S
+            return super().apply(b, oi)
+
+    lc = Aged(src_layer, src.bucket_meta, src.transition)
+    scanner = DataScanner(src_layer, sleep_per_object=0, lifecycle=lc)
+
+    def transition():
+        scanner.scan_cycle()
+        done = src.transition.transitioned
+        check(done == n_cold, f"{done} of {n_cold} objects transitioned")
+        for k in cold:
+            oi = src_layer.get_object_info("cold", k)
+            check(tx.is_transitioned(oi) and oi.size == 0,
+                  f"cold/{k} is not a stub")
+        tier_bytes = sum(os.path.getsize(os.path.join(dp, f))
+                         for dp, _d, fs in os.walk(tier_dir) for f in fs)
+        check(tier_bytes == n_cold * obj_bytes, f"tier holds {tier_bytes}")
+        return {"bytes": n_cold * obj_bytes, "transitioned": done,
+                "tier_bytes": tier_bytes}
+
+    row = step("transition", transition, ("highwayhash256_chunks",))
+    row["per_object_s"] = row["wall_s"] / n_cold
+    # transitioned GETs against local GETs in ABBA turns, the webhook
+    # down through the second turn (its deliveries queue, then drain)
+    turns = []
+
+    def abba():
+        for n, which in enumerate(BF_TURNS):
+            b, objs = ("cold", cold) if which == "tier" else ("hot", hot)
+            if n == 1:
+                receiver.stop()
+                outage["stopped"] = time.time()
+            t0 = time.monotonic()
+            with ThreadPoolExecutor(max_workers=S3_THREADS) as ex:
+                lat = list(ex.map(lambda kv: get(b, *kv), objs.items()))
+            wall = time.monotonic() - t0
+            if n == 1:
+                outage["queued_at_restart"] = store._count
+                receiver.start()
+                outage["restarted"] = time.time()
+            turns.append({"turn": which, "wall_s": wall,
+                          "gib_s": len(objs) * obj_bytes / wall / 2**30,
+                          "p50_ms": _percentile(lat, 0.5) * 1e3,
+                          "p99_ms": _percentile(lat, 0.99) * 1e3})
+        return {"bytes": 2 * n_cold * 2 * obj_bytes, "turns": turns,
+                "tier_over_local_p50": [
+                    turns[0]["p50_ms"] / turns[1]["p50_ms"],
+                    turns[3]["p50_ms"] / turns[2]["p50_ms"]],
+                "tier_over_local_p99": [
+                    turns[0]["p99_ms"] / turns[1]["p99_ms"],
+                    turns[3]["p99_ms"] / turns[2]["p99_ms"]]}
+
+    outage: dict = {}
+    step("transitioned_get_abba", abba, ("highwayhash256_chunks",))
+    restored = list(cold)[:sizes["restore"]]
+
+    def restore():
+        lat = []
+        for k in restored:
+            t0 = time.monotonic()
+            st, _h, data = clients.request(
+                "POST", f"/cold/{k}", query={"restore": ""},
+                body=b"<RestoreRequest><Days>2</Days></RestoreRequest>")
+            ok(st, 202, f"restore cold/{k}: {data[:200]!r}")
+            lat.append(time.monotonic() - t0)
+        for k in restored:
+            oi = src_layer.get_object_info("cold", k)
+            check(oi.size == obj_bytes and tx.is_restored(oi),
+                  f"cold/{k} is not restored")
+        return {"bytes": len(restored) * obj_bytes, "restored": len(lat),
+                "restore_p50_ms": _percentile(lat, 0.5) * 1e3,
+                "restore_p99_ms": _percentile(lat, 0.99) * 1e3}
+
+    step("restore", restore, ("gf_encode_batched", "highwayhash256_chunks"))
+    for k in restored:
+        get("cold", k, cold[k])
+    # expiry of the b- half: its stubs and its tier copies go
+    ok(clients.request("PUT", "/cold", query={"lifecycle": ""}, body=(
+        b"<LifecycleConfiguration><Rule><ID>expire-b</ID><Status>Enabled"
+        b"</Status><Filter><Prefix>b-</Prefix></Filter><Expiration><Date>"
+        b"2020-01-01T00:00:00Z</Date></Expiration></Rule>"
+        b"</LifecycleConfiguration>"))[0], 200, "PUT cold?lifecycle expiry")
+
+    def expire():
+        scanner.scan_cycle()
+        gone = [k for k in cold if k.startswith("b-")]
+        check(lc.expired == len(gone), f"{lc.expired} expired")
+        for k in gone:
+            st, _h, _d = clients.request("HEAD", f"/cold/{k}")
+            check(st == 404, f"cold/{k} after expiry: HTTP {st}")
+        tier_bytes = sum(os.path.getsize(os.path.join(dp, f))
+                         for dp, _d, fs in os.walk(tier_dir) for f in fs)
+        check(tier_bytes == (n_cold - len(gone)) * obj_bytes,
+              f"tier holds {tier_bytes} after expiry")
+        return {"expired": lc.expired, "tier_bytes_after": tier_bytes}
+
+    step("expiry", expire)
+
+    # (d) object lock: COMPLIANCE by default, GOVERNANCE with its bypass,
+    # a legal hold on and off
+    bucket("worm", lock=True)
+    ok(clients.request("PUT", "/worm", query={"object-lock": ""}, body=(
+        b"<ObjectLockConfiguration><ObjectLockEnabled>Enabled"
+        b"</ObjectLockEnabled><Rule><DefaultRetention><Mode>COMPLIANCE"
+        b"</Mode><Days>1</Days></DefaultRetention></Rule>"
+        b"</ObjectLockConfiguration>"))[0], 200, "PUT worm?object-lock")
+    worm = {f"w{i:03d}": gen.bytes(obj_bytes) for i in range(sizes["worm"])}
+    bypass = {"x-amz-bypass-governance-retention": "true"}
+
+    def lock():
+        vids = {}
+        with ThreadPoolExecutor(max_workers=S3_THREADS) as ex:
+            for k, (_t, h) in zip(worm, ex.map(
+                    lambda kv: put("worm", *kv), worm.items())):
+                vids[k] = h["x-amz-version-id"]
+        denied = []
+        for k, vid in vids.items():
+            for hdr in (None, bypass):
+                st, _h, data = clients.request(
+                    "DELETE", f"/worm/{k}", query={"versionId": vid},
+                    headers=hdr)
+                check(st == 403, f"DELETE worm/{k} version: HTTP {st}")
+                denied.append(st)
+        until = time.strftime("%Y-%m-%dT%H:%M:%SZ",
+                              time.gmtime(time.time() + 86400))
+        _t, h = put("worm", "gov", b"governance", {
+            "x-amz-object-lock-mode": "GOVERNANCE",
+            "x-amz-object-lock-retain-until-date": until})
+        gvid = h["x-amz-version-id"]
+        sts = {}
+        sts["governance_delete"] = clients.request(
+            "DELETE", "/worm/gov", query={"versionId": gvid})[0]
+        sts["hold_on"] = clients.request(
+            "PUT", "/worm/gov", query={"legal-hold": ""},
+            body=b"<LegalHold><Status>ON</Status></LegalHold>")[0]
+        sts["held_bypass_delete"] = clients.request(
+            "DELETE", "/worm/gov", query={"versionId": gvid},
+            headers=bypass)[0]
+        sts["hold_off"] = clients.request(
+            "PUT", "/worm/gov", query={"legal-hold": ""},
+            body=b"<LegalHold><Status>OFF</Status></LegalHold>")[0]
+        sts["bypass_delete"] = clients.request(
+            "DELETE", "/worm/gov", query={"versionId": gvid},
+            headers=bypass)[0]
+        check(sts == {"governance_delete": 403, "hold_on": 200,
+                      "held_bypass_delete": 403, "hold_off": 200,
+                      "bypass_delete": 204}, f"object lock: {sts}")
+        expect("s3:ObjectRemoved:Delete", "worm", "gov")
+        st, _h, data = clients.request("GET", "/worm/w000",
+                                       query={"retention": ""})
+        check(st == 200 and b"<Mode>COMPLIANCE</Mode>" in data,
+              "default retention")
+        return {"bytes": len(worm) * obj_bytes, "versions": len(vids),
+                "version_deletes_denied": len(denied), **sts}
+
+    step("object_lock", lock, ("gf_encode_batched",
+                               "highwayhash256_chunks"))
+
+    # (e) the events of (a)-(d): every one delivered, none lost
+    def drained():
+        deadline = time.monotonic() + 120
+        while True:
+            with receiver.lock:
+                n = len(receiver.got)
+            if n >= len(expected) and store._count == 0:
+                return
+            check(time.monotonic() < deadline,
+                  f"the webhook got {n} of {len(expected)} events, "
+                  f"{store._count} queued")
+            time.sleep(0.05)
+
+    drained()
+    with receiver.lock:
+        got = list(receiver.got)
+    from collections import Counter
+    want_c = Counter(expected)
+    got_c = Counter((e, k) for e, k, _t, _a in got)
+    lost = sum((want_c - got_c).values())
+    extra = sum((got_c - want_c).values())
+    check(lost == 0, f"{lost} events lost: {list((want_c - got_c))[:5]}")
+    check(extra == 0, f"{extra} events never issued")
+
+    def event_s(stamp: str) -> float:
+        base, _, ms = stamp.rstrip("Z").partition(".")
+        return calendar.timegm(time.strptime(base, "%Y-%m-%dT%H:%M:%S")) + \
+            int(ms or 0) / 1e3
+
+    lat = [a - event_s(t) for _e, _k, t, a in got]
+    calm = [a - event_s(t) for _e, _k, t, a in got
+            if not outage["stopped"] - 1 <= event_s(t) <= outage["restarted"]]
+    result["events"] = {
+        "expected": len(expected), "received": len(got), "lost": lost,
+        "sent": store.delivered, "queued_at_restart":
+        outage["queued_at_restart"], "redelivered":
+        outage["queued_at_restart"], "send_failures": store.send_failures,
+        "skipped": store.failed_puts, "outage_s":
+        outage["restarted"] - outage["stopped"],
+        "by_kind": dict(Counter(e for e, _k in expected)),
+        "delivery_p50_ms": _percentile(lat, 0.5) * 1e3,
+        "delivery_p99_ms": _percentile(lat, 0.99) * 1e3,
+        "delivery_p50_ms_outside_outage": _percentile(calm, 0.5) * 1e3
+        if calm else None,
+        "delivery_p99_ms_outside_outage": _percentile(calm, 0.99) * 1e3
+        if calm else None}
+    check(store.failed_puts == 0, "the queue store skipped events")
+    check(outage["queued_at_restart"] > 0,
+          "no event queued during the webhook's outage")
+
+    bw.MonitoredReader.read = orig_read
+    for c in (clients, target_client):
+        c.close()
+    src.shutdown()
+    dst.shutdown()
+    receiver.stop()
+    scanner.stop()
+    get_config_sys().obj = None
+    bw._monitor = None
+    launches = read_launches()
+    result["launches"] = launches
+    result["launch_sizes"] = read_launch_sizes()
+    if on_card:
+        for kname in ("gf_encode_batched", "gf_matmul_batched",
+                      "highwayhash256_chunks"):
+            check(launches[kname] > 0,
+                  f"kernel {kname} never launched on the bucket feature "
+                  f"path")
     shutil.rmtree(root, ignore_errors=True)
     return result
 
@@ -5808,6 +6436,17 @@ def main() -> int:
     iam_sizes = {"objects": 1, "bytes": 64 << 10, "abba": 2} if rehearsal \
         else {"objects": IAM_OBJECTS, "bytes": OBJECT_BYTES,
               "abba": IAM_ABBA}
+    # the bucket feature path: objects per step, their bytes, the
+    # throttle's limit (the rehearsal's 256 KiB/s moves its 2 x 64 KiB
+    # over two windows)
+    bf_sizes = {"repl": 4, "degraded": 2, "throttle": 2, "cold": 4,
+                "restore": 1, "worm": 2, "bytes": 64 << 10,
+                "throttle_bps": 256 << 10, "binding": 2,
+                "binding_bps": 128 << 10} if rehearsal else \
+        {"repl": BF_REPL, "degraded": BF_DEGRADED, "throttle": BF_THROTTLE,
+         "cold": BF_COLD, "restore": BF_RESTORE, "worm": BF_WORM,
+         "bytes": OBJECT_BYTES, "throttle_bps": BF_THROTTLE_BPS,
+         "binding": BF_BINDING, "binding_bps": BF_BINDING_BPS}
     phase = "build"
     try:
         phase_build(rehearsal)
@@ -5879,11 +6518,17 @@ def main() -> int:
         if rehearsal:
             iamres["cut"] += f"; {iam_sizes}"
         emit({"phase": "iam_path", **iamres})
+        phase = "bucketfeatures_path"
+        bfres = phase_bucketfeatures(device, bf_sizes, card, args.seed)
+        if rehearsal:
+            bfres["cut"] += f"; {bf_sizes}"
+        emit({"phase": "bucketfeatures_path", **bfres})
         paths = {"mur3x256s_path": res, "sse_hh256s_path": sres,
                  "select_path": selres, "objectlayer_path": olres,
                  "s3server_path": s3res, "sse_kms_path": kmsres,
                  "obs_path": obsres, "background_path": bgres,
-                 "hostpath_path": hostres, "iam_path": iamres}
+                 "hostpath_path": hostres, "iam_path": iamres,
+                 "bucketfeatures_path": bfres}
         for name, row in rows.items():
             by_path = {p: r["launches"][name] for p, r in paths.items()}
             row["launches"] = sum(by_path.values())

@@ -9,9 +9,8 @@ The blob is packed by the port's own MessagePack subset
 (``utils/msgpack.py``): the bytes are those of the ``msgpack`` wheel's
 ``packb(use_bin_type=True)`` that the JAX package writes (``created`` a
 float64, the flags bools, the XML and policy fields bin, ``tags`` a nested
-str map), so either package reads the other's record. Only the S3
-handlers' use of the record is ported; the lifecycle, replication,
-object-lock and transition modules of ``bucket/`` wait."""
+str map), so either package reads the other's record, its lifecycle,
+notification, object-lock and replication documents byte for byte."""
 from __future__ import annotations
 
 import threading

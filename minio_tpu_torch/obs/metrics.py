@@ -34,11 +34,17 @@ ride the counter store, as do the hedged reads
 the fault plane's injections (``minio_tpu_fault_injected_total{layer,
 action}``) and the log plane's sent and dropped entries
 (``minio_tpu_log_target_{sent,dropped}_total``,
-``minio_tpu_log_pubsub_dropped_total``). The groups of planes the port has
-not (replication, cache, notification, ILM, locks) are absent, not faked,
-as is
-the scan lane's gauge. The names are the JAX package's, so one dashboard
-reads both servers; the port adds
+``minio_tpu_log_pubsub_dropped_total``). The replication group (the
+S3-target pool's and the cross-node plane's queues, completions and lag,
+and the per-bucket bandwidth limit and rate), the notification group (each
+target's queue store) and the ILM group (the tiers configured) are there
+once their planes are enabled; the ILM, replication and notification
+counters (``minio_tpu_ilm_{expired,transitioned,restored}_total``,
+``minio_tpu_replication_{charged,dropped}_total``,
+``minio_tpu_notify_{events,listener}_dropped_total``) ride the counter
+store. The groups of planes the port has not (cache, locks) are absent,
+not faked, as is the scan lane's gauge. The names are the JAX package's,
+so one dashboard reads both servers; the port adds
 ``minio_tpu_device_obs_stream_occupancy_ratio`` (the share of the last
 minute the flushes' CUDA-event intervals cover on the card's streams,
 which the JAX package does not measure; the streams' waits for the host
@@ -253,6 +259,100 @@ def _g_bucket(server) -> list[str]:
     ``_overflow_`` row."""
     from . import bucketstats as _bs
     return _bs.metric_lines()
+
+
+def _g_replication(server) -> list[str]:
+    """Replication queue and per-bucket bandwidth (reference
+    getBucketReplicationMetrics and the bandwidth Report)."""
+    lines = []
+    pool = getattr(server, "replication", None)
+    if pool is not None:
+        lines += [
+            "# TYPE minio_tpu_replication_completed_total counter",
+            f"minio_tpu_replication_completed_total {pool.replicated}",
+            "# TYPE minio_tpu_replication_failed_total counter",
+            f"minio_tpu_replication_failed_total {pool.failed}",
+            "# TYPE minio_tpu_replication_queued gauge",
+            f"minio_tpu_replication_queued {pool.q.qsize()}",
+        ]
+    rs = getattr(server, "replication_sys", None)
+    if rs is not None:
+        st = rs.stats()
+        if pool is None:
+            lines += [
+                "# TYPE minio_tpu_replication_completed_total counter",
+                f"minio_tpu_replication_completed_total {st['completed']}",
+                "# TYPE minio_tpu_replication_failed_total counter",
+                f"minio_tpu_replication_failed_total {st['failed']}",
+                "# TYPE minio_tpu_replication_queued gauge",
+                f"minio_tpu_replication_queued {st['queued']}",
+            ]
+        lines += [
+            "# TYPE minio_tpu_replication_backlog gauge",
+            f"minio_tpu_replication_backlog {st['queued']}",
+            "# TYPE minio_tpu_replication_retry_pending gauge",
+            f"minio_tpu_replication_retry_pending {st['retry_pending']}",
+            "# TYPE minio_tpu_replication_resynced_total counter",
+            f"minio_tpu_replication_resynced_total {st['resynced']}",
+            "# TYPE minio_tpu_replication_lag_seconds gauge",
+            'minio_tpu_replication_lag_seconds{quantile="0.5"} '
+            f"{st['lag_p50_s']}",
+            'minio_tpu_replication_lag_seconds{quantile="0.99"} '
+            f"{st['lag_p99_s']}",
+        ]
+    from ..bucket.bandwidth import global_monitor
+    stats = global_monitor().report().get("bucketStats", {})
+    if stats:
+        lines.append("# TYPE minio_tpu_bucket_bandwidth_limit_bytes gauge")
+        lines.append(
+            "# TYPE minio_tpu_bucket_bandwidth_current_bytes gauge")
+        # the rows are bounded by the operator's throttle configuration
+        # (a bucket appears once a limit is set on it), not by traffic
+        for b, st in sorted(stats.items()):
+            lines.append(
+                f'minio_tpu_bucket_bandwidth_limit_bytes{{bucket="{b}"}} '
+                f'{st["limitInBits"]}')
+            lines.append(
+                f'minio_tpu_bucket_bandwidth_current_bytes{{bucket="{b}"}}'
+                f' {st["currentBandwidth"]}')
+    return lines
+
+
+def _g_notification(server) -> list[str]:
+    """Event-target queue depth, deliveries and failures per ARN
+    (reference getNotificationMetrics: the queue stores' state)."""
+    stores = getattr(getattr(server, "_notifier", None), "stores", None)
+    if not stores:
+        return []
+    lines = [
+        "# TYPE minio_tpu_notify_events_queued gauge",
+        "# TYPE minio_tpu_notify_events_queue_limit gauge",
+        "# TYPE minio_tpu_notify_events_sent_total counter",
+        "# TYPE minio_tpu_notify_events_send_failures_total counter",
+        "# TYPE minio_tpu_notify_events_skipped_total counter",
+    ]
+    for arn, st in sorted(stores.items()):
+        lab = f'{{target="{arn}"}}'
+        lines += [
+            f"minio_tpu_notify_events_queued{lab} {st._count}",
+            f"minio_tpu_notify_events_queue_limit{lab} {st.limit}",
+            f"minio_tpu_notify_events_sent_total{lab} {st.delivered}",
+            f"minio_tpu_notify_events_send_failures_total{lab} "
+            f"{st.send_failures}",
+            f"minio_tpu_notify_events_skipped_total{lab} "
+            f"{st.failed_puts}",
+        ]
+    return lines
+
+
+def _g_ilm(server) -> list[str]:
+    """ILM state (reference getILMNodeMetrics): the tier registry; the
+    transition, restore and expiry totals ride the counter store."""
+    tiers = getattr(server, "_tiers", None)
+    if tiers is None:
+        return []
+    return ["# TYPE minio_tpu_ilm_tiers_configured gauge",
+            f"minio_tpu_ilm_tiers_configured {len(tiers.tiers)}"]
 
 
 def _g_dispatch(server) -> list[str]:
@@ -954,6 +1054,7 @@ _GROUPS = [
     # the bounded registry in memory: interval 0 so request counters and
     # drift are live per scrape
     MetricsGroup("bucket", "node", _g_bucket, interval=0),
+    MetricsGroup("replication", "cluster", _g_replication),
     MetricsGroup("dispatch", "node", _g_dispatch),
     # latency groups read in-memory windows — interval 0 keeps scrapes
     # (and tests driving heals) fresh at negligible cost
@@ -976,6 +1077,8 @@ _GROUPS = [
     # the device plane's ledger is the leak gate: live per scrape
     MetricsGroup("device_obs", "node", _g_device_obs, interval=0),
     MetricsGroup("process", "node", _g_process),
+    MetricsGroup("notification", "cluster", _g_notification),
+    MetricsGroup("ilm", "cluster", _g_ilm),
     MetricsGroup("heal", "cluster", _g_heal),
 ]
 

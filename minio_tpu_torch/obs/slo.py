@@ -30,10 +30,11 @@ Fed by the request plane (``server/s3api.py``, every admitted request,
 each S3 one also charged to its bucket's minute ring in
 ``obs/bucketstats``, so a class breach names its top offending buckets in
 ``top_buckets``) and by the dispatch queue (background items, failed ones
-included). Surfaced as the ``minio_tpu_slo_*`` metric family, the admin
-``slo`` op and inside ``GET /minio/admin/v3/health``. Left out until its
-plane is ported: the async-plane objectives (the replication lag
-probe).
+included); the async planes register their objectives as probes
+(``register_async_probe``: the replication lag of
+``S3Server.enable_cross_replication``), relayed under ``async``. Surfaced
+as the ``minio_tpu_slo_*`` metric family, the admin ``slo`` op and inside
+``GET /minio/admin/v3/health``.
 """
 from __future__ import annotations
 
@@ -224,6 +225,23 @@ def _window_eval(cls: str, obj: dict, win: str, span: int,
     }
 
 
+#: async-plane objectives (replication lag): name -> a zero-argument probe
+#: returning a verdict dict with at least {"ok": bool}. The percentile
+#: math stays inside the owning plane (``ReplicationSys.lag_report``);
+#: this module only relays the verdict
+_async_probes: dict = {}
+
+
+def register_async_probe(name: str, fn) -> None:
+    """Attach an async-plane objective to the SLO report (the latest
+    registration wins: a restarted subsystem registers again)."""
+    _async_probes[name] = fn
+
+
+def unregister_async_probe(name: str) -> None:
+    _async_probes.pop(name, None)
+
+
 def report(now: float | None = None) -> dict:
     """The standing SLO verdict: per class, the effective objective,
     both windows' compliance + burn rates, the breach verdicts (both
@@ -310,6 +328,15 @@ def report(now: float | None = None) -> dict:
                 _sp.store().contains(worst_tid),
             },
         }
+    probes: dict = {}
+    for name, fn in list(_async_probes.items()):
+        try:
+            probes[name] = fn()
+        except Exception:  # noqa: BLE001 — a dying subsystem must not
+            # take the whole report down with it
+            probes[name] = {"ok": False, "error": "probe failed"}
+    if probes:
+        out["async"] = probes
     return out
 
 

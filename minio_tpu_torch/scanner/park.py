@@ -1,9 +1,9 @@
 """DebtQueue, the port of minio_tpu/scanner/park.py: the bounded-queue +
-backoff-park + journal core of the async debt planes. In the JAX package
-it serves two consumers, the MRF heal queue (``scanner/mrf.py``: objects a
+backoff-park + journal core of the async debt planes. It serves two
+consumers, the MRF heal queue (``scanner/mrf.py``: objects a
 degraded read or partial write flagged for rebuild) and the replication
-queue (``bucket/replicate.py``, not ported yet); the port has the first.
-The drop counter's metrics hook waits for the port of ``obs/``.
+queue (``bucket/replicate.py``: acked writes whose off-node copy has not
+landed yet).
 
 
 * **Bounded drop-oldest queue** — debt is best-effort bounded memory;
@@ -24,10 +24,9 @@ The drop counter's metrics hook waits for the port of ``obs/``.
 
 Queue entries are 4-tuples ``(bucket, object, version_id, mode)``;
 retry promotions append a 5th element (the attempt count) — consumers
-slice, not unpack. ``mode`` is the MRF's scan mode (normal/deep), saved
-in the journal under ``scan_mode`` as the JAX package's MRF saves it (its
-DebtQueue takes the field name and the sticky modes as arguments for its
-replication plane, which the port does not have yet)."""
+slice, not unpack. ``mode`` is plane-specific (MRF: scan_mode
+normal/deep; replication: op put/delete) and the journal field name is
+configurable so each plane's on-disk format stays self-describing."""
 from __future__ import annotations
 
 import json
@@ -40,17 +39,23 @@ import time
 #: into a fsync storm); the consumer's drain loop flushes pending dirt
 #: on idle passes
 FLUSH_INTERVAL_S = 0.25
-#: the journal's field for an entry's mode
-MODE_FIELD = "scan_mode"
-#: a mode here wins a journal dedupe collision: bitrot evidence ("deep")
-#: must not be downgraded by a later normal-mode charge
-STICKY_MODES = ("deep",)
 
 
 class DebtQueue:
-    def __init__(self, max_queue: int = 10_000):
+    def __init__(self, max_queue: int = 10_000,
+                 mode_field: str = "scan_mode",
+                 sticky_modes: tuple = ("deep",),
+                 dropped_metric: str = ""):
         self.q: queue.Queue = queue.Queue(maxsize=max_queue)
         self.dropped = 0
+        #: the journal's field for an entry's mode
+        self._mode_field = mode_field
+        #: a mode in this tuple wins a journal dedupe collision (MRF:
+        #: "deep" — bitrot evidence must not be downgraded by a later
+        #: normal-mode charge; replication: "delete" — a delete
+        #: obligation supersedes the put it follows)
+        self._sticky = tuple(sticky_modes)
+        self._dropped_metric = dropped_metric
         self._persist_path: str | None = None
         self._plock = threading.Lock()
         #: (bucket, object, version_id) -> mode, mirroring queued
@@ -75,7 +80,8 @@ class DebtQueue:
         retried once: racing producers can refill the freed slot
         between get and put, and the single-try fallback used to drop
         the NEWEST entry — the one a request just flagged. Every lost
-        entry counts in ``stats()['dropped']``."""
+        entry counts in ``stats()['dropped']`` (and the configured
+        dropped metric)."""
         item = (bucket, object, version_id, mode)
         landed = False
         dropped = 0
@@ -97,11 +103,14 @@ class DebtQueue:
             dropped += 1  # both retries lost the race: the NEW entry
         if dropped:
             self.dropped += dropped
+            if self._dropped_metric:
+                from ..obs import metrics as mx
+                mx.inc(self._dropped_metric, dropped)
         if self._persist_path is not None:
             key = (bucket, object, version_id)
             if landed:
                 with self._plock:
-                    if mode in STICKY_MODES or \
+                    if mode in self._sticky or \
                             key not in self._persist_entries:
                         self._persist_entries[key] = mode
                     self._pdirty = True
@@ -150,12 +159,12 @@ class DebtQueue:
             try:
                 loaded.append((e["bucket"], e["object"],
                                e.get("version_id", ""),
-                               e.get(MODE_FIELD, "normal")))
+                               e.get(self._mode_field, "normal")))
             except (KeyError, TypeError):
                 continue
         with self._plock:
             for b, o, v, m in loaded:
-                if m in STICKY_MODES or \
+                if m in self._sticky or \
                         (b, o, v) not in self._persist_entries:
                     self._persist_entries[(b, o, v)] = m
         for b, o, v, m in loaded:
@@ -204,7 +213,7 @@ class DebtQueue:
             self._pdirty = False
             self._last_flush = now
             entries = [{"bucket": b, "object": o, "version_id": v,
-                        MODE_FIELD: m}
+                        self._mode_field: m}
                        for (b, o, v), m in self._persist_entries.items()]
         from ..storage.durability import durable_write
         try:

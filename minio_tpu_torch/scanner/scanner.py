@@ -9,11 +9,14 @@ and runs the durability janitor's sweep each cycle.
 Each cycle's snapshot also reconciles the per-bucket analytics
 (``obs/bucketstats.reconcile``: the live usage deltas snap back to the
 scanned usage, the drift is recorded, and the capacity history takes a
-sample). What the JAX package's scanner also does and the port does not:
-the lifecycle and replication hooks (``bucket/lifecycle`` and
-``bucket/replicate`` are not ported), so the constructor takes no
-``lifecycle`` and no ``replication``. A failed cycle or sweep is reported
-once per error type through the log plane (``obs/logger``).
+sample). Every object walked goes first through the lifecycle rules
+(``lifecycle``, a ``bucket.lifecycle.LifecycleSys``: expiry, and
+transition to a tier, whose read is a GET through the erasure path), then
+the replication sweep (``replication``, a ``bucket.replicate.
+ReplicationSys``: an object still PENDING or FAILED is charged again). A
+bucket with lifecycle or replication rules is walked every cycle, writes
+or not: its actions trigger on age and on debt. A failed cycle or sweep
+is reported once per error type through the log plane (``obs/logger``).
 
 Cycles run under ``qos.background()``. In the JAX package that class
 spills to the CPU first under device backlog; the port's queue on the card
@@ -44,10 +47,16 @@ log = logging.getLogger("minio_tpu_torch.scanner")
 
 class DataScanner:
     def __init__(self, objlayer, interval_s: float = 60.0,
-                 mrf=None, sleep_per_object: float = 0.001):
+                 mrf=None, lifecycle=None, sleep_per_object: float = 0.001,
+                 replication=None):
         self.obj = objlayer
         self.interval = interval_s
         self.mrf = mrf
+        self.lifecycle = lifecycle
+        #: the cross-node replication plane: a cycle re-charges objects
+        #: stuck PENDING or FAILED (missed charge, exhausted retries, debt
+        #: shed under queue overflow)
+        self.replication = replication
         self.sleep_per_object = sleep_per_object
         self.cycle = 0
         self._stop = threading.Event()
@@ -112,7 +121,15 @@ class DataScanner:
         total_objects = total_size = 0
         for b in self.obj.list_buckets():
             prev = prev_buckets.get(b.name)
-            if prev is not None and not deep and \
+            # the skip holds only without time-based actions: lifecycle
+            # rules trigger on age and replication debt must be re-found,
+            # writes or not
+            has_lifecycle = self.lifecycle is not None and \
+                bool(self.lifecycle.rules_for(b.name))
+            has_replication = self.replication is not None and \
+                bool(self.replication.rules_for(b.name))
+            if prev is not None and not deep and not has_lifecycle and \
+                    not has_replication and \
                     not tracker.bucket_dirty(b.name):
                 buckets[b.name] = prev
                 total_objects += prev.get("objects", 0)
@@ -169,6 +186,22 @@ class DataScanner:
         return snapshot
 
     def _check_object(self, bucket: str, oi, deep: bool):
+        # lifecycle first: an expired object needs no heal
+        if self.lifecycle is not None:
+            try:
+                if self.lifecycle.apply(bucket, oi):
+                    return
+            except Exception:  # noqa: BLE001 — retried next cycle
+                log.warning("lifecycle of %s/%s failed", bucket, oi.name,
+                            exc_info=True)
+        # the replication sweep: anything still PENDING or FAILED is
+        # charged again (the safety net under the journal)
+        if self.replication is not None:
+            try:
+                self.replication.sweep(bucket, oi)
+            except Exception:  # noqa: BLE001 — retried next cycle
+                log.warning("replication sweep of %s/%s failed", bucket,
+                            oi.name, exc_info=True)
         if deep and self.mrf is not None:
             try:
                 res = self.obj.heal_object(bucket, oi.name, dry_run=True,

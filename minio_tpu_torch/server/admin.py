@@ -35,12 +35,17 @@ audit ring), and, once ``S3Server.enable_iam()`` has run, the IAM ops
 (``add-user``, ``remove-user``, ``list-users``, ``set-user-status``,
 ``add-canned-policy``, ``remove-canned-policy``, ``list-canned-policies``,
 ``set-user-or-group-policy``, ``add-user-to-group``, ``remove-group``,
-``list-groups``, ``add-service-account``), with the JAX server's statuses
+``list-groups``, ``add-service-account``), the tier registry's ``tier``
+(GET lists the tiers without their secrets, POST adds one from its JSON,
+DELETE ``?name=`` removes one), the replication bandwidth report
+``bandwidth`` (``?buckets=a,b``) and the cross-node replication plane's
+``replication`` (GET its stats and lag verdict, POST ``?resync=<bucket>``
+with ``&force=1`` to re-ship everything), with the JAX server's statuses
 and JSON bodies.
-Every other admin op (the IAM ops without IAM, tier, replication,
-bandwidth, update) answers ``501 NotImplemented`` in the reference's error
-XML: those planes are not ported. The ``?peers=1`` fan-outs wait for the
-port of ``dist/``'s RPC plane.
+Every other admin op (the IAM ops without IAM, update) answers ``501
+NotImplemented`` in the reference's error XML: those planes are not
+ported. The ``?peers=1`` fan-outs (bucketstats, bandwidth, replication)
+wait for the port of ``dist/``'s RPC plane.
 """
 from __future__ import annotations
 
@@ -168,9 +173,71 @@ def _dispatch_admin(h, op: str) -> None:
         ring = log_sys().audit_ring if h.q("type") == "audit" \
             else log_sys().ring
         return _json(h, list(ring)[-n:])
+    if op == "tier":
+        return _tier_op(h)
+    if op == "bandwidth" and h.q("peers") != "1":
+        from ..bucket.bandwidth import global_monitor
+        buckets = [b for b in h.q("buckets").split(",") if b]
+        return _json(h, global_monitor().report(buckets or None))
+    if op == "replication" and h.q("peers") != "1":
+        return _replication_op(h)
     if _iam_op(h, op):
         return
     h._not_implemented(f"admin {op} is not implemented")
+
+
+def _tier_op(h) -> None:
+    """The tier registry (reference cmd/tier-handlers.go): GET lists the
+    tiers (secrets left out), DELETE ``?name=`` removes one, PUT or POST
+    adds one from its JSON (``kind`` ``fs`` with ``dir``, or ``s3`` with
+    ``endpoint``, ``bucket``, ``access_key``, ``secret_key`` and the
+    optional ``prefix`` and ``region``)."""
+    if h.command == "GET":
+        return _json(h, h.s3.tiers.list())
+    if h.command == "DELETE":
+        h.s3.tiers.remove(h.q("name"))
+        return _json(h, {})
+    body = json.loads(h._read_body() or b"{}")
+    from ..bucket.tiers import TierFS, TierS3
+    try:
+        if body.get("kind") == "fs":
+            tier = TierFS(body["name"], body["dir"])
+        elif body.get("kind") == "s3":
+            tier = TierS3(body["name"], body["endpoint"], body["bucket"],
+                          body["access_key"], body["secret_key"],
+                          body.get("prefix", ""),
+                          body.get("region", "us-east-1"))
+        else:
+            return h._error("InvalidArgument",
+                            f"unknown tier kind {body.get('kind')!r}", 400)
+        h.s3.tiers.add(tier)
+    except (KeyError, ValueError) as e:
+        return h._error("InvalidArgument", str(e), 400)
+    return _json(h, {})
+
+
+def _replication_op(h) -> None:
+    """The cross-node replication plane: GET reports its backlog, lag and
+    counts (an empty object when the plane is off); POST
+    ``?resync=<bucket>`` replays the bucket's backlog against its target
+    (``&force=1`` re-ships every object: a target rebuilt from
+    scratch)."""
+    rs = h.s3.replication_sys
+    if h.command == "POST":
+        bucket = h.q("resync")
+        if not bucket:
+            return h._error("InvalidArgument",
+                            "resync needs ?resync=<bucket>", 400)
+        if rs is None:
+            return h._error("InvalidArgument",
+                            "replication plane not enabled", 400)
+        return _json(h, {"scheduled": rs.resync(
+            bucket, force=h.q("force") == "1")})
+    out: dict = {}
+    if rs is not None:
+        out = rs.stats()
+        out["lag"] = rs.lag_report()
+    return _json(h, out)
 
 
 def _iam_op(h, op: str) -> bool:

@@ -13,8 +13,10 @@ smoke (a row longer than a tile and its halo, no newline, wide rows), also
 with tiles forced small so that many rows cross tiles, and one select_scan
 flush and one select through the CUDA queue; the object layer and the S3
 server (signed requests over HTTP, the MRF healing lost drives), an IAM
-user's PUT and GET through a server with IAM, and the auto-heal monitor's
-global heal on the card against the CPU, file for file; an injected
+user's PUT and GET through a server with IAM, the auto-heal monitor's
+global heal, a replication of a degraded source to a second server and a
+restore of a transitioned object on the card against the CPU, file for
+file; an injected
 kernel fault failing its flush on the card, and a
 hedged GET rebuilding through K1. Marked ``cuda``: they skip on hosts
 without a CUDA card. On the card:
@@ -1232,3 +1234,143 @@ def test_capture_trace_on_the_card(dev):
         assert out["device_idle_share"] == pytest.approx(1.0 - share)
     finally:
         shutil.rmtree(out["logdir"], ignore_errors=True)
+
+
+def _tree(root) -> dict:
+    import os
+    out = {}
+    for d, _sub, names in os.walk(str(root)):
+        if ".minio.sys" in d:
+            continue
+        for n in names:
+            with open(os.path.join(d, n), "rb") as f:
+                out[os.path.relpath(os.path.join(d, n), str(root))] = \
+                    f.read()
+    return out
+
+
+REPL_BODIES = {f"r{n}": np.random.default_rng(n + 16).bytes(n)
+               for n in (70_000, (2 << 20) + 5, (4 << 20) + 333)}
+
+
+def _replication_run(root, device) -> tuple:
+    """Objects PUT into one 16+4 / 1 MiB set on ``device`` (None = the
+    card), two drives' copies of the bucket taken away, then replicated
+    by a ReplicationPool (one worker) to an S3Server over a second set:
+    every source read rebuilds. Returns the replicas' bytes and every
+    file of the target set."""
+    import os
+    import shutil
+    import time
+    from minio_tpu_torch.bucket.replication import ReplicationPool, S3Target
+    from minio_tpu_torch.objectlayer import ErasureObjects
+    from minio_tpu_torch.server import S3Server
+    from minio_tpu_torch.storage.xlstorage import XLStorage
+
+    def layer(name):
+        return ErasureObjects([XLStorage(os.path.join(str(root), name,
+                                                      f"d{i:02d}"))
+                               for i in range(20)], default_parity=4,
+                              block_size=1 << 20, device=device)
+
+    src, dst_layer = layer("src"), layer("dst")
+    dst = S3Server(dst_layer, "127.0.0.1", 0, access_key=S3_AK,
+                   secret_key=S3_SK, device=device)
+    dst.start_background()
+    src.make_bucket("rb")
+    for name, data in REPL_BODIES.items():
+        src.put_object("rb", name, io.BytesIO(data), len(data))
+    for i in (3, 11):
+        shutil.rmtree(os.path.join(str(root), "src", f"d{i:02d}", "rb"))
+    pool = ReplicationPool(src, workers=1).start()
+    try:
+        pool.set_target("rb", S3Target(dst.endpoint(), S3_AK, S3_SK, "rb"))
+        assert pool.resync("rb") == len(REPL_BODIES)
+        deadline = time.monotonic() + 300
+        while pool.replicated + pool.failed < len(REPL_BODIES):
+            assert time.monotonic() < deadline
+            time.sleep(0.02)
+        pool.drain()
+        assert pool.failed == 0
+        got = {n: dst_layer.get_object_bytes("rb", n) for n in REPL_BODIES}
+    finally:
+        pool.stop()
+        dst.shutdown()
+    return got, _tree(os.path.join(str(root), "dst"))
+
+
+def test_replication_of_a_degraded_source_on_card_matches_cpu(
+        dev, tmp_path, monkeypatch):
+    """The pool's reads of a source missing two drives rebuild on K1 and
+    the target's PUTs run K2 and K5: the replicas and the target's files
+    equal the CPU run's."""
+    from minio_tpu_torch.ops import hh_cuda, rs_cuda
+    _pin_object_ids(monkeypatch)
+    rs_cuda.reset_launches()
+    hh_cuda.reset_launches()
+    card = _replication_run(tmp_path / "card", None)
+    launched = {**rs_cuda.launches, **hh_cuda.launches}
+    _pin_object_ids(monkeypatch)
+    host = _replication_run(tmp_path / "cpu", "cpu")
+    assert card[0] == REPL_BODIES == host[0]
+    assert card[1] == host[1]
+    for name in ("gf_matmul_batched", "gf_encode_batched",
+                 "highwayhash256_chunks"):
+        assert launched[name] > 0, name
+
+
+def _restore_run(root, device, monkeypatch) -> tuple:
+    """An object PUT into one 16+4 / 1 MiB set on ``device``, transitioned
+    to a TierFS tier (its read verified, a stub written), its stub read
+    through, then restored (its bytes PUT back). Returns the read-through
+    and restored bytes and every file of the set and of the tier."""
+    import itertools
+    import os
+    import types
+    import uuid
+    from minio_tpu_torch.bucket import transition as tx
+    from minio_tpu_torch.bucket.tiers import TierFS
+    from minio_tpu_torch.objectlayer import ErasureObjects
+    from minio_tpu_torch.storage.xlstorage import XLStorage
+    ids = itertools.count(1)
+    monkeypatch.setattr(tx, "uuid", types.SimpleNamespace(
+        uuid4=lambda: uuid.UUID(int=(1 << 90) + next(ids))))
+    monkeypatch.setattr(tx, "time", types.SimpleNamespace(
+        time=lambda: 1.75e9))
+    ol = ErasureObjects([XLStorage(os.path.join(str(root), "set",
+                                                f"d{i:02d}"))
+                         for i in range(20)], default_parity=4,
+                        block_size=1 << 20, device=device)
+    tiers = types.SimpleNamespace(get={
+        "COLD": TierFS("COLD", os.path.join(str(root), "tier"))}.get)
+    ts = tx.TransitionSys(ol, tiers)
+    data = REPL_BODIES["r4194637"]
+    ol.make_bucket("tb")
+    ol.put_object("tb", "o", io.BytesIO(data), len(data))
+    assert ts.transition("tb", ol.get_object_info("tb", "o"), "COLD")
+    stub = ol.get_object_info("tb", "o")
+    assert stub.size == 0 and tx.is_transitioned(stub)
+    through = ts.read(stub)
+    ts.restore("tb", stub, 2)
+    restored = ol.get_object_bytes("tb", "o")
+    return through, restored, _tree(root)
+
+
+def test_restore_of_a_transitioned_object_on_card_matches_cpu(
+        dev, tmp_path, monkeypatch):
+    """Transition (K5 verifying the read), read-through and restore (K2
+    and K5 writing the bytes back) on the card give the CPU run's bytes
+    and files."""
+    from minio_tpu_torch.ops import hh_cuda, rs_cuda
+    _pin_object_ids(monkeypatch)
+    rs_cuda.reset_launches()
+    hh_cuda.reset_launches()
+    card = _restore_run(tmp_path / "card", None, monkeypatch)
+    launched = {**rs_cuda.launches, **hh_cuda.launches}
+    _pin_object_ids(monkeypatch)
+    host = _restore_run(tmp_path / "cpu", "cpu", monkeypatch)
+    data = REPL_BODIES["r4194637"]
+    assert card[0] == card[1] == data == host[0] == host[1]
+    assert card[2] == host[2]
+    for name in ("gf_encode_batched", "highwayhash256_chunks"):
+        assert launched[name] > 0, name

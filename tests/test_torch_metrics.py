@@ -328,16 +328,132 @@ def test_timeline_device_top_qos_and_info(scrapes):
 
 @pytest.mark.parametrize("op,query", [
     ("list-users", {}), ("update", {}), ("bucketstats", {"peers": "1"}),
-    ("replication", {}), ("tier", {}), ("bandwidth", {})],
-    ids=["list-users", "update", "bucketstats", "replication", "tier",
-         "bandwidth"])
+    ("replication", {"peers": "1"}), ("bandwidth", {"peers": "1"})],
+    ids=["list-users", "update", "bucketstats", "replication-peers",
+         "bandwidth-peers"])
 def test_unported_admin_ops_answer_not_implemented(scrapes, op, query):
     """Ops of planes the port has not: the IAM ops on a server without
-    IAM (as the JAX server answers), the ``?peers=1`` fan-out, and the
-    replication, tier, bandwidth and update planes."""
+    IAM (as the JAX server answers), the ``?peers=1`` fan-outs (the
+    dist layer's), and the update plane."""
     r = _admin(scrapes["client"], op, **query)
     assert r.status_code == 501
     assert b"<Code>NotImplemented</Code>" in r.content
+
+
+@pytest.fixture(scope="module")
+def plane_servers(tmp_path_factory):
+    """A JAX and a port server in this process, each with the feature
+    planes enabled alike: a ReplicationPool with a target, the cross-node
+    ReplicationSys, a webhook event target (closed loopback port), an FS
+    tier and a throttled bucket in each package's bandwidth monitor."""
+    from minio_tpu.bucket import bandwidth as jbw
+    from minio_tpu.bucket import replicate as jrepl
+    from minio_tpu.bucket import replication as jrep
+    from minio_tpu.bucket import tiers as jtiers
+    from minio_tpu.event import targets as jtargets
+    from minio_tpu.obs import slo as jslo
+    from minio_tpu_torch.bucket import bandwidth as pbw
+    from minio_tpu_torch.bucket import replicate as prepl
+    from minio_tpu_torch.bucket import replication as prep
+    from minio_tpu_torch.bucket import tiers as ptiers
+    from minio_tpu_torch.event import targets as ptargets
+    from minio_tpu_torch.obs import slo as pslo
+    root = tmp_path_factory.mktemp("planes")
+    mp = pytest.MonkeyPatch()
+    out = {}
+    for pkg, rep, repl, tiers, targets, bw in (
+            ("jax", jrep, jrepl, jtiers, jtargets, jbw),
+            ("port", prep, prepl, ptiers, ptargets, pbw)):
+        mp.setattr(bw, "_monitor", None)
+        srv = _server(pkg, root / pkg)
+        pool = rep.ReplicationPool(srv.obj, workers=1)
+        pool.targets["mb"] = rep.S3Target(srv.endpoint(), AK, SK, "mb")
+        srv.enable_replication(pool)
+        srv.enable_cross_replication(
+            repl.ReplicationSys(srv.obj, srv.bucket_meta))
+        srv.enable_events([targets.WebhookTarget("t1",
+                                                 "http://127.0.0.1:9/h")],
+                          queue_root=str(root / f"q-{pkg}"))
+        srv.tiers.add(tiers.TierFS("COLD", str(root / f"cold-{pkg}")))
+        bw.global_monitor().throttle("mb", 1 << 20)
+        out[pkg] = (srv, S3Client(srv.endpoint(), AK, SK))
+    yield out
+    for pkg, slo in (("jax", jslo), ("port", pslo)):
+        slo.unregister_async_probe("replication")
+        srv = out[pkg][0]
+        srv.shutdown()
+        srv._notifier.stop()
+    mp.undo()
+
+
+#: the feature planes' families, emitted once the planes are enabled
+PLANE_FAMILIES = (
+    "minio_tpu_replication_completed_total",
+    "minio_tpu_replication_failed_total", "minio_tpu_replication_queued",
+    "minio_tpu_replication_backlog", "minio_tpu_replication_retry_pending",
+    "minio_tpu_replication_resynced_total",
+    "minio_tpu_replication_lag_seconds",
+    "minio_tpu_bucket_bandwidth_limit_bytes",
+    "minio_tpu_bucket_bandwidth_current_bytes",
+    "minio_tpu_notify_events_queued", "minio_tpu_notify_events_queue_limit",
+    "minio_tpu_notify_events_sent_total",
+    "minio_tpu_notify_events_send_failures_total",
+    "minio_tpu_notify_events_skipped_total",
+    "minio_tpu_ilm_tiers_configured")
+
+
+def test_feature_plane_families_match_jax(plane_servers):
+    """With the planes on, both cluster scrapes carry every replication,
+    bandwidth, notification and ILM family with the same TYPE and label
+    names (and the same values where no traffic moved them)."""
+    got = {}
+    for pkg, (srv, c) in plane_servers.items():
+        text = c.request("GET", "/minio/v2/metrics/cluster").content.decode()
+        fams = lint(text)
+        got[pkg] = {f: fams[f] for f in PLANE_FAMILIES if f in fams}
+        got[pkg + "-values"] = sorted(
+            ln for ln in text.splitlines()
+            if ln.startswith(("minio_tpu_bucket_bandwidth_limit",
+                              "minio_tpu_ilm_tiers", "minio_tpu_notify_"
+                              "events_queue_limit")))
+    assert set(got["port"]) == set(PLANE_FAMILIES)
+    assert got["port"] == got["jax"]
+    assert got["port-values"] == got["jax-values"]
+
+
+@pytest.mark.parametrize("method,op,query,body", [
+    ("GET", "replication", {}, b""),
+    ("POST", "replication", {}, b""),
+    ("POST", "replication", {"resync": "mb"}, b""),
+    ("GET", "tier", {}, b""),
+    ("PUT", "tier", {}, b'{"kind": "tape", "name": "X"}'),
+    ("GET", "bandwidth", {}, b""),
+    ("GET", "bandwidth", {"buckets": "mb,zz"}, b""),
+], ids=["replication", "replication-no-resync", "replication-resync",
+        "tier", "tier-bad-kind", "bandwidth", "bandwidth-buckets"])
+def test_feature_plane_admin_ops_match_jax(plane_servers, method, op, query,
+                                           body):
+    """The replication, tier and bandwidth admin ops answer as the JAX
+    server does (the status and JSON, or the error XML with its request
+    id masked); the replication report's lag block is compared by keys
+    (its percentiles are each package's own windows)."""
+    got = {}
+    for pkg, (_srv, c) in plane_servers.items():
+        r = c.request(method, f"/minio/admin/v3/{op}", query=query,
+                      body=body)
+        if r.headers.get("content-type", "").startswith("application/json"):
+            doc = r.json()
+            if isinstance(doc, dict) and "lag" in doc:
+                doc["lag"] = sorted(doc["lag"])
+            if isinstance(doc, list):
+                for t in doc:
+                    t.pop("dir", None)
+            got[pkg] = (r.status_code, doc)
+        else:
+            got[pkg] = (r.status_code, re.sub(
+                rb"<RequestId>[^<]*</RequestId>", b"", r.content))
+    assert got["port"] == got["jax"]
+    assert got["port"][0] in (200, 400)
 
 
 def test_bucketstats_and_logs_admin_ops(scrapes):
