@@ -10,7 +10,8 @@ Phases, each printing one JSON line:
 1. build — compiles minio_tpu_torch/csrc/*.cu with nvcc (one process per
    library, all at once) into build/minio_tpu_torch/, cached by content
    hash: one library per source, and K2 (csrc/gf_encode.cu) once per
-   encode matrix, here the 16+4 and 8+4 codecs' (``build_keys``).
+   encode matrix, here the 16+4, 8+4, 18+2, 8+8 and 12+4 codecs'
+   (``build_keys``).
 2. card — the card's name and power limit from nvidia-smi.
 3. native — builds the port's host library (libnative.so, g++ on this
    host) into build/minio_tpu_torch/, holds its HighwayHash-256 and
@@ -30,9 +31,11 @@ Phases, each printing one JSON line:
    (rs_cuda.matmul_plan, chacha_cuda.launch_plan), registers and CTAs per
    SM, a four-lane K4 row also with one thread per block timed beside it
    (``earlier_design_ms``), and the SASS mix of the kernels of K1's B =
-   128 and B = 1 rows and K4's I = 128 and I = 1 rows. K2 runs at B = 1,
+   128 and B = 1 rows and K4's I = 128 and I = 1 rows; K1 also at the
+   cluster path's 8+8, o = 8 over i = 8 at B = 1 and 8. K2 runs at B = 1,
    16, 64 and 128 at 16+4, at
-   B = 128 at 8+4 and on an unaligned view, with its launch plan,
+   B = 128 at 8+4, on an unaligned view, and at the cluster path's 8+8
+   and 12+4 over whole 1 MiB blocks at B = 1 and 16, with its launch plan,
    registers and (at 16+4) its static SASS mix. K3 and K5 run at the chunk
    counts the paths launch (1, 256, 1,024 and 10,240 chunks of 16 KiB),
    each row with its launch plan, registers and shared memory per CTA. K6
@@ -85,15 +88,16 @@ Phases, each printing one JSON line:
    threads, per-object p50/p99, every healed xl.meta and part.* equal to
    the kept files; one flipped byte in a data shard: the GET stays exact,
    on_partial reports a deep scan, and a deep heal restores the shard.
-   K1, K2 and K5 must launch. Cut: one process over local directories,
-   not 32 drives over a network.
+   K1, K2 and K5 must launch. Cut: one process over local directories
+   (the cluster path, step 15, runs 32 drives over the storage RPC).
 9. S3 server path — the port's S3Server (server/s3api.py) on 127.0.0.1
    over the object layer path's deployment (one pool of two 16+4 sets, 40
    disk directories, 1 MiB blocks, HighwayHash256S), driven through
    http.client by 32 client threads signing with the port's
-   server/auth.py. PUT of 64 objects of 4 MiB (every eighth as a
-   STREAMING-AWS4-HMAC-SHA256-PAYLOAD body in 64 KiB chunks; each fused
-   ETag equal to pipeline_etag_reference), the same 64 bodies PUT and GET
+   server/auth.py. PUT of 32 objects of 4 MiB (64 until the cluster path
+   came; every eighth as a STREAMING-AWS4-HMAC-SHA256-PAYLOAD body in 64
+   KiB chunks; each fused ETag equal to pipeline_etag_reference), the same
+   32 bodies PUT and GET
    through ServerPools in-process (the HTTP cost: wall over HTTP against
    in-process), a 3-part multipart upload (the -3 ETag of
    etag_from_parts), a CopyObject, 32 SSE-C objects of 4 MiB each under
@@ -131,9 +135,10 @@ Phases, each printing one JSON line:
    K4 and K5 must launch.
 10. obs path — the observability plane over the S3 server path's
    deployment (two 16+4 sets, 1 MiB blocks), 32 signing clients: PUT and
-   GET of 64 objects of 4 MiB, two drives per set replaced, a degraded
-   GET of all feeding the MRF, drained, with the stage attribution of
-   PUT, GET and heal (per-stage p50/p99 and share of wall); the node
+   GET of 32 objects of 4 MiB (64 until the cluster path came), two
+   drives per set replaced, a degraded GET of all feeding the MRF,
+   drained, with the stage attribution of PUT, GET and heal (per-stage p50/p99
+   and share of wall); the node
    scrape with ?attribution=1 under the naming lint of
    tests/test_obs_naming.py, the kernel, lane, dispatch, device_obs and
    qos families present; one stored trace tree by its trace id, holding a
@@ -143,10 +148,10 @@ Phases, each printing one JSON line:
    roofline ratio per op, each at most 1.05, the allocator's peak); a 3 s
    torch.profiler session over a GET load through the admin API, the
    card's own busy time beside the flushes' CUDA-event intervals; an
-   admission burst of 64 concurrent 4 MiB PUTs (Expect: 100-continue,
+   admission burst of 32 concurrent 4 MiB PUTs (Expect: 100-continue,
    honouring Retry-After) against a second S3Server on the same layer
    with max_requests=4 and MINIO_TPU_QOS_MAX_WAIT_MS=20, every object
-   stored exact; and the object layer's PUT and GET of the 64 with every
+   stored exact; and the object layer's PUT and GET of the 32 with every
    plane off and on (MINIO_TPU_TIMELINE, MINIO_TPU_DEVICE_OBS,
    MINIO_TPU_TRACE_SPANS, MINIO_TPU_PROFILER): a discarded warm-up turn,
    then one block of off, on, on, off, with its on/off ratio and each
@@ -159,15 +164,16 @@ Phases, each printing one JSON line:
    observed over nominal pass rate, the sampler's cost, the dispatcher
    threads' top leaf frames); after the burst, the port's lockrank
    installed, a second server over the same drives and one PUT and GET
-   load of the 64 through it, with the contended lock sites, the
+   load of the 32 through it, with the contended lock sites, the
    lock-wait share and any cycle or held-across-flush report; last, the
    admin slo, health, healthinfo and profile bodies. K1, K2 and K5 must
    launch.
 11. background path — the background heal plane over the S3 server
    (S3Server over one pool of two 16+4 sets, 40 disk directories, 1 MiB
    blocks, HighwayHash256S, start_background_services(): the MRF, the data
-   scanner, the auto-heal monitor): 128 objects of 4 MiB under two levels
-   of prefixes in 4 buckets and 64 of 100 KiB, from --seed. A normal
+   scanner, the auto-heal monitor): 64 objects of 4 MiB (128 until the
+   cluster path came) under two levels of prefixes in 4 buckets and 64 of 100
+   KiB, from --seed. A normal
    scanner cycle whose usage snapshot, per-prefix trees and size classes
    equal the script's own count, as GET /minio/admin/v3/datausageinfo
    serves them, and the scrape's heal-plane families; 8 PUTs to one
@@ -175,7 +181,7 @@ Phases, each printing one JSON line:
    tracker); a flipped byte in 16 shard files, which the deep cycle queues
    to the MRF and the MRF heals (verify_file then passes); two drives of
    each set wiped, their healing trackers set and the monitor kicked: its
-   global heal of all 200 objects from 128 workers, the per-object heal
+   global heal of all 136 objects from 128 workers, the per-object heal
    wall p50/p99, every shard on the replaced drives verified and the
    trackers cleared; one drive's root renamed away until its health
    tracker trips, 16 PUTs to its set, the root renamed back: the probe
@@ -229,8 +235,9 @@ Phases, each printing one JSON line:
    accounts, 2 AssumeRole sessions under a session policy that narrows a
    readwrite parent to the tenant's bucket and 2 AssumeRoleWithWebIdentity
    sessions from an HS256 OpenID provider (MINIO_TPU_OPENID_HMAC_SECRET),
-   each PUTting 4 objects of 4 MiB into its bucket, GETting them back
-   exact and again with two drives' copies taken away (K1), with walls,
+   each PUTting 2 objects of 4 MiB (4 until the cluster path came) into
+   its bucket, GETting them back exact and again with two drives' copies taken
+   away (K1), with walls,
    GiB/s and p50/p99 per principal kind. Each tenant's PUT and GET in
    another tenant's bucket answer 403 AccessDenied, the refused PUTs
    launching no K2; an expired STS credential is refused; a public-read
@@ -277,6 +284,39 @@ Phases, each printing one JSON line:
    p50/p99 (event time to arrival). Each step reports its wall, the
    streams' occupancy, the lanes' busy ratio and its K1, K2 and K5
    launches by size. K1, K2 and K5 must launch.
+15. cluster path — a distributed deployment on the one card: 4 processes
+   of ``python -m minio_tpu_torch.server`` given the full endpoint list
+   (``http://127.0.0.1:<port>/.../n<i>/d<j>``, host-major), each serving
+   8 drive directories: 32 drives in two sets of 16 (set 0 on nodes 0-1,
+   set 1 on nodes 2-3) at the sets' default parity, 8+8, 1 MiB blocks,
+   HighwayHash256S with 16 KiB chunks, the storage, lock and peer RPC
+   between the processes over loopback. (a) 128 objects of 4 MiB PUT
+   from 32 client threads spread over the four listeners, signed by the
+   port's server/auth.py, with the dsync lock acquisitions' p50/p99 under
+   that load; (b) every object GET through a node other than its writer,
+   bytes and ETags exact; (c) node 1 SIGKILLed: a degraded GET of all 128
+   through nodes 0, 2 and 3 (K1 on set 0's), the time until each peer
+   marks node 1 offline (the wall time its first RPC client toward node 1
+   went offline, from its stats), and PUTs to both sets held to the
+   write-quorum rule (data + 1 when parity equals data: set 0, 8 of 16
+   drives left, refuses; set 1 stores); (d) node 1 restarted over the same
+   drives and port: the time to ``/minio/health/cluster`` ready and to
+   every peer's reconnect (each of its clients that went offline back
+   online, from its stats), the outage's objects read through it; (e) one
+   drive on node 0 and one on node 2 replaced, as
+   tests/test_cluster_heal_oop.py does: both nodes SIGKILLed, the drives
+   copied aside and wiped, the nodes restarted over them (a start formats
+   an empty drive into its slot), and an admin heal of the bucket through
+   node 0 (one object at a time, as the JAX package's heal sequence
+   does); every healed file equals the kept one; the heal wall and GiB/s,
+   the p50/p99 over every shard heal the nodes recorded in this step, and
+   a last GET of all. Each
+   process's counters come from its ``--stats-file`` (SIGUSR1): K1, K2
+   and K5 launches by batch size and K1's by o summed over the processes
+   (the killed node's up to its kill), the storage, lock and peer RPC
+   calls and p50/p99 per method, and each process's stream occupancy and
+   device memory. K1, K2 and K5 must launch. The rehearsal runs the same
+   steps at 4 nodes x 2 drives on the CPU.
 
 Each sub-phase of a path reports, beside its wall and GiB/s, the streams'
 occupancy (``stream_occupancy``: the union of the flushes' CUDA-event
@@ -332,10 +372,12 @@ ISSUE_OPS_S = 128 * 132 * 1.98e9
 LOGIC_OPS_S = 64 * 132 * 1.98e9
 
 K, M = 16, 4
-#: K2's libraries built in the build phase: the paths' 16+4, the 8+4 row
-#: and the object layer's REDUCED_REDUNDANCY codec of a 20-drive set
-#: (18+2), which ErasureObjects prepares at start-up
-ENCODE_GEOMETRIES = ((K, M), (8, 4), (K + M - 2, 2))
+#: K2's libraries built in the build phase: the paths' 16+4, the 8+4 row,
+#: the object layer's REDUCED_REDUNDANCY codec of a 20-drive set (18+2),
+#: which ErasureObjects prepares at start-up, and the cluster path's two
+#: (a 16-drive set at its default parity, 8+8, and REDUCED_REDUNDANCY's
+#: 12+4), so no node process runs nvcc at its start
+ENCODE_GEOMETRIES = ((K, M), (8, 4), (K + M - 2, 2), (8, 8), (12, 4))
 BLOCK = 1 << 20
 CHUNK = 16384
 N_OBJECTS = 128
@@ -393,9 +435,14 @@ OL_HEAL_THREADS = 128
 #: aws-chunked stream of S3_STREAM_CHUNK chunks), S3_SSE SSE-C objects
 #: each under its own key, S3_CSV lineitem objects (the select path's first
 #: cuts) and one multipart object of S3_PARTS; ListObjectsV2 pages of
-#: S3_LIST_PAGE keys
+#: S3_LIST_PAGE keys. S3_BIG (also the obs path's objects) was 64 until
+#: the cluster path came, to keep the script well inside its time limit
 S3_THREADS = 32
-S3_BIG = 64
+S3_BIG = 32
+#: the depth cuts made to keep the whole script well inside its 1200 s
+#: limit as paths were added, each listed in its path's ``cut`` field
+CUT_S3_BIG = (f"{S3_BIG} plain objects, not 64: cut when the cluster path "
+              "came")
 S3_CHUNKED_EVERY = 8
 S3_STREAM_CHUNK = 64 << 10
 S3_SSE = 32
@@ -1184,46 +1231,49 @@ def chacha_geometry(plan) -> dict:
             "ctas_per_sm": occupancy(plan.threads, res.get("registers"), 0)}
 
 
-def rebuild_masks(gen, codec, b: int, o: int):
-    """K1's masks [b, 8, o, K] of b rebuilds: for each element M of the
-    K + M shards lost at random, the first o of them rebuilt from K
-    survivors (o = K + M: every shard, as reconstruct_batch asks)."""
+def rebuild_masks(gen, codec, b: int, o: int, k: int = K, m: int = M):
+    """K1's masks [b, 8, o, k] of b rebuilds: for each element m of the
+    k + m shards lost at random, the first o of them rebuilt from k
+    survivors (o = k + m: every shard, as reconstruct_batch asks)."""
     import numpy as np
     from minio_tpu_torch.ops import gf256
-    masks = np.empty((b, 8, o, K), dtype=np.uint32)
+    masks = np.empty((b, 8, o, k), dtype=np.uint32)
     for e in range(b):
-        lost = sorted(gen.choice(K + M, size=M, replace=False))
-        present = tuple(i for i in range(K + M) if i not in lost)[:K]
-        targets = tuple(int(t) for t in lost[:o]) if o <= M \
-            else tuple(range(K + M))
+        lost = sorted(gen.choice(k + m, size=m, replace=False))
+        present = tuple(i for i in range(k + m) if i not in lost)[:k]
+        targets = tuple(int(t) for t in lost[:o]) if o <= m \
+            else tuple(range(k + m))
         masks[e] = gf256.coeff_masks(codec.rebuild_rows(present, targets))
     return masks.view(np.int32)
 
 
 def matmul_rows(device, gen, x, codec, shapes) -> list:
-    """K1 rows over x [B, K, W] for each (b, o, replaces) of ``shapes``: the
-    kernel at ``rs_cuda.matmul_plan``'s geometry and its launch floor."""
+    """K1 rows over x [B, k, W] (``codec`` is k+m) for each (b, o,
+    replaces) of ``shapes``: the kernel at ``rs_cuda.matmul_plan``'s
+    geometry and its launch floor."""
     import torch
     from minio_tpu_torch.ops import rs_cuda
-    w = x.shape[-1]
+    w, k = x.shape[-1], x.shape[1]
+    m = codec.parity_rows.shape[0]
     sms = torch.cuda.get_device_properties(device).multi_processor_count \
         if device.type == "cuda" else rs_cuda.SMS
     out = []
     for b, o, replaces in shapes:
-        mk = torch.from_numpy(rebuild_masks(gen, codec, b, o)).to(device)
+        mk = torch.from_numpy(rebuild_masks(gen, codec, b, o, k, m)).to(
+            device)
         xb = x[:b]
         extra, floor = {}, None
         if device.type == "cuda":
-            plan = rs_cuda.matmul_plan(b, o, K, w, xb.data_ptr() % 16 == 0,
+            plan = rs_cuda.matmul_plan(b, o, k, w, xb.data_ptr() % 16 == 0,
                                        sms)
             floor = (lambda plan=plan: rs_cuda.launch_empty(plan, device))
             extra = matmul_geometry(plan)
         out.append(kernel_row(
             "gf_matmul_batched", "minio_tpu_torch/csrc/gf_matmul.cu",
-            replaces, f"B={b} o={o} i={K} W={w}",
+            replaces, f"B={b} o={o} i={k} W={w}",
             rs_cuda.gf_matmul_batched, rs_cuda.gf_matmul_batched_ref,
-            (mk, xb), 4 * b * (K * w + o * w + 8 * o * K),
-            (b * w * o * (8 * K + 35), b * w * o * (8 * K + 21)), device,
+            (mk, xb), 4 * b * (k * w + o * w + 8 * o * k),
+            (b * w * o * (8 * k + 35), b * w * o * (8 * k + 21)), device,
             floor=floor, **extra))
     return out
 
@@ -1319,6 +1369,27 @@ def phase_kernels(device, small: bool, table: dict) -> dict:
             (xb,), 4 * b * wk * (k + m),
             tuple(b * wk * v for v in fixed_matrix_ops(par)), device,
             **encode_geometry(par, xb)))
+    # K2 at the cluster path's geometries, over whole 1 MiB blocks: a
+    # 16-drive set at its default parity (8+8) and REDUCED_REDUNDANCY
+    # (12+4), one block and a 16-item flush each
+    for k, m in ((8, 8), (12, 4)):
+        par = get_codec(k, m, device=device).parity_rows
+        masks = torch.from_numpy(
+            gf256.coeff_masks(par).view(np.int32)).to(device)
+        shard = -(-(BLOCK if not small else 16448) // k)  # bytes, ceil
+        wk = -(-shard // 4)
+        for b in (1, 16 if not small else 2):
+            xb = _words(gen, (b, k, wk), device)
+            enc.append(kernel_row(
+                "gf_encode_batched", "minio_tpu_torch/csrc/gf_encode.cu",
+                "minio_tpu/ops/rs_pallas.py:" + ("224" if b == 1 else "300"),
+                f"B={b} {k}+{m} W={wk}",
+                lambda xb, par=par: rs_cuda.gf_encode_batched(par, xb),
+                lambda xb, masks=masks: rs_cuda.gf_matmul_batched_ref(
+                    masks, xb),
+                (xb,), 4 * b * wk * (k + m),
+                tuple(b * wk * v for v in fixed_matrix_ops(par)), device,
+                **encode_geometry(par, xb)))
     rows["gf_encode_batched"] = {**enc[0], "also": enc[1:]}
     if not small:
         enc[0]["sass"] = sass_mix("gf_encode", "gf_encode_kernelILi4E",
@@ -1338,6 +1409,14 @@ def phase_kernels(device, small: bool, table: dict) -> dict:
         (min(b, B), o, "minio_tpu/ops/rs_pallas.py:" + (
             "89" if b == 1 else "147"))
         for b in SMALL_B if b <= B for o in SMALL_O])
+    # K1 at the cluster path's 8+8: a node's loss takes 8 shards of a set,
+    # so a degraded GET rebuilds up to o = 8 rows from i = 8 survivors,
+    # over one block and over the batch of 8 the paths launch
+    w8 = (BLOCK if not small else 16448) // 8 // 4
+    x8 = _words(gen, (8, 8, w8), device)
+    mm += matmul_rows(device, gen, x8, get_codec(8, 8, device=device), [
+        (1, 8, "minio_tpu/ops/rs_pallas.py:89"),
+        (8, 8, "minio_tpu/ops/rs_pallas.py:147")])
     rows["gf_matmul_batched"] = {**mm[0], "also": mm[1:]}
     if not small:
         # the SASS of the kernels of the B = 128 and the B = 1 rows
@@ -2355,8 +2434,8 @@ def phase_objectlayer(device, n_big: int, big_bytes: int, n_small: int,
               "chunk": CHUNK, "algo": sets.sets[0].bitrot_algo.value,
               "placement": sets.distribution_algo, "deployment_id": dep,
               "setup_s": time.monotonic() - t0, "disk_root": root,
-              "cut": "one process over local disk directories, not 32 "
-                     "drives over a network (dist/ is not ported)"}
+              "cut": "one process over local disk directories (the "
+                     "cluster path runs 32 drives over the storage RPC)"}
     check(sets.sets[0].bitrot_algo is DEFAULT_BITROT_ALGO,
           f"bitrot algorithm {sets.sets[0].bitrot_algo}")
     pool.make_bucket(bucket)
@@ -2812,7 +2891,7 @@ def phase_s3server(device, table: dict, sizes: dict, seed: int) -> dict:
               "endpoint": srv.endpoint(), "client_threads": S3_THREADS,
               "setup_s": time.monotonic() - t0, "disk_root": root,
               "cut": "one process over local disk directories, clients "
-                     "over the loopback interface"}
+                     "over the loopback interface; " + CUT_S3_BIG}
 
     def sse_headers(j):
         key = hashlib.sha256(b"s3server-key-%d-%d" % (seed, j)).digest()
@@ -3859,7 +3938,8 @@ def phase_obs(device, n_objects: int, obj_bytes: int, card: str,
               "geometry": f"{K}+{M}", "block": BLOCK, "objects": n_objects,
               "object_bytes": obj_bytes, "client_threads": S3_THREADS,
               "card": card, "cut": "one process over local disk "
-                                   "directories, clients over loopback"}
+                                   "directories, clients over loopback; "
+                                   + CUT_S3_BIG}
 
     def run(label, fn, jobs, nbytes, kernels=(), threads=S3_THREADS):
         _reset(q)
@@ -4075,7 +4155,7 @@ def phase_obs(device, n_objects: int, obj_bytes: int, card: str,
     # 20 ms wait; a burst of PUTs whose clients honour Retry-After
     ok(client.request("PUT", "/burst")[0], 200, "PUT bucket")
     # (a rehearsal's few objects meet one slot)
-    slots = max(1, min(OBS_MAX_REQUESTS, n_objects // 16))
+    slots = max(1, min(OBS_MAX_REQUESTS, n_objects // 8))
     gate = S3Server(pool, "127.0.0.1", 0, access_key=S3_ACCESS_KEY,
                     secret_key=S3_SECRET_KEY, region=S3_REGION,
                     device=device, max_requests=slots)
@@ -4227,9 +4307,12 @@ def phase_obs(device, n_objects: int, obj_bytes: int, card: str,
 #: in-process PUT and GET of BG_WRAP objects with MINIO_TPU_HEALTH off and
 #: on, a warm-up turn then one ABBA block (three until the SSE-KMS path
 #: came, to keep the script well inside its time limit); BG_BIG was 256
-#: until the iam path came, for the same reason
+#: until the iam path came and 128 until the cluster path came, for the
+#: same reason
 BG_BUCKETS = ("logs", "media", "backup", "data")
-BG_BIG = 128
+BG_BIG = 64
+CUT_BG_BIG = (f"{BG_BIG} big objects, not 256: cut to 128 when the iam "
+              "path came and to 64 when the cluster path came")
 BG_SMALL = 64
 BG_NEW = 8
 BG_CORRUPT = 16
@@ -4350,7 +4433,7 @@ def phase_background(device, sizes: dict, card: str, seed: int) -> dict:
               "card": card, "setup_s": time.monotonic() - t0,
               "health_wrapper": type(sets.sets[0].disks[0]).__name__,
               "cut": "one process over local disk directories; the "
-                     "scanner's cycles driven by the script"}
+                     "scanner's cycles driven by the script; " + CUT_BG_BIG}
     check(result["health_wrapper"] == "DiskHealthCheck",
           "the sets' disks ride no health tracker")
 
@@ -5214,7 +5297,10 @@ IAM_GROUPS = 20
 IAM_POLICIES = 40
 IAM_SERVICE_ACCOUNTS = 16
 IAM_BUCKETS = 40
-IAM_OBJECTS = 4
+#: objects per tenant: 4 until the cluster path came (the time limit)
+IAM_OBJECTS = 2
+CUT_IAM_OBJECTS = (f"{IAM_OBJECTS} objects a tenant, not 4: cut when the "
+                   "cluster path came")
 IAM_ABBA = 16
 IAM_DENIED_BYTES = 64 << 10
 IAM_LOST = (0, 9)
@@ -5339,7 +5425,8 @@ def phase_iam(device, sizes: dict, card: str, seed: int) -> dict:
               f"{K}+{M}", "block": BLOCK, "bitrot": "HighwayHash256S",
               "card": card, "client_threads": S3_THREADS,
               "cut": "one process over local disk directories, clients "
-                     "and the audit receiver over loopback"}
+                     "and the audit receiver over loopback; "
+                     + CUT_IAM_OBJECTS}
     reset_launches()
 
     # every request the clients issue, by bucket: requests, body bytes the
@@ -5947,6 +6034,16 @@ def phase_bucketfeatures(device, sizes: dict, card: str, seed: int) -> dict:
         return data
 
     bw.MonitoredReader.read = timed_read
+    # when each bucket's throttle was made: its first window opens then,
+    # not at its first read (a token bucket starts full)
+    made: dict = {}
+    orig_throttle = bw.Monitor.throttle
+
+    def timed_throttle(self, bucket_name, bytes_per_second):
+        made.setdefault(bucket_name, time.monotonic())
+        return orig_throttle(self, bucket_name, bytes_per_second)
+
+    bw.Monitor.throttle = timed_throttle
 
     def step(label: str, fn, kernels=()):
         """One step inside the plane's instruments: its wall, the queue's
@@ -6082,7 +6179,11 @@ def phase_bucketfeatures(device, sizes: dict, card: str, seed: int) -> dict:
         keys = [(name, k) for k in thr]
         wait_landed([(b, k, "put") for b, k in keys], name)
         rs = reads[name]
-        t0 = rs[0][0]
+        # the throttle's windows: the first opens when it is made, each
+        # later one when a read takes a refill, at least a window after
+        # the one before, so by a time t at most int((t - t0) / WINDOW_S)
+        # + 1 windows' bytes can have been read
+        t0 = made[name]
         per_window = max(1, int(limit * bw.WINDOW_S))
         moved, worst = 0, 0.0
         for t, n in rs:
@@ -6343,6 +6444,7 @@ def phase_bucketfeatures(device, sizes: dict, card: str, seed: int) -> dict:
           "no event queued during the webhook's outage")
 
     bw.MonitoredReader.read = orig_read
+    bw.Monitor.throttle = orig_throttle
     for c in (clients, target_client):
         c.close()
     src.shutdown()
@@ -6362,6 +6464,492 @@ def phase_bucketfeatures(device, sizes: dict, card: str, seed: int) -> dict:
                   f"path")
     shutil.rmtree(root, ignore_errors=True)
     return result
+
+
+#: the cluster path: CL_NODES node processes of CL_DRIVES drives each
+#: (32 drives: two sets of 16, each over two nodes, at 8+8), CL_OBJECTS
+#: objects of OBJECT_BYTES PUT from CL_CLIENTS client threads over the
+#: nodes' listeners, CL_OUTAGE_PUTS PUTs per set while CL_KILLED is down,
+#: and one drive of each set replaced (CL_WIPED, (node, drive)): the owning
+#: nodes stop, the drive is wiped, the nodes restart over it and an admin
+#: heal of the bucket rebuilds its shards
+CL_NODES = 4
+CL_DRIVES = 8
+CL_OBJECTS = 128
+CL_CLIENTS = 32
+CL_OUTAGE_PUTS = 4
+CL_KILLED = 1
+CL_WIPED = ((0, 0), (2, 0))
+#: the ceiling of the nodes' RPC reconnect probe, in seconds
+CL_PING_MAX_S = 1
+CL_BOOT_S = 300
+
+
+def _stats_of(path: str, after: float, proc, timeout: float = 60) -> dict:
+    """A node's counters (``--stats-file``) once written after ``after``."""
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        if os.path.exists(path) and os.path.getmtime(path) >= after:
+            try:
+                with open(path) as f:
+                    return json.load(f)
+            except ValueError:
+                pass  # caught between write and rename: read again
+        check(proc.poll() is None, f"node died before its stats: {path}")
+        time.sleep(0.05)
+    raise PhaseError(f"no stats from {path}")
+
+
+def _node_stats(proc, path: str) -> dict:
+    """Ask a node for its counters (SIGUSR1) and read them."""
+    import signal
+    t0 = time.time() - 0.01
+    proc.send_signal(signal.SIGUSR1)
+    return _stats_of(path, t0, proc)
+
+
+def _marks_after(rep: dict, url: str, key: str, after: float) -> list:
+    """The wall times at which a node's RPC clients toward ``url`` last
+    went offline (``key`` "offline_at") or came back ("online_at"), of
+    those later than ``after``."""
+    return [t for t in rep["peer_marks"].get(url, {}).get(key, [])
+            if t >= after]
+
+
+def _merge_reports(reports: list) -> dict:
+    """The kernels' launches (by kernel, by size, K1's by o), the RPC
+    methods' calls and latencies, and the lock acquisitions summed over
+    several node reports."""
+    launches, sizes = {}, {}
+    rpc: dict = {}
+    for rep in reports:
+        k = rep["kernels"]
+        for name, n in k["launches"].items():
+            launches[name] = launches.get(name, 0) + n
+        for field, suffix, fmt in (("launch_sizes", "", "<={}"),
+                                   ("launch_rows", "_by_o", "o={}"),
+                                   ("launch_pkgs", "_by_p", "<={}")):
+            for name, hist in k[field].items():
+                dst = sizes.setdefault(name + suffix, {})
+                for b, v in hist.items():
+                    key = b if name == "scan_codes" else fmt.format(b)
+                    dst[key] = dst.get(key, 0) + v
+        for svc, methods in rep["rpc"].items():
+            for m, st in methods.items():
+                row = rpc.setdefault(svc, {}).setdefault(
+                    m, {"calls": 0, "errors": 0, "seconds": []})
+                row["calls"] += st["calls"]
+                row["errors"] += st["errors"]
+                row["seconds"] += st["seconds"]
+    return {"launches": launches, "launch_sizes": sizes, "rpc": rpc}
+
+
+def _rpc_table(rpc: dict) -> dict:
+    """{service: {method: calls, errors, p50/p99 ms}} of merged RPC rows."""
+    out = {}
+    for svc, methods in rpc.items():
+        for m, st in sorted(methods.items()):
+            secs = st["seconds"]
+            out.setdefault(svc, {})[m] = {
+                "calls": st["calls"], "errors": st["errors"],
+                "p50_ms": _percentile(secs, 0.5) * 1e3 if secs else None,
+                "p99_ms": _percentile(secs, 0.99) * 1e3 if secs else None}
+    return out
+
+
+def phase_cluster(device, sizes: dict, card: str, seed: int) -> dict:
+    """A distributed deployment on one card: CL_NODES processes of
+    ``python -m minio_tpu_torch.server`` with the full endpoint list, each
+    serving CL_DRIVES drive directories (see the module docstring, step
+    15). Every count is each process's own from its start; the path's
+    launches are the sum over the processes (the killed node's counted up
+    to its kill, from its stats just before)."""
+    import signal
+    import uuid
+
+    import numpy as np
+    from minio_tpu_torch.utils.siphash import sip_hash_mod
+    n_nodes, n_drives = sizes["nodes"], sizes["drives"]
+    n_obj, obj_bytes = sizes["objects"], sizes["bytes"]
+    root = _disk_root("cluster")
+    ports = []
+    for _ in range(n_nodes):
+        with socket.socket() as sk:
+            sk.bind(("127.0.0.1", 0))
+            ports.append(sk.getsockname()[1])
+    urls = [f"http://127.0.0.1:{p}" for p in ports]
+    drive = {(n, d): os.path.join(root, f"n{n}", f"d{d}")
+             for n in range(n_nodes) for d in range(n_drives)}
+    for path in drive.values():
+        os.makedirs(path)
+    # host-major: set s spans the nodes of its 16 (or fewer) drives
+    endpoints = [f"{urls[n]}{drive[(n, d)]}" for n in range(n_nodes)
+                 for d in range(n_drives)]
+    stats = [os.path.join(root, f"stats{n}.json") for n in range(n_nodes)]
+    logs = [os.path.join(root, f"node{n}.log") for n in range(n_nodes)]
+    env = dict(os.environ, MINIO_TPU_ROOT_USER=S3_ACCESS_KEY,
+               MINIO_TPU_ROOT_PASSWORD=S3_SECRET_KEY,
+               MINIO_TPU_RPC_PING_MAX_S=str(CL_PING_MAX_S),
+               PYTHONPATH=HERE)
+    dev_args = ["--device", "cpu"] if device.type == "cpu" else []
+
+    def spawn(n: int):
+        with open(logs[n], "a") as log:
+            return subprocess.Popen(
+                [sys.executable, "-m", "minio_tpu_torch.server", *dev_args,
+                 "--address", f"127.0.0.1:{ports[n]}", "--block-size",
+                 str(BLOCK), "--stats-file", stats[n], *endpoints],
+                cwd=HERE, env=env,
+                stdout=subprocess.DEVNULL, stderr=log)
+
+    def ready(n: int, proc, timeout: float = CL_BOOT_S) -> float:
+        import http.client
+        t0 = time.monotonic()
+        while time.monotonic() - t0 < timeout:
+            if proc.poll() is not None:
+                with open(logs[n]) as f:
+                    tail = f.read()[-3000:]
+                raise PhaseError(f"node {n} exited {proc.returncode}: "
+                                 f"{tail}")
+            c = http.client.HTTPConnection("127.0.0.1", ports[n], timeout=5)
+            try:
+                c.request("GET", "/minio/health/cluster")
+                if c.getresponse().status == 200:
+                    return time.monotonic() - t0
+            except OSError:
+                pass
+            finally:
+                c.close()
+            time.sleep(0.1)
+        raise PhaseError(f"node {n} not ready in {timeout} s")
+
+    procs: list = [None] * n_nodes
+    clients = [_S3Client(p) for p in ports]
+    out: dict = {"cut": f"{n_nodes} node processes on one card (one "
+                        "host, loopback network)"}
+    reports = []
+    try:
+        t0 = time.monotonic()
+        for n in range(n_nodes):
+            procs[n] = spawn(n)
+        boot = [ready(n, procs[n]) for n in range(n_nodes)]
+        out["boot_s"] = {"all": time.monotonic() - t0, "by_node": boot}
+        with open(os.path.join(drive[(0, 0)], ".minio.sys",
+                               "format.json")) as f:
+            fmt = json.load(f)
+        sets = fmt["xl"]["sets"]
+        per_set = len(sets[0])
+        dep = uuid.UUID(fmt["id"]).bytes
+        parity = per_set // 2
+        set_nodes = [sorted({i // n_drives for i in range(
+            s * per_set, (s + 1) * per_set)}) for s in range(len(sets))]
+        out["layout"] = {
+            "sets": len(sets), "drives_per_set": per_set,
+            "geometry": f"{per_set - parity}+{parity}",
+            "drives_by_node": [
+                {f"node{n}": sum(1 for i in range(s * per_set,
+                                                  (s + 1) * per_set)
+                                 if i // n_drives == n)
+                 for n in set_nodes[s]} for s in range(len(sets))]}
+        gen = np.random.default_rng(seed + 17)
+        names = [f"obj-{i:04d}" for i in range(n_obj)]
+        bodies = {nm: gen.bytes(obj_bytes) for nm in names}
+        set_of = {nm: sip_hash_mod(nm, len(sets), dep) for nm in names}
+        st, _h, data = clients[0].request("PUT", "/cluster")
+        check(st == 200, f"bucket create: HTTP {st} {data[:200]!r}")
+
+        def put(i: int) -> tuple:
+            nm = names[i]
+            st, h, data = clients[i % n_nodes].request(
+                "PUT", f"/cluster/{nm}", body=bodies[nm])
+            return nm, st, h.get("etag", "").strip('"'), data
+
+        # (a) PUT through the four listeners
+        for c in clients:
+            c.latencies.clear()
+        t0 = time.monotonic()
+        with ThreadPoolExecutor(sizes["clients"]) as ex:
+            puts = list(ex.map(put, range(n_obj)))
+        wall = time.monotonic() - t0
+        etags = {}
+        for nm, st, etag, data in puts:
+            check(st == 200, f"PUT {nm}: HTTP {st} {data[:200]!r}")
+            etags[nm] = etag
+        lat = [x for c in clients for x in c.latencies]
+        out["put"] = {"objects": n_obj, "wall_s": wall,
+                      "gib_s": n_obj * obj_bytes / wall / 2**30,
+                      "p50_ms": _percentile(lat, 0.5) * 1e3,
+                      "p99_ms": _percentile(lat, 0.99) * 1e3}
+        after_put = [_node_stats(procs[n], stats[n]) for n in range(n_nodes)]
+        locks = [x for r in after_put for x in r["locks"]["seconds"]]
+        out["put"]["dsync_lock"] = {
+            "acquired": sum(r["locks"]["acquired"] for r in after_put),
+            "timed_out": sum(r["locks"]["timed_out"] for r in after_put),
+            "p50_ms": _percentile(locks, 0.5) * 1e3,
+            "p99_ms": _percentile(locks, 0.99) * 1e3}
+
+        def get(i: int, via: list) -> tuple:
+            nm = names[i]
+            n = via[i]
+            st, h, data = clients[n].request("GET", f"/cluster/{nm}")
+            return nm, st, h.get("etag", "").strip('"'), data
+
+        def get_all(via: list, step: str) -> dict:
+            for c in clients:
+                c.latencies.clear()
+            t0 = time.monotonic()
+            with ThreadPoolExecutor(sizes["clients"]) as ex:
+                got = list(ex.map(lambda i: get(i, via), range(n_obj)))
+            wall = time.monotonic() - t0
+            for nm, st, etag, data in got:
+                check(st == 200, f"{step} GET {nm}: HTTP {st}")
+                check(data == bodies[nm], f"{step} GET {nm}: bytes differ")
+                check(etag == etags[nm], f"{step} GET {nm}: ETag differs")
+            lat = [x for c in clients if c.latencies for x in c.latencies]
+            return {"objects": n_obj, "wall_s": wall,
+                    "gib_s": n_obj * obj_bytes / wall / 2**30,
+                    "p50_ms": _percentile(lat, 0.5) * 1e3,
+                    "p99_ms": _percentile(lat, 0.99) * 1e3}
+
+        # (b) GET of each through a node other than its writer
+        out["get"] = get_all([(i + 1) % n_nodes for i in range(n_obj)],
+                             "cross-node")
+
+        # (c) a node dies: its counters first, then SIGKILL. The survivors
+        # serve the degraded GETs; each one's clients toward the dead node
+        # record when they went offline, read from its stats after
+        killed = sizes["killed"]
+        reports.append(_node_stats(procs[killed], stats[killed]))
+        survivors = [n for n in range(n_nodes) if n != killed]
+        t_kill = time.time()
+        procs[killed].send_signal(signal.SIGKILL)
+        procs[killed].wait(timeout=60)
+        via = [survivors[i % len(survivors)] for i in range(n_obj)]
+        out["degraded_get"] = get_all(via, "degraded")
+        offline_s = {}
+        for n in survivors:
+            marks = _marks_after(_node_stats(procs[n], stats[n]),
+                                 urls[killed], "offline_at", t_kill)
+            check(bool(marks), f"node {n} never marked node {killed} "
+                               "offline")
+            offline_s[f"node{n}"] = min(marks) - t_kill
+        out["degraded_get"]["offline_marked_s"] = offline_s
+        # PUTs during the outage, to every set: a set keeps its write
+        # quorum (data + 1 when parity equals data, else data) with the
+        # killed node's drives gone, or refuses
+        outage = {}
+        for s in range(len(sets)):
+            lost = sum(1 for i in range(s * per_set, (s + 1) * per_set)
+                       if i // n_drives == killed)
+            data_n = per_set - parity
+            quorum = data_n + 1 if data_n == parity else data_n
+            want_ok = per_set - lost >= quorum
+            cand = (f"outage-{s}-{j:04d}" for j in range(10**6))
+            chosen = []
+            for nm in cand:
+                if sip_hash_mod(nm, len(sets), dep) == s:
+                    chosen.append(nm)
+                    if len(chosen) == sizes["outage_puts"]:
+                        break
+            statuses = []
+            for j, nm in enumerate(chosen):
+                body = gen.bytes(obj_bytes)
+                bodies[nm] = body
+                st, _h, _d = clients[survivors[j % len(survivors)]].request(
+                    "PUT", f"/cluster/{nm}", body=body)
+                statuses.append(st)
+            ok = sum(1 for st in statuses if st == 200)
+            check(ok == (len(statuses) if want_ok else 0),
+                  f"set {s} with {per_set - lost} of {per_set} drives "
+                  f"(write quorum {quorum}) answered {statuses}")
+            outage[f"set{s}"] = {"drives_live": per_set - lost,
+                                 "write_quorum": quorum,
+                                 "statuses": statuses,
+                                 "stored": [nm for nm, st in
+                                            zip(chosen, statuses)
+                                            if st == 200]}
+        out["outage_puts"] = outage
+
+        # (d) the node comes back over the same drives and port; a peer has
+        # reconnected once every client of it that went offline after the
+        # kill is back
+        t_restart = time.time()
+        procs[killed] = spawn(killed)
+        ready_s = ready(killed, procs[killed])
+        reconnect_s = {}
+        while len(reconnect_s) < len(survivors) and \
+                time.time() - t_restart < 120:
+            for n in survivors:
+                if f"node{n}" in reconnect_s:
+                    continue
+                row = _node_stats(procs[n], stats[n])["peer_marks"].get(
+                    urls[killed], {})
+                pairs = [(off, on) for off, on in zip(
+                    row.get("offline_at", []), row.get("online_at", []))
+                    if off >= t_kill]
+                if pairs and all(on >= off for off, on in pairs):
+                    reconnect_s[f"node{n}"] = max(
+                        on for _off, on in pairs) - t_restart
+            time.sleep(0.25)
+        check(len(reconnect_s) == len(survivors),
+              f"peers reconnected to node {killed}: {sorted(reconnect_s)}")
+        out["restart"] = {"ready_s": ready_s, "reconnected_s": reconnect_s}
+        for s_row in outage.values():
+            for nm in s_row["stored"]:
+                st, _h, data = clients[killed].request("GET",
+                                                       f"/cluster/{nm}")
+                check(st == 200 and data == bodies[nm],
+                      f"outage object {nm} through the restarted node")
+
+        # (e) one drive of each set replaced, as tests/test_cluster_heal_oop.py
+        # does: the owning nodes stop (their counters first), the drive is
+        # copied aside and wiped, the nodes restart over it (their start
+        # formats it into its slot), and an admin heal of the bucket through
+        # the first of them rebuilds its shards. The heal-shard seconds are
+        # those each node recorded after this point
+        owners = sorted({n for n, _d in sizes["wiped"]})
+
+        def heal_passes(n: int) -> int:
+            return _admin_json(clients[n], "bg-heal-status")["autoheal"][
+                "heal_passes"]
+
+        passes0 = {n: heal_passes(n) for n in range(n_nodes)
+                   if n not in owners}
+        before = {}
+        for n in range(n_nodes):
+            rep = _node_stats(procs[n], stats[n])
+            if n in owners:
+                reports.append(rep)
+            else:
+                before[n] = len(rep["heal_shard_seconds"])
+        for n in owners:
+            procs[n].send_signal(signal.SIGKILL)
+            procs[n].wait(timeout=60)
+        wiped = {}
+        for n, d in sizes["wiped"]:
+            path = drive[(n, d)]
+            keep = path + ".orig"
+            shutil.copytree(path, keep)
+            wiped[(n, d)] = keep
+            for entry in os.listdir(path):
+                full = os.path.join(path, entry)
+                if os.path.isdir(full):
+                    shutil.rmtree(full)
+                else:
+                    os.unlink(full)
+        t_replace = time.monotonic()
+        for n in owners:
+            procs[n] = spawn(n)
+            clients[n].close()  # its connections reached the old process
+            clients[n] = _S3Client(ports[n])
+        replace_ready = {f"node{n}": ready(n, procs[n]) for n in owners}
+        t_heal = time.monotonic()
+        seq = _admin_json(clients[owners[0]], "heal/cluster", "POST")
+        while seq["status"] == "running" and time.monotonic() - t_heal < 600:
+            time.sleep(0.1)
+            seq = _admin_json(clients[owners[0]], "heal/cluster", "POST",
+                              clientToken=seq["clientToken"])
+        heal_wall = time.monotonic() - t_heal
+        check(seq["status"] == "done" and seq["failed"] == 0,
+              f"admin heal: {seq['status']}, {seq['failed']} failed, "
+              f"{seq['error']!r}")
+        want = n_obj + sum(len(r["stored"]) for r in outage.values())
+        check(seq["scanned"] == want,
+              f"admin heal scanned {seq['scanned']} of {want} objects")
+        same = differ = missing = 0
+        shard_bytes = 0
+        for (n, d), keep in wiped.items():
+            for nm in names:
+                src = os.path.join(keep, "cluster", nm)
+                if not os.path.isdir(src):
+                    continue
+                for sub, _dirs, files in os.walk(src):
+                    for f in files:
+                        a = os.path.join(sub, f)
+                        b = os.path.join(drive[(n, d)], os.path.relpath(
+                            a, keep))
+                        if not os.path.exists(b):
+                            missing += 1
+                            continue
+                        with open(a, "rb") as fa, open(b, "rb") as fb:
+                            ba, bb = fa.read(), fb.read()
+                        if ba == bb:
+                            same += 1
+                            shard_bytes += len(ba)
+                        else:
+                            differ += 1
+        check(missing == 0 and differ == 0 and same > 0,
+              f"healed files: {same} identical, {differ} differ, "
+              f"{missing} missing")
+        heal_rows = [_node_stats(procs[n], stats[n])
+                     for n in range(n_nodes)]
+        # the restarted nodes' drives re-online on the peers' health
+        # trackers, which set their healing trackers and wake the nodes'
+        # auto-heal monitors: the global heals (128 workers) that ran
+        # beside the admin heal in this step
+        passes = {f"node{n}": heal_passes(n) - passes0.get(n, 0)
+                  for n in range(n_nodes)}
+        shard_s = [x for n, r in enumerate(heal_rows)
+                   for x in r["heal_shard_seconds"][before.get(n, 0):]]
+        check(len(shard_s) > 0, "no shard heal recorded")
+        out["heal"] = {
+            "drives": [f"node{n}/d{d}" for n, d in wiped],
+            "trigger": f"admin heal of the bucket through node{owners[0]}",
+            "restart_ready_s": replace_ready,
+            "replace_to_healed_s": time.monotonic() - t_replace,
+            "wall_s": heal_wall,
+            "objects_scanned": seq["scanned"],
+            "objects_healed": seq["healed"],
+            "global_heal_passes": passes,
+            "files_identical": same, "shard_bytes": shard_bytes,
+            "gib_s": shard_bytes / heal_wall / 2**30,
+            "shard_heals": len(shard_s),
+            "heal_shard_p50_s": _percentile(shard_s, 0.5),
+            "heal_shard_p99_s": _percentile(shard_s, 0.99)}
+        # the bytes still read back whole after the heal
+        out["get_after_heal"] = get_all([i % n_nodes for i in range(n_obj)],
+                                        "after heal")
+        final = [_node_stats(procs[n], stats[n]) for n in range(n_nodes)]
+        reports += final
+        merged = _merge_reports(reports)
+        out["launches"] = merged["launches"]
+        out["launch_sizes"] = merged["launch_sizes"]
+        out["rpc"] = _rpc_table(merged["rpc"])
+        for rep in reports:
+            d = rep["dispatch"]
+            check(d["failed_batches"] == 0 and d["salvaged_batches"] == 0
+                  and d["obs_errors"] == 0,
+                  f"node {rep['endpoint']}: dispatch {d}")
+        path_wall = time.time() - t_kill
+        out["processes"] = [{
+            "endpoint": rep["endpoint"], "pid": rep["pid"],
+            "memory": rep.get("memory"),
+            "stream_occupancy_s": {
+                dev: o["union_s"] for dev, o in rep["occupancy"].items()},
+            "flushes": rep["dispatch"]["batches"],
+            "items": rep["dispatch"]["items"]} for rep in final]
+        out["steps_c_to_e_wall_s"] = path_wall
+        for name in ("gf_encode_batched", "gf_matmul_batched",
+                     "highwayhash256_chunks"):
+            check(out["launches"].get(name, 0) > 0 or device.type == "cpu",
+                  f"{name} never launched on the cluster path")
+        out["card"] = card
+    finally:
+        for c in clients:
+            c.close()
+        for proc in procs:
+            if proc is not None and proc.poll() is None:
+                proc.send_signal(signal.SIGTERM)
+        for proc in procs:
+            if proc is None:
+                continue
+            try:
+                proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(timeout=30)
+        shutil.rmtree(root, ignore_errors=True)
+    return out
 
 
 def main() -> int:
@@ -6447,6 +7035,13 @@ def main() -> int:
          "cold": BF_COLD, "restore": BF_RESTORE, "worm": BF_WORM,
          "bytes": OBJECT_BYTES, "throttle_bps": BF_THROTTLE_BPS,
          "binding": BF_BINDING, "binding_bps": BF_BINDING_BPS}
+    # the cluster path: the same 4 nodes, 2 drives each in the rehearsal
+    cl_sizes = {"nodes": CL_NODES, "drives": 2 if rehearsal else CL_DRIVES,
+                "objects": 8 if rehearsal else CL_OBJECTS,
+                "bytes": (256 << 10) if rehearsal else OBJECT_BYTES,
+                "clients": 8 if rehearsal else CL_CLIENTS,
+                "outage_puts": 2 if rehearsal else CL_OUTAGE_PUTS,
+                "killed": CL_KILLED, "wiped": CL_WIPED}
     phase = "build"
     try:
         phase_build(rehearsal)
@@ -6523,12 +7118,17 @@ def main() -> int:
         if rehearsal:
             bfres["cut"] += f"; {bf_sizes}"
         emit({"phase": "bucketfeatures_path", **bfres})
+        phase = "cluster_path"
+        clres = phase_cluster(device, cl_sizes, card, args.seed)
+        if rehearsal:
+            clres["cut"] += f"; {cl_sizes}"
+        emit({"phase": "cluster_path", **clres})
         paths = {"mur3x256s_path": res, "sse_hh256s_path": sres,
                  "select_path": selres, "objectlayer_path": olres,
                  "s3server_path": s3res, "sse_kms_path": kmsres,
                  "obs_path": obsres, "background_path": bgres,
                  "hostpath_path": hostres, "iam_path": iamres,
-                 "bucketfeatures_path": bfres}
+                 "bucketfeatures_path": bfres, "cluster_path": clres}
         for name, row in rows.items():
             by_path = {p: r["launches"][name] for p, r in paths.items()}
             row["launches"] = sum(by_path.values())

@@ -13,11 +13,14 @@ str map), so either package reads the other's record, its lifecycle,
 notification, object-lock and replication documents byte for byte."""
 from __future__ import annotations
 
+import logging
 import threading
 import time
 from dataclasses import dataclass, field
 
 from ..utils import errors, msgpack
+
+log = logging.getLogger(__name__)
 
 
 @dataclass
@@ -67,14 +70,17 @@ class BucketMetadata:
 
 
 class BucketMetadataSys:
-    """Process-cached bucket metadata registry (the peer invalidation of
-    the JAX package's ``on_update`` hook waits for the distributed
-    plane)."""
+    """Process-cached bucket metadata registry; in a distributed
+    deployment the nodes invalidate each other's caches through the peer
+    RPC (``on_update``, set by dist.node.Node)."""
 
     def __init__(self, objlayer):
         self.obj = objlayer
         self._cache: dict[str, BucketMetadata] = {}
         self._lock = threading.Lock()
+        #: called with the bucket after every stored update (the node's
+        #: peer invalidation broadcast)
+        self.on_update = None
 
     def _path(self, bucket: str) -> str:
         return f"buckets/{bucket}/metadata"
@@ -97,6 +103,12 @@ class BucketMetadataSys:
         self.obj.put_config(self._path(bucket), meta.dump())
         with self._lock:
             self._cache[bucket] = meta
+        if self.on_update is not None:
+            try:
+                self.on_update(bucket)
+            except Exception:  # noqa: BLE001 — the broadcast is best effort
+                log.warning("bucket metadata broadcast of %s failed",
+                            bucket, exc_info=True)
 
     def update(self, bucket: str, **fields) -> BucketMetadata:
         meta = self.get(bucket)

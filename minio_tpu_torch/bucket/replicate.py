@@ -28,14 +28,12 @@ The plane is three pieces:
 The worker reads through ``get_object_buffer`` (the zero-copy read
 path — one pass, no final full-object copy; on the card the GET's K5
 verify, and K1 when shards are away) and ships through a peer transport
-resolved per rule endpoint (``_peer_for``). The JAX package builds that
-transport from the dist layer's peer RPC (``dist.peer.PeerRESTClient``
-for a ``node``); the port's dist layer does not have it yet, so here the
-transport is a rule endpoint's entry in ``_extra_peers`` (any object with
-``replicate_object`` and ``replicate_delete``), and ``_peer_for`` with a
-``node`` but no such entry raises ``NotImplementedError``. Replication
-traffic is background-class QoS: a drain burst must not starve
-interactive GETs.
+resolved per rule endpoint (``_peer_for``): a node's peer RPC client
+(``dist.peer.PeerRESTClient``) for a target among its peers or an ad-hoc
+one with the cluster secret, or, without a node, a rule endpoint's entry
+in ``_extra_peers`` (any object with ``replicate_object`` and
+``replicate_delete``). Replication traffic is background-class QoS: a
+drain burst must not starve interactive GETs.
 
 Replication lag (charge→replica-landed seconds) is measured through
 ``obs.latency.Window`` — the same percentile machinery behind every
@@ -270,9 +268,8 @@ class ReplicationSys:
         """Resolve a rule's endpoint to its transport. A target in the
         node's static peer set reuses that client (shares its
         online/offline state + reconnect ping loop); anything else is a
-        registered ``_extra_peers`` transport. The JAX package builds an
-        ad-hoc ``dist.peer.PeerRESTClient`` for an unregistered endpoint
-        of a node; that client comes with the port's dist layer."""
+        registered ``_extra_peers`` transport or, on a node, a cached
+        ad-hoc PeerRESTClient with the same cluster secret."""
         endpoint = endpoint.rstrip("/")
         if self.node is not None:
             for p in self.node.peers:
@@ -282,9 +279,10 @@ class ReplicationSys:
         if client is None:
             if self.node is None:
                 return None
-            raise NotImplementedError(
-                f"no peer transport for {endpoint}: the peer RPC client "
-                "comes with the dist layer")
+            from ..dist.peer import PeerRESTClient
+            client = PeerRESTClient(endpoint, self.node.secret,
+                                    src=self.node.local_url)
+            self._extra_peers[endpoint] = client
         return client
 
     def _read_source(self, bucket: str, key: str, oi) -> bytes:

@@ -9,8 +9,10 @@ A rule targets ``layer x target x op``:
 
 * ``layer``: ``disk`` (storage/xlstorage.py: every op, every shard read,
   the write steps of the commit protocol), ``kernel`` (runtime/dispatch.py:
-  every flush), ``rpc`` and ``node`` (they parse and list, but have no
-  injection point until the port of ``dist/``'s RPC plane).
+  every flush), ``rpc`` (dist/rpc.py: every call, keyed by peer URL and
+  RPC method) and ``node`` (dist/rpc.py: every call toward a peer, keyed
+  by peer URL and calling node; ``fault/node.py`` arms partitions, slow
+  peers and isolation there, and kills and restarts in-process nodes).
 * ``target``: a substring of the disk endpoint / peer URL, or ``*``; the
   ``kernel`` layer's target is ``device``.
 * ``op``: a storage op (``read_all``, ``read_at``, ``rename_data``, a

@@ -7,9 +7,11 @@ credentials live in the same table with an expiry. The document is the
 JAX package's byte for byte for the same mutations, so each package loads
 the other's.
 
-The JAX package's cross-node hooks (``on_change``, ``dist_lock``, set by
-its distributed node) wait for the port of ``dist/``: here one process
-owns the document, and a mutation is a read-modify-write under the
+In a distributed deployment the node sets two hooks: ``on_change`` tells
+the peers to reload after every persisted mutation, and ``dist_lock``
+makes each read-modify-write of the shared document hold a cluster lock
+(and reload under it), so concurrent admin calls on two nodes cannot
+clobber each other. Alone, a mutation is a read-modify-write under the
 instance lock."""
 from __future__ import annotations
 
@@ -70,6 +72,13 @@ class IAMSys:
         self.users: dict[str, UserIdentity] = {}
         self.groups: dict[str, dict] = {}   # name -> {members, policies}
         self.policies: dict[str, pol.Policy] = dict(pol.CANNED)
+        #: cross-node sync hook (reference peer-rest-common.go:33-44
+        #: LoadUser/LoadPolicy/...): called after every persisted mutation
+        #: so peers reload — set by dist.node.Node
+        self.on_change = None
+        #: cluster mutation lock factory (() -> DRWMutex-like with
+        #: get_lock/unlock) — set by dist.node.Node
+        self.dist_lock = None
         self.load()
 
     # --- persistence --------------------------------------------------------
@@ -84,6 +93,10 @@ class IAMSys:
         }
         self.obj.put_config(f"{IAM_PREFIX}/state.json",
                             json.dumps(doc).encode())
+        if self.on_change is not None:
+            # async: a slow/dead peer must not stall the admin API call
+            threading.Thread(target=self.on_change, daemon=True,
+                             name="iam-sync").start()
 
     def load(self):
         with self._lock:
@@ -106,11 +119,21 @@ class IAMSys:
 
     @contextmanager
     def _mutating(self):
-        """Serialize a read-modify-write of the IAM document: the change
-        and its persistence happen under the instance lock."""
-        with self._lock:
-            yield
-            self._save()
+        """Serialize a read-modify-write of the IAM document: the cluster
+        lock (when distributed) and a reload from the store, then the
+        change and its persistence under the instance lock."""
+        mtx = self.dist_lock() if self.dist_lock is not None else None
+        if mtx is not None and not mtx.get_lock(timeout=10.0):
+            raise errors.LockTimeout("iam state lock")
+        try:
+            with self._lock:
+                if mtx is not None:
+                    self._load_locked()  # refresh under the cluster lock
+                yield
+                self._save()
+        finally:
+            if mtx is not None:
+                mtx.unlock()
 
     # --- credential lookup (the auth layer's hook) --------------------------
 

@@ -17,7 +17,9 @@ PUT, GET and heal each run inside a span (``objectlayer.put_object``,
 request is traced, under the background class) and an armed stage
 collector (``obs.attribution.observed``: the standing per-op stage
 report); heals pin their rebuilds to the interactive lane, feed the
-``heal_shard`` latency window and publish a ``heal.shard`` scanner trace.
+``heal_shard`` latency window and ``heal_shard_seconds`` (the raw seconds
+of the process's last successful shard heals, for percentiles over a whole
+heal) and publish a ``heal.shard`` scanner trace.
 
 Every disk rides a health tracker (``storage.health.wrap_disks``: N
 consecutive errors or timeouts trip it to a fast-failing DiskNotFound, a
@@ -43,6 +45,7 @@ import io
 import logging
 import time
 import uuid
+from collections import deque
 from dataclasses import replace
 
 from ..erasure import Erasure, new_bitrot_reader, new_bitrot_writer
@@ -84,6 +87,10 @@ from .multipart import MultipartMixin
 #: 10 MiB, cmd/object-api-common.go:32). Recorded per object in xl.meta, so
 #: objects written under any block size stay readable.
 DEFAULT_BLOCK_SIZE = 4 << 20
+
+#: the seconds of this process's last successful shard heals, raw (the
+#: ``heal_shard`` latency window keeps a last-minute histogram only)
+heal_shard_seconds: deque = deque(maxlen=1 << 16)
 
 #: The fused-ETag gate's settings, the JAX package's defaults (its
 #: ``pipeline`` config: etag, etag_min_bytes): the port has no config
@@ -1405,6 +1412,7 @@ class ErasureObjects(MultipartMixin, ObjectLayer):
                 if not heal_err:
                     # only successful rebuilds move the heal-shard window:
                     # fast failures must not read as heal throughput
+                    heal_shard_seconds.append(dur)
                     ctx = _spans.current()
                     _lat.observe("kernel", dur, shard_bytes,
                                  op="heal_shard",

@@ -7,6 +7,10 @@ anything burning error budget".
 beyond in-memory state):
 
 * disk health tracker states + trip counts (``storage/health.py``),
+* per-peer RPC health (``dist/rpc.py`` client scores: online flag,
+  success-latency EWMA, failure streaks) — partition and slow-peer
+  injections land HERE, so a sick peer degrades the snapshot even when
+  every local disk is fine,
 * dispatch lane utilization + queue depth from the flight recorder
   (``obs/timeline.py``),
 * admission saturation — inflight vs capacity, per-class rejects,
@@ -14,12 +18,12 @@ beyond in-memory state):
 * scanner cycle progress,
 * the standing SLO verdicts (``obs/slo.py``).
 
-``cluster_snapshot`` rolls the node snapshots up into cluster verdicts:
-disks online/faulty, heal backlog, any class in SLO breach. Served by
-``GET /minio/admin/v3/health``. Until the distributed plane is ported a
-node has no peers: the ``peers`` block is empty and the cluster is this
-node; the QoS scheduler's block (``qos.scheduler``) waits for the
-scheduler's port.
+``cluster_snapshot`` merges the local snapshot with every dist peer's
+(``PeerRESTClient.health_snapshot`` — a peer down becomes an ``error``
+row, never a failed call) and rolls the per-node state up into cluster
+verdicts: disks online/faulty, heal backlog, any class in SLO breach.
+Served by ``GET /minio/admin/v3/health``. The QoS scheduler's block
+(``qos.scheduler``) waits for the scheduler's port.
 """
 from __future__ import annotations
 
@@ -41,6 +45,48 @@ def _disk_rows(server) -> list[dict]:
     return rows
 
 
+def _peer_rows(server) -> dict:
+    """This node's live view of every dist peer, from the RPC client
+    health scores (no probe I/O): a peer whose control-plane OR
+    storage-plane client is offline/degraded shows up within one
+    probe interval of the wire noticing. Rows merge the peer client
+    and any storage clients pointing at the same node URL."""
+    rows: dict[str, dict] = {}
+    for peer in getattr(server, "peers", lambda: [])():
+        rpc = getattr(peer, "rpc", None)
+        if rpc is None:
+            continue
+        rows[getattr(peer, "url", rpc.base)] = dict(rpc.health_stats())
+    # storage REST clients carry the data-plane view of the same peers
+    # (disks ride health wrappers — unwrap to reach the RPC client)
+    from .metrics import _all_disks
+    for d in _all_disks(server.obj):
+        inner = getattr(d, "inner", d)
+        rpc = getattr(inner, "rpc", None)
+        if rpc is None or getattr(inner, "is_local", lambda: True)():
+            continue
+        row = rows.get(rpc.base)
+        st = rpc.health_stats()
+        if row is None:
+            rows[rpc.base] = dict(st)
+            continue
+        # the worse verdict wins per field
+        row["online"] = row["online"] and st["online"]
+        row["degraded"] = row["degraded"] or st["degraded"]
+        row["ewma_ms"] = max(row["ewma_ms"], st["ewma_ms"])
+        row["failures_total"] += st["failures_total"]
+        row["consecutive_failures"] = max(row["consecutive_failures"],
+                                          st["consecutive_failures"])
+        row["reconnects_total"] += st["reconnects_total"]
+    out_rows = [{"url": u, **r} for u, r in sorted(rows.items())]
+    return {
+        "rows": out_rows,
+        "total": len(out_rows),
+        "unreachable": sum(1 for r in out_rows if not r["online"]),
+        "degraded": sum(1 for r in out_rows if r["degraded"]),
+    }
+
+
 def node_snapshot(server) -> dict:
     """One node's live health planes as a JSON-able dict."""
     from . import slo, timeline
@@ -56,8 +102,7 @@ def node_snapshot(server) -> dict:
         "faulty": sum(1 for d in disks if d.get("state") == "faulty"),
         "trips_total": sum(int(d.get("trips", 0)) for d in disks),
     }
-    out["peers"] = {"rows": [], "total": 0, "unreachable": 0,
-                    "degraded": 0}
+    out["peers"] = _peer_rows(server)
     util = timeline.utilization()
     out["lanes"] = util["lanes"]
     out["queue_depth"] = util["queue_depth"]
@@ -77,14 +122,17 @@ def node_snapshot(server) -> dict:
 
 
 def _rollup(nodes: list[dict]) -> dict:
-    """Cluster verdict over every node's snapshot. Disk counts are
-    deduplicated by endpoint (a node lists every set disk it mounts); a
-    disk is faulty when any node's view says so."""
+    """Cluster verdict over every reachable node's snapshot. Disk counts
+    are deduplicated by endpoint (a node lists every set disk it mounts,
+    local and remote clients sharing the ``http://host:port/path``
+    endpoint string); a disk is faulty when any node's view says so."""
     disks: dict[str, dict] = {}   # endpoint -> merged row
     heal_backlog = 0
     breaches: list[dict] = []
     peers_unreachable = peers_degraded = 0
     for n in nodes:
+        if "error" in n:
+            continue
         for row in n.get("disks", {}).get("rows", []):
             ep = row.get("endpoint", "")
             cur = disks.setdefault(ep, {"faulty": False, "trips": 0})
@@ -111,7 +159,7 @@ def _rollup(nodes: list[dict]) -> dict:
     disks_faulty = sum(1 for d in disks.values() if d["faulty"])
     return {
         "nodes": len(nodes),
-        "nodes_offline": 0,
+        "nodes_offline": sum(1 for n in nodes if "error" in n),
         "disks_total": len(disks),
         "disks_faulty": disks_faulty,
         "disk_trips_total": sum(d["trips"] for d in disks.values()),
@@ -120,13 +168,20 @@ def _rollup(nodes: list[dict]) -> dict:
         "heal_backlog": heal_backlog,
         "slo_breaches": breaches,
         "healthy": disks_faulty == 0 and not breaches and
-        peers_unreachable == 0 and peers_degraded == 0,
+        peers_unreachable == 0 and peers_degraded == 0 and
+        not any("error" in n for n in nodes),
     }
 
 
-def cluster_snapshot(server) -> dict:
-    """The ``GET /minio/admin/v3/health`` payload: this node's snapshot
-    and the cluster rollup (``?peers=0``, the JAX server's switch off its
-    fan-out, changes nothing here)."""
+def cluster_snapshot(server, peers: bool = True) -> dict:
+    """The ``GET /minio/admin/v3/health`` payload: this node's snapshot,
+    every peer's (when ``peers``), and the cluster rollup."""
     nodes = [node_snapshot(server)]
+    if peers:
+        for peer in server.peers():
+            try:
+                nodes.append(peer.health_snapshot())
+            except Exception as e:  # noqa: BLE001 — peer down: report
+                nodes.append({"endpoint": getattr(peer, "url", ""),
+                              "error": str(e)})
     return {"cluster": _rollup(nodes), "nodes": nodes}

@@ -42,8 +42,9 @@ Config subsystem ``profiler`` (dynamic): ``enable`` / ``hz`` / ``cap`` /
 
 The on-demand ``obs/profiling.py`` cpu sessions delegate to
 :func:`start_session` / :func:`stop_session` here, so session lifecycle
-(busy errors, the abandoned-session reaper) exists exactly once. The
-``peers=1`` fan-out waits for the port of the distributed plane.
+(busy errors, the abandoned-session reaper) exists exactly once. On a
+distributed node the admin ``profile?peers=1`` fans the top report out
+over the peer RPC (``dist/peer.py``'s ``profile``).
 """
 from __future__ import annotations
 

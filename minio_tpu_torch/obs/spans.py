@@ -15,12 +15,13 @@ buffers, O(1) appends under one lock), and only traces that breach
 their QoS class latency budget (``qos.budget.budget_s``) or fail are
 assembled and kept in a bounded slow-trace store — queryable via
 ``GET /minio/admin/v3/trace?trace_id=...`` and listed by ``?slow=1``.
-``parse_traceparent`` reads the ``x-minio-tpu-traceparent`` RPC header;
-the peer-side fragments of a caller's trace wait for the port of
-``dist/``'s RPC plane.
+Peer-side spans of the same trace (propagated over the
+``x-minio-tpu-traceparent`` RPC header) land in the peer's fragment
+store and merge into the caller's tree on ``?peers=1``.
 
 Disable the whole plane with ``MINIO_TPU_TRACE_SPANS=0``; sizes via
-``MINIO_TPU_SLOW_TRACES`` (store capacity).
+``MINIO_TPU_SLOW_TRACES`` (store capacity) and
+``MINIO_TPU_TRACE_FRAGMENTS`` (the peer-fragment store's).
 """
 from __future__ import annotations
 
@@ -113,8 +114,9 @@ def wrap_ctx(fn):
 
 # --- active-trace span buffers ----------------------------------------------
 
-#: trace_id -> {"spans": [span dicts], "refs": n}; refs counts
-#: concurrent openers — the last closer stores the buffer.
+#: trace_id -> {"spans": [span dicts], "refs": n, "frag": bool}; refs
+#: counts concurrent openers (a peer may serve several RPCs of one
+#: trace at once) — the last closer stores the buffer.
 _active: dict[str, dict] = {}
 _lock = threading.Lock()
 
@@ -127,7 +129,7 @@ def _drop(reason: str) -> None:
         pass
 
 
-def _begin(trace_id: str) -> bool:
+def _begin(trace_id: str, frag: bool) -> bool:
     """Register (or ref) a trace buffer; False when the active-trace cap
     refuses tracking (the request still runs, just unsampled)."""
     with _lock:
@@ -138,7 +140,7 @@ def _begin(trace_id: str) -> bool:
         if len(_active) >= MAX_ACTIVE_TRACES:
             full = True
         else:
-            _active[trace_id] = {"spans": [], "refs": 1}
+            _active[trace_id] = {"spans": [], "refs": 1, "frag": frag}
             full = False
     if full:
         _drop("active_cap")
@@ -189,7 +191,7 @@ def record(span: dict) -> None:
 def begin_request(trace_id: str) -> tuple[SpanContext, object]:
     """Open a request root: registers the trace buffer, installs the
     root context. Returns (ctx, token) for ``finish_request``."""
-    sampled = enabled() and _begin(trace_id)
+    sampled = enabled() and _begin(trace_id, frag=False)
     ctx = SpanContext(trace_id=trace_id, span_id=new_span_id(),
                       sampled=sampled)
     tok = _current.set(ctx)
@@ -309,13 +311,59 @@ def maybe_root(name: str, cls: str = "background", node: str = "",
             pass
 
 
+@contextlib.contextmanager
+def fragment(ctx_in: SpanContext | None, name: str, node: str = "",
+             **attrs):
+    """Peer-side server span for an incoming RPC that carried a
+    traceparent header: spans recorded underneath share the CALLER's
+    trace_id; on close the fragment lands in this node's store, where
+    the caller's ``?trace_id=...&peers=1`` query picks it up."""
+    if ctx_in is None or not ctx_in.sampled or not enabled():
+        yield None
+        return
+    if not _begin(ctx_in.trace_id, frag=True):
+        # cap refused tracking: an unmatched _end() here would deref a
+        # CONCURRENT fragment of the same trace mid-flight — serve the
+        # RPC untraced instead
+        yield None
+        return
+    child = SpanContext(trace_id=ctx_in.trace_id, span_id=new_span_id(),
+                        parent_span_id=ctx_in.span_id, sampled=True)
+    tok = _current.set(child)
+    t_wall = time.time()
+    t0 = time.perf_counter()
+    err = ""
+    try:
+        yield child
+    except BaseException as e:
+        err = f"{type(e).__name__}: {e}"
+        raise
+    finally:
+        _current.reset(tok)
+        try:
+            record({"name": name, "trace_id": child.trace_id,
+                    "span_id": child.span_id,
+                    "parent_span_id": child.parent_span_id,
+                    "time": t_wall,
+                    "duration_s": round(time.perf_counter() - t0, 6),
+                    "error": err,
+                    "attrs": {"node": node,
+                              **{k: v for k, v in attrs.items()
+                                 if v not in ("", None)}}})
+            spans = _end(ctx_in.trace_id)
+            if spans:
+                store().put_fragment(ctx_in.trace_id, spans, node)
+        except Exception:  # noqa: BLE001 — obs never fails the work
+            pass
+
+
 # --- slow-trace store --------------------------------------------------------
 
 
 def assemble(spans: list[dict]) -> list[dict]:
     """Flat span records -> nested tree(s): each node is the span dict
     plus ``children`` (time-ordered). Spans whose parent is absent
-    surface as extra roots."""
+    (cross-node fragments before a merge) surface as extra roots."""
     by_id: dict[str, dict] = {}
     for s in spans:
         node = dict(s)
@@ -336,18 +384,23 @@ def assemble(spans: list[dict]) -> list[dict]:
 
 
 class SlowTraceStore:
-    """Bounded keep of assembled slow/error traces, newest-first
-    eviction-by-capacity."""
+    """Bounded keep of assembled slow/error traces plus peer-side
+    fragments, newest-first eviction-by-capacity (two separate caps so
+    RPC fragment churn can never evict a slow trace)."""
 
-    def __init__(self, cap: int | None = None):
-        if cap is None:
+    def __init__(self, cap: int | None = None,
+                 frag_cap: int | None = None):
+        def _env(name: str, default: int) -> int:
             try:
-                cap = max(4, int(os.environ.get("MINIO_TPU_SLOW_TRACES",
-                                                "128")))
+                return max(4, int(os.environ.get(name, str(default))))
             except ValueError:
-                cap = 128
-        self.cap = cap
+                return default
+        self.cap = cap if cap is not None else \
+            _env("MINIO_TPU_SLOW_TRACES", 128)
+        self.frag_cap = frag_cap if frag_cap is not None else \
+            _env("MINIO_TPU_TRACE_FRAGMENTS", 256)
         self._slow: OrderedDict[str, dict] = OrderedDict()
+        self._frags: OrderedDict[str, dict] = OrderedDict()
         self._lock = threading.Lock()
 
     def put(self, entry: dict) -> None:
@@ -360,34 +413,59 @@ class SlowTraceStore:
             while len(self._slow) > self.cap:
                 self._slow.popitem(last=False)
 
+    def put_fragment(self, trace_id: str, spans: list[dict],
+                     node: str = "") -> None:
+        if not trace_id:
+            return
+        with self._lock:
+            ent = self._frags.get(trace_id)
+            if ent is None:
+                ent = self._frags[trace_id] = {
+                    "trace_id": trace_id, "time": time.time(),
+                    "node": node, "slow": False, "reason": "fragment",
+                    "spans": []}
+            room = MAX_SPANS_PER_TRACE - len(ent["spans"])
+            ent["spans"].extend(spans[:max(0, room)])
+            self._frags.move_to_end(trace_id)
+            while len(self._frags) > self.frag_cap:
+                self._frags.popitem(last=False)
+
     def append_late(self, trace_id: str, span: dict) -> str | None:
         """Attach a span that finished after its trace was stored (a
         dispatch callback racing request end). Returns "ok" when
         appended, "cap" when the stored trace is full (the caller
         counts a span_cap drop), None when the trace was never kept."""
         with self._lock:
-            ent = self._slow.get(trace_id)
-            if ent is None:
-                return None
-            if len(ent["spans"]) >= MAX_SPANS_PER_TRACE:
-                return "cap"
-            ent["spans"].append(span)
-            return "ok"
+            for reg in (self._slow, self._frags):
+                ent = reg.get(trace_id)
+                if ent is not None:
+                    if len(ent["spans"]) >= MAX_SPANS_PER_TRACE:
+                        return "cap"
+                    ent["spans"].append(span)
+                    return "ok"
+        return None
 
     def contains(self, trace_id: str) -> bool:
         """O(1) existence probe — the exemplar emitters call this per
         metrics scrape / top-api row, where get()'s span-list copy
         under the store lock would be pure waste."""
         with self._lock:
-            return trace_id in self._slow
+            return trace_id in self._slow or trace_id in self._frags
 
     def get(self, trace_id: str) -> dict | None:
-        """Stored trace by id, with a copy of its span list."""
+        """Stored trace by id; a slow entry and a local fragment of the
+        same trace merge into one span list."""
         with self._lock:
-            ent = self._slow.get(trace_id)
-            if ent is None:
+            slow = self._slow.get(trace_id)
+            frag = self._frags.get(trace_id)
+            if slow is None and frag is None:
                 return None
-            return {**ent, "spans": list(ent.get("spans", ()))}
+            base = dict(slow or frag)
+            spans = list(base.get("spans", ()))
+            if slow is not None and frag is not None:
+                spans += list(frag.get("spans", ()))
+            base["spans"] = spans
+            return base
 
     def list_slow(self, n: int = 50) -> list[dict]:
         """Newest-first summaries of kept slow/error traces (full span
@@ -403,6 +481,61 @@ class SlowTraceStore:
     def clear(self) -> None:
         with self._lock:
             self._slow.clear()
+            self._frags.clear()
+
+
+_collect_q = None
+_collect_lock = threading.Lock()
+
+
+def schedule_collect(trace_id: str, peers) -> None:
+    """Queue a kept trace for peer-fragment collection on ONE bounded
+    background worker — a thread per kept trace (and an RPC fan-out
+    per peer) would scale with request rate exactly when the node is
+    saturated and budget breaches spike. Overflow drops the collection
+    (counted), never blocks the request path."""
+    global _collect_q
+    if _collect_q is None:
+        with _collect_lock:
+            if _collect_q is None:
+                import queue as _qm
+                q = _qm.Queue(maxsize=64)
+                threading.Thread(target=_collect_loop, args=(q,),
+                                 daemon=True,
+                                 name="span-frag-collect").start()
+                _collect_q = q
+    try:
+        _collect_q.put_nowait((trace_id, list(peers)))
+    except Exception:  # noqa: BLE001 — queue full
+        _drop("collect_backlog")
+
+
+def _collect_loop(q) -> None:
+    while True:
+        tid, peers = q.get()
+        try:
+            collect_fragments(tid, peers)
+        except Exception:  # noqa: BLE001 — best-effort enrichment,
+            _drop("peer_collect")  # but never silently (graftlint GL007)
+
+
+def collect_fragments(trace_id: str, peers) -> None:
+    """Pull every peer's fragment of a just-KEPT trace into the local
+    store. Fragments live in each peer's small LRU where steady-state
+    RPC churn evicts them within seconds — but the keep decision is
+    made here on the caller, so the caller snapshots them immediately
+    (one tiny RPC per peer, only for tail-sampled traces). After this,
+    ``?trace_id=`` serves the full cross-node tree even long after the
+    peers forgot their halves."""
+    for peer in peers:
+        try:
+            frag = peer.trace_tree(trace_id)
+        except Exception:  # noqa: BLE001 — peer down: partial tree
+            continue
+        spans = (frag or {}).get("spans", ())
+        if spans:
+            store().put_fragment(trace_id, list(spans),
+                                 (frag or {}).get("node", ""))
 
 
 _store: SlowTraceStore | None = None

@@ -12,9 +12,19 @@ command line, re-executed) or stops it. Several comma-separated
 ``--address`` bindings are served by one server (the reference's
 multi-address listener).
 
-Not ported, each with the ROADMAP item it waits for: the one-disk FS mode,
-``http://`` distributed endpoints (Queue 1 item 9), and ``--gateway``
-(Queue 1 item 10)."""
+``http://host:port/path`` endpoint arguments select the distributed mode:
+every node process gets the same full endpoint list, serves the drives
+whose URL matches its ``--address`` and reaches the rest over the storage
+RPC (``dist/node.py``), its sets at ``--block-size`` bytes a block
+(default 4 MiB). ``--stats-file PATH`` makes a distributed node
+write its counters (``Node.report``: kernel launches by shape, RPC calls
+and latencies by method, lock acquisitions, the card's occupancy and
+memory) to PATH on SIGUSR1 and when it exits on SIGTERM or SIGINT.
+``MINIO_TPU_ETCD_ENDPOINTS`` (with ``MINIO_TPU_DOMAIN``) federates a
+local-mode server's buckets through etcd (``dist/federation.py``).
+
+Not ported, each with the ROADMAP item it waits for: the one-disk FS mode
+and ``--gateway`` (Queue 1 item 10)."""
 from __future__ import annotations
 
 import argparse
@@ -62,7 +72,8 @@ def build_layer(dirs: list[str], parity, device):
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="minio-tpu-torch server")
     ap.add_argument("dirs", nargs="+", help="disk directories or "
-                    "ellipses patterns like /data/disk{1...8}")
+                    "ellipses patterns like /data/disk{1...8}; "
+                    "http://host:port/path endpoints = distributed mode")
     ap.add_argument("--address", default="0.0.0.0:9000",
                     help="host:port to listen on (comma-separated for "
                          "several)")
@@ -74,12 +85,21 @@ def main(argv=None):
                          "runs (default: the CUDA card)")
     ap.add_argument("--gateway", default=None,
                     help="gateway mode (not ported)")
+    ap.add_argument("--block-size", type=int, default=None,
+                    help="distributed mode: the sets' erasure block in "
+                         "bytes (default 4 MiB)")
+    ap.add_argument("--stats-file", default="",
+                    help="distributed mode: write the node's counters "
+                         "here on SIGUSR1 and at exit")
     args = ap.parse_args(argv)
     if args.gateway:
         ap.error("--gateway is not ported (ROADMAP Queue 1 item 10)")
+    argv = argv if argv is not None else sys.argv[1:]
     if any(d.startswith(("http://", "https://")) for d in args.dirs):
-        ap.error("distributed endpoints are not ported (ROADMAP Queue 1 "
-                 "item 9)")
+        if "," in args.address:
+            ap.error("multi-addr --address is not supported in distributed "
+                     "mode; pass the single URL this node serves")
+        return serve_distributed(args, argv)
     if len(args.dirs) > 1 and any("{" in d for d in args.dirs) and \
             not all("{" in d for d in args.dirs):
         # the reference rejects mixed ellipses/non-ellipses endpoint args
@@ -111,7 +131,18 @@ def main(argv=None):
                    secret_key=sk, device=device, extra_addresses=extra)
     if extra:
         banner += f"; +{len(extra)} extra listener(s)"
-    install_service_hook(srv, argv if argv is not None else sys.argv[1:])
+    if os.environ.get("MINIO_TPU_ETCD_ENDPOINTS"):
+        # the advertise address is resolved only when federation is
+        # configured (gethostbyname can fail on minimal containers)
+        import socket
+        from ..dist.federation import federation_from_env
+        adv = host if host not in ("", "0.0.0.0") else \
+            socket.gethostbyname(socket.gethostname())
+        fed = federation_from_env(adv, port)
+        if fed is not None:
+            srv.enable_federation(fed)
+            banner += f"; federated via etcd (domain {fed.domain})"
+    install_service_hook(srv, argv)
     srv.start_background_services()
     print(f"{banner} on {device}; listening on {args.address}",
           file=sys.stderr)
@@ -121,6 +152,77 @@ def main(argv=None):
         pass
     finally:
         srv.shutdown()
+
+
+def serve_distributed(args, argv: list) -> None:
+    """Distributed startup: build the Node from the full endpoint list,
+    identify ourselves by --address, serve until SIGTERM or SIGINT."""
+    import signal
+    import socket
+    import threading
+
+    from ..dist.node import Node
+    from ..objectlayer.erasure_objects import DEFAULT_BLOCK_SIZE
+    from ..utils.device import resolve_device
+    try:
+        device = resolve_device(args.device)
+    except RuntimeError as e:
+        sys.exit(f"error: {e}")
+    ak, sk = _root_creds()
+    host, _, port = args.address.rpartition(":")
+    host = host or "0.0.0.0"
+
+    def build(local_url: str) -> Node:
+        return Node(args.dirs, local_url=local_url, address=host,
+                    port=int(port), access_key=ak, secret_key=sk,
+                    region=args.region, default_parity=args.parity,
+                    device=device,
+                    block_size=args.block_size or DEFAULT_BLOCK_SIZE)
+
+    node = build(f"http://{host}:{port}")
+    on_port = {e.url for e in node.endpoints
+               if e.url and e.url.rsplit(":", 1)[-1] == port}
+    if not node.local_disks and on_port:
+        # --address 0.0.0.0 (or a host alias) matches no endpoint URL;
+        # retry with the endpoint on our port whose host names this
+        # machine — silently owning zero disks makes a cluster that
+        # comes up dead
+        local_names = {"127.0.0.1", "localhost", socket.gethostname(),
+                       socket.getfqdn()}
+        candidates = {u for u in on_port
+                      if u.split("//", 1)[-1].rsplit(":", 1)[0]
+                      in local_names}
+        if len(candidates) == 1:
+            node = build(candidates.pop())
+    if not node.local_disks:
+        sys.exit(f"error: --address {args.address} matches no endpoint "
+                 f"URL; pass the URL this node serves (endpoints: "
+                 f"{sorted({str(e.url) for e in node.endpoints})})")
+    done = threading.Event()
+
+    def write_stats(*_):
+        if not args.stats_file:
+            return
+        import json
+        tmp = f"{args.stats_file}.tmp.{os.getpid()}"
+        with open(tmp, "w") as f:
+            json.dump(node.report(), f)
+        os.replace(tmp, args.stats_file)
+
+    signal.signal(signal.SIGUSR1, write_stats)
+    for sig in (signal.SIGTERM, signal.SIGINT):
+        signal.signal(sig, lambda *_: done.set())
+    node.start()
+    install_service_hook(node.server, argv)
+    print(f"distributed node {node.local_url} on {device}: "
+          f"{node.set_count} set(s) x {node.drives_per_set} drives, "
+          f"{len(node.local_disks)} local", file=sys.stderr, flush=True)
+    try:
+        while not done.wait(3600):
+            pass
+        write_stats()
+    finally:
+        node.shutdown()
 
 
 def install_service_hook(srv, argv: list) -> None:

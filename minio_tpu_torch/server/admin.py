@@ -25,8 +25,8 @@ the config registry's ``get-config``, ``set-config-kv`` /
 speedscope``, ``seconds=`` and ``hz=`` for a fresh window, ``breach=<class>``
 for a stored breach capture), ``profiling/start`` (``?profilerType=cpu|
 mem|threads``), ``profiling/download`` and ``profiling/threads``,
-``healthinfo`` / ``obdinfo``, ``top/locks`` (the distributed lock table:
-empty until ``dist/`` is ported), the SLO plane's ``slo`` and the health
+``healthinfo`` / ``obdinfo``, ``top/locks`` (the node's dsync lock
+table; empty on a standalone server), the SLO plane's ``slo`` and the health
 snapshot ``health``, the fault plane's ``fault`` (GET lists the armed
 rules and the disks' health, POST arms one, DELETE ``?id=`` disarms one or,
 without an id, clears them all), the bucket analytics report
@@ -42,10 +42,19 @@ DELETE ``?name=`` removes one), the replication bandwidth report
 ``replication`` (GET its stats and lag verdict, POST ``?resync=<bucket>``
 with ``&force=1`` to re-ship everything), with the JAX server's statuses
 and JSON bodies.
+On a distributed node (``dist/node.py`` sets the server's ``peers``) the
+JAX server's fan-outs reach every peer over the peer RPC, with its JSON
+keys: ``health`` (unless ``?peers=0``) and ``bg-heal-status`` always,
+``bucketstats``, ``device`` and ``profile`` (``fmt=top``) as ``{"nodes":
+[...]}`` with ``?peers=1``, ``bandwidth`` (merged per bucket),
+``replication`` (a ``peers`` list), ``top/locks`` (merged) and ``trace``
+(``?trace_id=`` merges every peer's fragment of the trace; the stream
+dumps every peer's ring, then follows their live events) with
+``?peers=1``. A peer that fails answers an ``error`` row or is skipped,
+as in the JAX server.
 Every other admin op (the IAM ops without IAM, update) answers ``501
 NotImplemented`` in the reference's error XML: those planes are not
-ported. The ``?peers=1`` fan-outs (bucketstats, bandwidth, replication)
-wait for the port of ``dist/``'s RPC plane.
+ported.
 """
 from __future__ import annotations
 
@@ -80,6 +89,32 @@ def _json(h, obj) -> None:
     h._send(200, json.dumps(obj).encode(), "application/json")
 
 
+def _fanout(h, call, timeout: float = 10.0) -> list:
+    """``call(peer)`` on every peer of the node at once: the answers in
+    peer order, an ``{"endpoint", "error"}`` row for a peer that
+    failed."""
+    import threading
+    peers = list(h.s3.peers())
+    rows: list = [None] * len(peers)
+
+    def fetch(i, p):
+        try:
+            rows[i] = call(p)
+        except Exception as e:  # noqa: BLE001 — peer down: report it
+            rows[i] = {"endpoint": p.url, "error": str(e)}
+
+    threads = [threading.Thread(target=fetch, args=(i, p), daemon=True,
+                                name="admin-peer-fanout")
+               for i, p in enumerate(peers)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=timeout)
+    return [r if r is not None else
+            {"endpoint": p.url, "error": "peer did not answer"}
+            for r, p in zip(rows, peers)]
+
+
 def _dispatch_admin(h, op: str) -> None:
     if op == "info":
         return _json(h, {"mode": "online", "backend": h.s3.obj.backend_type(),
@@ -110,7 +145,12 @@ def _dispatch_admin(h, op: str) -> None:
         return _json(h, data_usage_info(h.s3.obj, depth))
     if op == "bg-heal-status":
         from ..scanner import background_heal_stats
-        return _json(h, background_heal_stats(h.s3))
+        out = background_heal_stats(h.s3)
+        rows = [r for r in _fanout(h, lambda p: p.background_heal_status())
+                if "error" not in r]
+        if rows:
+            out["peers"] = rows
+        return _json(h, out)
     if op.startswith("service"):
         return _service(h)
     if op == "set-bucket-quota":
@@ -143,14 +183,21 @@ def _dispatch_admin(h, op: str) -> None:
         # per-node disk states, lane utilization, admission saturation,
         # heal backlog and SLO verdicts, rolled up
         from ..obs.health import cluster_snapshot
-        return _json(h, cluster_snapshot(h.s3))
+        return _json(h, cluster_snapshot(h.s3,
+                                         peers=h.q("peers") != "0"))
     if op == "slo":
         from ..obs import slo
         return _json(h, slo.report())
     if op == "top/locks":
-        # the distributed lock table of the reference's TopLocksHandler:
-        # the port has no dsync locker yet
-        return _json(h, {"locks": []})
+        # the node's dsync lock table, merged across the peers with
+        # ?peers=1 (reference TopLocksHandler)
+        locker = h.s3.local_locker
+        entries = locker.dump() if locker is not None else []
+        if h.q("peers") == "1":
+            for rows in _fanout(h, lambda p: p.get_locks()):
+                if isinstance(rows, list):
+                    entries.extend(rows)
+        return _json(h, {"locks": entries})
     if op in _CONFIG_OPS:
         return _config_op(h, op)
     if op == "profile":
@@ -159,12 +206,18 @@ def _dispatch_admin(h, op: str) -> None:
         return _fault_op(h)
     if op.startswith("profiling/") or op in ("healthinfo", "obdinfo"):
         return _profiling_obd(h, op)
-    if op == "bucketstats" and h.q("peers") != "1":
+    if op == "bucketstats":
         # the bounded per-bucket registry: requests, traffic, latency,
-        # live usage and drift, SLO burn contribution, growth projection
+        # live usage and drift, SLO burn contribution, growth projection;
+        # ?peers=1 adds every peer's (each node charges the requests it
+        # served)
         from ..obs import bucketstats
-        return _json(h, {**bucketstats.report(),
-                         "endpoint": f"{h.s3.address}:{h.s3.port}"})
+        mine = {**bucketstats.report(),
+                "endpoint": f"{h.s3.address}:{h.s3.port}"}
+        if h.q("peers") != "1":
+            return _json(h, mine)
+        return _json(h, {"nodes": [mine, *_fanout(
+            h, lambda p: p.bucket_stats())]})
     if op == "logs":
         # recent structured log entries; ?type=audit serves the
         # per-request audit ring
@@ -175,15 +228,34 @@ def _dispatch_admin(h, op: str) -> None:
         return _json(h, list(ring)[-n:])
     if op == "tier":
         return _tier_op(h)
-    if op == "bandwidth" and h.q("peers") != "1":
-        from ..bucket.bandwidth import global_monitor
-        buckets = [b for b in h.q("buckets").split(",") if b]
-        return _json(h, global_monitor().report(buckets or None))
-    if op == "replication" and h.q("peers") != "1":
+    if op == "bandwidth":
+        return _bandwidth(h)
+    if op == "replication":
         return _replication_op(h)
     if _iam_op(h, op):
         return
     h._not_implemented(f"admin {op} is not implemented")
+
+
+def _bandwidth(h) -> None:
+    """The replication bandwidth report (``?buckets=a,b``); ``?peers=1``
+    adds every peer's current bandwidth per bucket (reference
+    peerRESTMethodGetBandwidth fan-out)."""
+    from ..bucket.bandwidth import global_monitor
+    buckets = [b for b in h.q("buckets").split(",") if b]
+    rep = global_monitor().report(buckets or None)
+    if h.q("peers") == "1":
+        for theirs in _fanout(h, lambda p: p.get_bandwidth()):
+            for b, st in theirs.get("bucketStats", {}).items():
+                if buckets and b not in buckets:
+                    continue
+                mine = rep["bucketStats"].setdefault(
+                    b, {"limitInBits": st.get("limitInBits", 0),
+                        "currentBandwidth": 0.0})
+                mine["currentBandwidth"] = round(
+                    mine["currentBandwidth"] +
+                    st.get("currentBandwidth", 0.0), 2)
+    _json(h, rep)
 
 
 def _tier_op(h) -> None:
@@ -237,6 +309,12 @@ def _replication_op(h) -> None:
     if rs is not None:
         out = rs.stats()
         out["lag"] = rs.lag_report()
+    if h.q("peers") == "1":
+        # replication debt lives on whichever node took the write
+        rows = [r for r in _fanout(h, lambda p: p.replication_stats())
+                if "error" not in r]
+        if rows:
+            out["peers"] = rows
     return _json(h, out)
 
 
@@ -397,6 +475,17 @@ def _profile(h) -> None:
         return h._error("XMinioProfilerDisabled",
                         "profiler.enable=0 — enable the profiler before "
                         "requesting a capture window", 409)
+    peer_rows: list = []
+    fan = None
+    if q.get("peers") == "1" and fmt == "top":
+        # the peers capture their windows while this node captures its own
+        import threading
+        fan = threading.Thread(
+            target=lambda: peer_rows.extend(_fanout(
+                h, lambda p: p.profile(seconds=seconds),
+                timeout=max(10.0, seconds + 10.0))),
+            daemon=True, name="admin-profile-fanout")
+        fan.start()
     agg = profiler.capture_window(min(seconds, 60.0), hz) if seconds > 0 \
         else profiler.base_agg()
     if fmt == "folded":
@@ -406,6 +495,9 @@ def _profile(h) -> None:
                        "application/json")
     rep = profiler.report_top(agg)
     rep["endpoint"] = f"{h.s3.address}:{h.s3.port}"
+    if fan is not None:
+        fan.join(timeout=max(10.0, seconds + 10.0) + 1.0)
+        rep = {"nodes": [rep] + peer_rows}
     _json(h, rep)
 
 
@@ -535,6 +627,8 @@ def _device(h) -> None:
             return h._error("InvalidArgument",
                             "bad trace seconds parameter", 400)
         rep["trace"] = device.capture_trace(seconds)
+    if q.get("peers") == "1":
+        rep = {"nodes": [rep, *_fanout(h, lambda p: p.device_status())]}
     _json(h, rep)
 
 
@@ -581,17 +675,31 @@ def _trace_filter(q: dict):
 
 
 def _trace_tree(h, q: dict) -> None:
-    """Stored span tree by trace id (tail-sampled slow/error traces):
-    ?trace_id=<id>."""
+    """Stored span tree by trace id (tail-sampled slow/error traces and
+    RPC fragments): ?trace_id=<id>, with ?peers=1 merging every peer's
+    fragment of the same trace into one tree."""
     from ..obs import spans as sp
     tid = q.get("trace_id", "")
     entry = sp.store().get(tid)
     spans_list = list(entry.get("spans", ())) if entry else []
+    meta = {k: v for k, v in (entry or {}).items() if k != "spans"}
+    if q.get("peers") == "1":
+        for frag in _fanout(h, lambda p: p.trace_tree(tid)):
+            if not frag or "error" in frag:
+                continue
+            spans_list.extend(frag.get("spans", ()))
+            if not meta:
+                meta = {k: v for k, v in frag.items() if k != "spans"}
+        # a kept trace already holds the fragments it collected: dedup by
+        # span id, first occurrence kept
+        seen: set = set()
+        spans_list = [s for s in spans_list
+                      if not (s.get("span_id", "") in seen
+                              or seen.add(s.get("span_id", "")))]
     if not spans_list:
         return h._error("XMinioTraceNotFound",
                         f"no stored trace {tid!r} (only slow/error "
-                        "traces are kept)", 404)
-    meta = {k: v for k, v in entry.items() if k != "spans"}
+                        "traces and RPC fragments are kept)", 404)
     _json(h, {**meta, "trace_id": tid, "spans": spans_list,
               "tree": sp.assemble(spans_list)})
 
@@ -611,9 +719,12 @@ def _trace_slow(h, q: dict) -> None:
 def _trace(h) -> None:
     """`mc admin trace` analogue: streams JSON-line trace events — the
     newest matches of the ring, then live events — bounded by ?count and
-    ?timeout; ?type/?threshold/?err filter both. ?trace_id= returns one
-    stored span tree, ?slow=1 lists the slow-trace store."""
+    ?timeout; ?type/?threshold/?err filter both. ?peers=1 dumps every
+    peer's ring first and follows their live events too (one streaming
+    peer RPC each). ?trace_id= returns one stored span tree, ?slow=1
+    lists the slow-trace store."""
     import queue as qmod
+    import threading
     import time as _t
 
     from ..obs.trace import recent, trace_pubsub
@@ -629,6 +740,8 @@ def _trace(h) -> None:
         want = _trace_filter(q)
     except ValueError as e:
         return h._error("InvalidArgument", f"bad trace query: {e}", 400)
+    peers = list(h.s3.peers()) if q.get("peers") == "1" else []
+    merged: qmod.Queue = qmod.Queue(maxsize=2048)
     # subscribe before the ring dump so no event falls between the two
     sub = trace_pubsub.subscribe()
     try:
@@ -637,16 +750,40 @@ def _trace(h) -> None:
         h.send_header("Transfer-Encoding", "chunked")
         h.end_headers()
         out = _ChunkedWriter(h.wfile)
+        sent = 0
+        for peer in peers:
+            try:
+                ring = peer.trace_recent()
+            except Exception:  # noqa: BLE001 — peer down: skip it
+                continue
+            for d in ring:
+                if want(d):
+                    out.write((json.dumps(d) + "\n").encode())
+                    sent += 1
         # filter over the FULL ring, then keep the newest `count` matches
         hist = [d for d in (t.to_dict() for t in recent()) if want(d)]
-        sent = 0
-        for d in hist[max(0, len(hist) - count):]:
+        for d in hist[max(0, len(hist) - max(0, count - sent)):]:
             out.write((json.dumps(d) + "\n").encode())
             sent += 1
+        if sent < count:
+            for peer in peers:
+                threading.Thread(
+                    target=_pump_trace, daemon=True,
+                    args=(peer, timeout, count - sent, want, merged),
+                    name="admin-trace-pump").start()
         deadline = _t.monotonic() + timeout
         while sent < count and _t.monotonic() < deadline:
             try:
-                d = sub.get(timeout=0.2).to_dict()
+                while sent < count:
+                    out.write((json.dumps(merged.get_nowait())
+                               + "\n").encode())
+                    sent += 1
+            except qmod.Empty:
+                pass
+            if sent >= count:
+                break
+            try:
+                d = sub.get(timeout=0.05 if peers else 0.2).to_dict()
             except qmod.Empty:
                 continue
             if want(d):
@@ -658,6 +795,26 @@ def _trace(h) -> None:
         h.close_connection = True
     finally:
         trace_pubsub.unsubscribe(sub)
+
+
+def _pump_trace(peer, timeout: float, budget: int, want, merged) -> None:
+    """One peer's live trace events into the merged queue of a follow.
+    Never blocks: a slow or gone consumer drops events (trace is lossy by
+    design, as the pubsub is), counted like the pubsub's drops."""
+    import queue as qmod
+
+    from ..obs import metrics as mx
+    try:
+        for d in peer.trace_stream(timeout_s=timeout, count=budget):
+            if not want(d):
+                continue
+            try:
+                merged.put_nowait(d)
+            except qmod.Full:
+                mx.inc("minio_tpu_trace_dropped_total",
+                       reason="slow_subscriber")
+    except Exception:  # noqa: BLE001 — the peer died mid-stream
+        mx.inc("minio_tpu_trace_dropped_total", reason="peer_stream_error")
 
 
 def _timeline(h) -> None:

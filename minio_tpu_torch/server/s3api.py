@@ -63,10 +63,20 @@ object events to webhook and broker targets through persistent queue
 stores; ``GET ?events`` streams them live). Every object handler that
 creates, removes or reads an object fires the ``notify`` hook.
 
+The distributed plane (``dist/``): a node mounts its storage, lock and
+peer RPC services in ``internal`` (``/minio/<service>/v1/<method>``,
+bearer-token auth, typed errors in a header, the caller's span context
+joined as a peer-side fragment), sets ``peers`` for the admin fan-outs,
+and ``hard_close_connections`` severs every accepted connection as a
+killed process would. Bucket-DNS federation (``enable_federation``):
+bucket create and delete register in etcd, a request for a bucket another
+cluster owns is proxied there, and ListBuckets shows the federated
+namespace.
+
 Every API whose plane is not ported answers S3's ``501 NotImplemented``
-in the reference's error XML: STS without IAM, federation and internal
-RPC, the other admin ops and the console plane, POST policy uploads and
-the bucket's ``?encryption`` sub-resource.
+in the reference's error XML: STS without IAM, the other admin ops, the
+console and web-RPC planes, POST policy uploads and the bucket's
+``?encryption`` sub-resource.
 
 Transparent compression (``utils/compress.py``): with
 ``MINIO_TPU_COMPRESSION=on`` a PUT of compressible content (by extension
@@ -196,6 +206,21 @@ class S3Server:
         self.address = address
         self.port = port
         self._httpd: ThreadingHTTPServer | None = None
+        #: internal RPC services mounted under /minio/<name>/v1/<method>
+        #: (storage, lock, peer — populated by dist.node.Node)
+        self.internal: dict[str, object] = {}
+        #: () -> the peer RPC clients the admin fan-outs reach (the node's)
+        self.peers = lambda: []
+        #: the node's dsync locker (admin ``top/locks``); None standalone
+        self.local_locker = None
+        #: federation bucket DNS (dist.federation.BucketDNS); None when
+        #: the deployment is not federated
+        self.federation = None
+        #: live accepted connections: node-kill chaos severs these the way
+        #: a dead process would (keep-alive peers must not keep talking to
+        #: a "killed" node through zombie sockets)
+        self._conns: set = set()
+        self._conns_lock = threading.Lock()
         #: the background plane (start_background_services)
         self.mrf = None
         self.scanner = None
@@ -280,15 +305,62 @@ class S3Server:
                                      principal=access_key or "*")
         return False
 
+    def _track_conn(self, sock) -> None:
+        with self._conns_lock:
+            self._conns.add(sock)
+
+    def _untrack_conn(self, sock) -> None:
+        with self._conns_lock:
+            self._conns.discard(sock)
+
+    def hard_close_connections(self) -> None:
+        """Sever every accepted connection (fault.node.node_kill): a
+        SIGKILL'd process takes its established sockets with it, so the
+        in-process kill must too — otherwise peers keep completing RPCs
+        against the 'dead' node over keep-alive connections."""
+        with self._conns_lock:
+            conns, self._conns = list(self._conns), set()
+        for s in conns:
+            try:
+                s.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
+            try:
+                s.close()
+            except OSError:
+                pass
+
     def create_bucket(self, bucket: str, object_lock: bool = False):
-        """Bucket creation: the object layer's bucket plus its metadata
-        record; an object-lock bucket is versioned from its creation."""
+        """Bucket creation: the federation's namespace check, the object
+        layer's bucket plus its metadata record (an object-lock bucket is
+        versioned from its creation) and the DNS registration, undone
+        whole when the registration fails."""
+        dns = self.federation
+        if dns is not None:
+            owners = dns.lookup(bucket)
+            if owners and not dns.is_mine(owners):
+                raise dt.BucketExists(bucket)
         self.obj.make_bucket(bucket)
         meta = bucket_metadata.BucketMetadata(name=bucket)
         if object_lock:
             meta.object_lock_enabled = True
             meta.versioning_enabled = True
         self.bucket_meta.set(bucket, meta)
+        if dns is not None:
+            from ..dist.federation import FederationConflict
+            try:
+                dns.put(bucket)
+            except Exception as e:  # noqa: BLE001 — an unregistered
+                # bucket would be invisible to the federation: undo it all
+                self.obj.delete_bucket(bucket, force=True)
+                self.bucket_meta.remove(bucket)
+                if self._notifier is not None:
+                    self._notifier.invalidate(bucket)
+                if isinstance(e, FederationConflict):
+                    # lost the atomic claim race to another cluster
+                    raise dt.BucketExists(bucket) from None
+                raise dt.InvalidRequest(
+                    bucket, "", f"federation DNS: {e}") from None
 
     def remove_bucket(self, bucket: str, force: bool = False):
         if force and self.bucket_meta.get(bucket).object_lock_enabled:
@@ -297,12 +369,43 @@ class S3Server:
             raise dt.InvalidRequest(
                 bucket, "",
                 "force delete not allowed on object-lock buckets")
+        # the bucket must exist here before DNS is touched: deleting a
+        # bucket we don't hold must not strip (or, through the restore
+        # below, resurrect) another cluster's registration
         self.obj.get_bucket_info(bucket)
-        self.obj.delete_bucket(bucket, force=force)
+        if self.federation is not None:
+            # unregister FIRST and fail the request when etcd is down:
+            # entries take no lease, so a silently skipped delete would
+            # poison the name federation-wide forever
+            try:
+                self.federation.delete(bucket)
+            except Exception as e:  # noqa: BLE001
+                raise dt.InvalidRequest(
+                    bucket, "", f"federation DNS: {e}") from None
+        try:
+            self.obj.delete_bucket(bucket, force=force)
+        except dt.BucketNotFound:
+            raise  # lost a delete race: nothing to restore
+        except BaseException:
+            if self.federation is not None:
+                try:  # the local delete failed: restore the DNS record
+                    self.federation.put(bucket)
+                except Exception:  # noqa: BLE001 — best effort
+                    log.warning("federation record of %s not restored",
+                                bucket, exc_info=True)
+            raise
         self.bucket_meta.remove(bucket)
         if self._notifier is not None:
             # a recreated bucket must not inherit the old routing rules
             self._notifier.invalidate(bucket)
+
+    def enable_federation(self, dns):
+        """Attach a federation BucketDNS (``dist/federation.py``): bucket
+        create and delete register in etcd, requests for a bucket another
+        cluster owns proxy there, ListBuckets shows the federated
+        namespace."""
+        self.federation = dns
+        return dns
 
     def _chain(self, fn) -> None:
         """Put ``fn`` in front of the notify hook, keeping what was there
@@ -436,7 +539,12 @@ class S3Server:
                         request.settimeout(self.idle_timeout_s)
                 except OSError:
                     pass
+                server._track_conn(request)
                 super().process_request(request, client_address)
+
+            def shutdown_request(self, request):
+                server._untrack_conn(request)
+                super().shutdown_request(request)
 
             def handle_error(self, request, client_address):
                 # a client severing the socket mid-response is normal
@@ -870,6 +978,13 @@ class _S3Handler(BaseHTTPRequestHandler):
             ok = self.s3.obj is not None and self.s3.obj.is_ready()
             return self._send(200 if ok else 503, b"",
                               "text/plain; charset=utf-8")
+        # internal RPC services (storage, lock, peer — reference
+        # registerDistErasureRouters, cmd/routers.go:26-39); served before
+        # the object layer exists, as format negotiation needs them
+        if self.url_path.startswith("/minio/") and self.s3.internal:
+            parts = self.url_path.split("/", 4)
+            if len(parts) >= 5 and parts[2] in self.s3.internal:
+                return self._internal_rpc(parts[2], parts[4])
         if self.s3.obj is None:
             return self._error("ServerNotInitialized",
                                "server still starting", 503)
@@ -893,7 +1008,7 @@ class _S3Handler(BaseHTTPRequestHandler):
             return handle_admin(self)
         if self.url_path.rstrip("/") == "/minio" or \
                 self.url_path.startswith("/minio/"):
-            # console, web RPC and internal RPC planes
+            # the console and web-RPC planes
             return self._not_implemented(
                 f"{self.url_path} is not implemented")
         if self.command == "POST" and self.url_path == "/":
@@ -921,6 +1036,8 @@ class _S3Handler(BaseHTTPRequestHandler):
             else:
                 return self._error(e.code, e.message, e.status)
         try:
+            if self._maybe_forward_federated(access_key):
+                return
             self._dispatch(access_key)
         except dt.ObjectAPIError as e:
             self._api_error(e)
@@ -939,6 +1056,157 @@ class _S3Handler(BaseHTTPRequestHandler):
             import traceback
             traceback.print_exc()
             self._error("InternalError", str(e), 500)
+
+    #: federation forwarding: S3 action to enforce locally before the
+    #: request is re-signed with cluster credentials — without this gate
+    #: a scoped IAM user could escalate to root on the remote cluster
+    _FWD_ACTIONS = {"GET": ("s3:GetObject", "s3:ListBucket"),
+                    "HEAD": ("s3:GetObject", "s3:ListBucket"),
+                    "PUT": ("s3:PutObject", "s3:CreateBucket"),
+                    "POST": ("s3:PutObject", "s3:PutObject"),
+                    "DELETE": ("s3:DeleteObject", "s3:DeleteBucket")}
+    #: request headers a forwarded request carries over
+    _FWD_HEADERS = ("content-type", "range", "if-match", "if-none-match",
+                    "if-modified-since", "if-unmodified-since",
+                    "content-md5")
+
+    def _maybe_forward_federated(self, access_key: str) -> bool:
+        """Federation forwarding (reference setBucketForwardingHandler,
+        cmd/routers.go:73): when the requested bucket is not here but the
+        federation DNS says another cluster owns it, proxy the request
+        there re-signed with this cluster's credentials (federated
+        clusters share root credentials), after the caller's own policy
+        gate. Returns True when the remote's response was served."""
+        dns = self.s3.federation
+        if dns is None or not self.bucket:
+            return False
+        if self.command == "PUT" and not self.key and not self.query:
+            return False  # bucket create: put_bucket handles it
+        try:
+            self.s3.obj.get_bucket_info(self.bucket)
+            return False  # a bucket of ours: serve it here
+        except (dt.BucketNotFound, errors.StorageError):
+            pass
+        if self.hdr.get("x-minio-tpu-forwarded"):
+            # loop guard: a forwarded request that still isn't local here
+            # (stale DNS pointing back at us) fails, never re-forwards
+            return False
+        owners = dns.lookup(self.bucket)
+        if not owners or dns.is_mine(owners):
+            return False  # unknown everywhere: the local NoSuchBucket
+        obj_action, bkt_action = self._FWD_ACTIONS.get(
+            self.command, ("s3:PutObject", "s3:PutObject"))
+        if self.command == "POST" and "delete" in self.query:
+            # multi-object delete rides POST: the delete action decides
+            obj_action = bkt_action = "s3:DeleteObject"
+        self._authorize(access_key, obj_action if self.key else bkt_action)
+        host, port = owners[0]
+        # an aws-chunked body's wire length includes its framing; the
+        # proxied body is the decoded payload
+        if self.hdr.get("x-amz-content-sha256", "") == STREAMING_PAYLOAD:
+            size = int(self.hdr.get("x-amz-decoded-content-length",
+                                    "0") or "0")
+        else:
+            size = int(self.hdr.get("content-length", "0") or "0")
+        headers = {"host": f"{host}:{port}"}
+        for k, v in self.hdr.items():
+            if k in self._FWD_HEADERS or k.startswith("x-amz-meta-"):
+                headers[k] = v
+        headers["x-minio-tpu-forwarded"] = "1"
+        headers["authorization"] = self.s3.verifier.sign_request(
+            self.s3.access_key, self.s3.secret_key, self.command,
+            self.url_path, self.query, headers, UNSIGNED_PAYLOAD)
+        headers["content-length"] = str(size)
+        qs = urllib.parse.urlencode(
+            [(k, v) for k, vs in self.query.items() for v in vs])
+        target = urllib.parse.quote(self.url_path) + (f"?{qs}" if qs else "")
+        import http.client
+        conn = http.client.HTTPConnection(host, port, timeout=30)
+        try:
+            try:
+                conn.putrequest(self.command, target, skip_host=True,
+                                skip_accept_encoding=True)
+                for k, v in headers.items():
+                    conn.putheader(k, v)
+                conn.endheaders()
+                if size:
+                    # stream the body at constant memory
+                    src = self._body_stream(size)
+                    left = size
+                    while left > 0:
+                        chunk = src.read(min(left, 1 << 20))
+                        if not chunk:
+                            break
+                        conn.send(chunk)
+                        left -= len(chunk)
+                resp = conn.getresponse()
+            except (OSError, http.client.HTTPException) as e:
+                self._error("ServiceUnavailable",
+                            f"federated cluster unreachable: {e}", 503)
+                return True
+            self.send_response(resp.status)
+            hop = {"connection", "transfer-encoding", "keep-alive",
+                   "x-amz-request-id", "x-amz-id-2"}
+            length = resp.getheader("Content-Length")
+            for k, v in resp.getheaders():
+                if k.lower() not in hop:
+                    self.send_header(k, v)
+            if length is None:
+                body = resp.read()
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+            else:
+                self.end_headers()
+                while True:
+                    chunk = resp.read(1 << 20)
+                    if not chunk:
+                        break
+                    self.wfile.write(chunk)
+        finally:
+            conn.close()
+        return True
+
+    def _internal_rpc(self, service: str, method: str):
+        """Dispatch an internal RPC call (bearer-token auth, typed errors
+        over headers — SURVEY.md A.7 wire shape)."""
+        from ..dist.rpc import check_token, rpc_error_response
+        auth = self.hdr.get("authorization", "")
+        token = auth[len("Bearer "):] if auth.startswith("Bearer ") else ""
+        if not check_token(self.s3.secret_key, token):
+            return self._send(401, b"invalid rpc token", "text/plain")
+        params = {k: v[0] for k, v in self.query.items()}
+        body = self._read_body()
+        # span propagation: an RPC that carried the caller's traceparent
+        # joins that trace — storage, lock and peer spans recorded under
+        # this fragment share the caller's trace_id and are stored here
+        # for the caller's ?trace_id=...&peers=1 merge
+        ctx_in = _sp.parse_traceparent(self.hdr.get(_sp.RPC_HEADER, ""))
+        try:
+            with _sp.fragment(ctx_in, f"rpc.{service}.{method}",
+                              node=f"{self.s3.address}:{self.s3.port}"):
+                out = self.s3.internal[service].handle(method, params,
+                                                       body)
+        except Exception as e:  # noqa: BLE001 — the wire's typed error
+            return rpc_error_response(self, e)
+        if out is not None and not isinstance(out, (bytes, bytearray)):
+            # a streaming method (live trace and console): chunked NDJSON
+            # with keep-alive newlines (A.7 framing)
+            self.send_response(200)
+            self.send_header("Content-Type", "application/x-ndjson")
+            self.send_header("Transfer-Encoding", "chunked")
+            self.end_headers()
+            w = _ChunkedWriter(self.wfile)
+            try:
+                for chunk in out:
+                    if chunk:
+                        w.write(chunk)
+            except OSError:  # the client went away mid-stream
+                self.close_connection = True
+                return
+            w.close()
+            return
+        self._send(200, out, "application/octet-stream")
 
     def _dispatch(self, access_key: str):
         m = self.command
@@ -1136,7 +1404,8 @@ class _S3Handler(BaseHTTPRequestHandler):
         adm = self.s3.qos_admission
         # kept for the finish-side tail sampling: a trace is judged under
         # the class it was admitted under
-        cls = self._qos_class = classify_request(self.command, self.path)
+        cls = self._qos_class = classify_request(
+            self.command, self.path, internal=self.s3.internal)
         if cls is None:
             return True, None
         grant = adm.admit(cls)
@@ -1164,7 +1433,7 @@ class _S3Handler(BaseHTTPRequestHandler):
         probes (the planes admission exempts) and the long polls whose
         duration the client chooses, admin trace follows and bucket event
         listens (a GET of a bucket with an ``events`` parameter)."""
-        if plane_exempt(path) or (
+        if plane_exempt(path, internal=self.s3.internal) or (
                 path.startswith("/minio/admin/")
                 and path.rstrip("/").endswith("/trace")):
             return True
@@ -1295,6 +1564,16 @@ class _S3Handler(BaseHTTPRequestHandler):
                 status=status, duration_s=dur,
                 cls=qcls or "control",
                 node=node, remote=self.client_address[0])
+            kept = _sp.store().get(rid) if root.sampled else None
+            if kept is not None and any(
+                    s.get("name", "").startswith("rpc.")
+                    for s in kept.get("spans", ())):
+                # the trace was KEPT and fanned out over RPC: snapshot
+                # the peers' fragments now, before their small stores
+                # churn them out (one bounded background worker)
+                peers = self.s3.peers()
+                if peers:
+                    _sp.schedule_collect(rid, peers)
 
     def do_GET(self):  # noqa: N802
         self._handle()
@@ -1315,7 +1594,15 @@ class _S3Handler(BaseHTTPRequestHandler):
 
     def list_buckets(self, ak):
         self._authorize(ak, "s3:ListAllMyBuckets")
-        self._send(200, xu.list_buckets_xml(self.s3.obj.list_buckets()))
+        buckets = self.s3.obj.list_buckets()
+        if self.s3.federation is not None:
+            # the federated namespace is the union of every cluster's
+            # buckets (cmd/bucket-handlers.go ListBuckets with etcd)
+            have = {b.name for b in buckets}
+            for name in sorted(self.s3.federation.list_buckets()):
+                if name not in have:
+                    buckets.append(dt.BucketInfo(name=name))
+        self._send(200, xu.list_buckets_xml(buckets))
 
     # --- bucket -------------------------------------------------------------
 

@@ -123,6 +123,30 @@ class FileInfo:
     def now() -> float:
         return time.time()
 
+    def to_rpc(self) -> dict:
+        """The storage REST wire form (the JAX package's keys)."""
+        return {
+            "v": self.volume, "n": self.name, "vid": self.version_id,
+            "lat": self.is_latest, "del": self.deleted, "dd": self.data_dir,
+            "mt": self.mod_time, "sz": self.size, "meta": self.metadata,
+            "parts": [p.to_dict() for p in self.parts],
+            "ec": self.erasure.to_dict(), "data": self.data,
+            "nv": self.num_versions, "fresh": self.fresh,
+        }
+
+    @classmethod
+    def from_rpc(cls, d: dict) -> "FileInfo":
+        return cls(
+            volume=d.get("v", ""), name=d.get("n", ""),
+            version_id=d.get("vid", ""), is_latest=d.get("lat", True),
+            deleted=d.get("del", False), data_dir=d.get("dd", ""),
+            mod_time=d.get("mt", 0.0), size=d.get("sz", 0),
+            metadata=dict(d.get("meta", {})),
+            parts=[ObjectPartInfo.from_dict(p) for p in d.get("parts", [])],
+            erasure=ErasureInfo.from_dict(d.get("ec", {})),
+            data=d.get("data"), num_versions=d.get("nv", 0),
+            fresh=d.get("fresh", False))
+
 
 @dataclass
 class VolInfo:

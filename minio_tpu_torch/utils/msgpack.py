@@ -1,7 +1,9 @@
-"""A MessagePack packer and unpacker for the subset the object layer stores:
-the xl.meta journal, the listing-cache blocks and manifests, and the
-multipart part records (the JAX package writes all three with the
-``msgpack`` wheel, which the card's machine does not have).
+"""A MessagePack packer and unpacker for the subset the object layer stores
+and the storage RPC carries: the xl.meta journal, the listing-cache blocks
+and manifests, the multipart part records, and the storage REST bodies
+(FileInfo documents, lists of them, disk and volume records, the walks'
+entries; the JAX package packs all of these with the ``msgpack`` wheel,
+which the card's machine does not have).
 
 Types: dict (packed in insertion order), list and tuple (packed as arrays,
 unpacked as lists), str, bytes/bytearray/memoryview, int, float, bool and

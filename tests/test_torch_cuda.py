@@ -1374,3 +1374,52 @@ def test_restore_of_a_transitioned_object_on_card_matches_cpu(
     assert card[2] == host[2]
     for name in ("gf_encode_batched", "highwayhash256_chunks"):
         assert launched[name] > 0, name
+
+
+CLUSTER_BODIES = {f"c{n}": np.random.default_rng(n + 32).bytes(n)
+                  for n in (90_000, (1 << 20) + 3, (3 << 20) + 333)}
+
+
+def _cluster_run(root, device) -> tuple:
+    """A 2-node LocalCluster (2 x 4 drives: one 8-drive set at 4+4, 1 MiB
+    blocks) on ``device`` (None = the card): PUTs through node 0, one
+    node's copies of the bucket on two drives taken away, GETs through
+    node 1 (degraded: K1 rebuilds over the storage RPC). Returns the GET
+    bytes and every file of the cluster's drives."""
+    import os
+    import shutil
+    from minio_tpu_torch.dist.harness import LocalCluster
+    lc = LocalCluster(str(root), nodes=2, disks_per_node=4, parity=None,
+                      device=device, block_size=1 << 20)
+    try:
+        ol0, ol1 = lc.nodes[0].obj, lc.nodes[1].obj
+        ol0.make_bucket("b")
+        for name, data in CLUSTER_BODIES.items():
+            ol0.put_object("b", name, io.BytesIO(data), len(data))
+        for d in (0, 3):
+            shutil.rmtree(os.path.join(str(root), "n0", f"d{d}", "b"))
+        got = {name: ol1.get_object_bytes("b", name)
+               for name in CLUSTER_BODIES}
+    finally:
+        lc.shutdown()
+    return got, _tree(root)
+
+
+def test_cluster_on_card_matches_cpu(dev, tmp_path, monkeypatch):
+    """Two nodes on the card (one process, one dispatch queue) and two on
+    the CPU take the same PUTs and degraded GETs and leave the same
+    files; K2, K1 and K5 launch on the card's."""
+    from minio_tpu_torch.ops import hh_cuda, rs_cuda
+    _pin_object_ids(monkeypatch)
+    rs_cuda.reset_launches()
+    hh_cuda.reset_launches()
+    card = _cluster_run(tmp_path / "card", None)
+    launched = {**rs_cuda.launches, **hh_cuda.launches}
+    _pin_object_ids(monkeypatch)
+    host = _cluster_run(tmp_path / "cpu", "cpu")
+    for name, data in CLUSTER_BODIES.items():
+        assert card[0][name] == data and host[0][name] == data
+    assert card[1] == host[1] and len(card[1]) >= 3 * 6
+    for name in ("gf_encode_batched", "gf_matmul_batched",
+                 "highwayhash256_chunks"):
+        assert launched[name] > 0, name

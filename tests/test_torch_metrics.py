@@ -327,17 +327,32 @@ def test_timeline_device_top_qos_and_info(scrapes):
 
 
 @pytest.mark.parametrize("op,query", [
-    ("list-users", {}), ("update", {}), ("bucketstats", {"peers": "1"}),
-    ("replication", {"peers": "1"}), ("bandwidth", {"peers": "1"})],
-    ids=["list-users", "update", "bucketstats", "replication-peers",
-         "bandwidth-peers"])
+    ("list-users", {}), ("update", {})], ids=["list-users", "update"])
 def test_unported_admin_ops_answer_not_implemented(scrapes, op, query):
     """Ops of planes the port has not: the IAM ops on a server without
-    IAM (as the JAX server answers), the ``?peers=1`` fan-outs (the
-    dist layer's), and the update plane."""
+    IAM (as the JAX server answers) and the update plane."""
     r = _admin(scrapes["client"], op, **query)
     assert r.status_code == 501
     assert b"<Code>NotImplemented</Code>" in r.content
+
+
+@pytest.mark.parametrize("op", ["bucketstats", "replication", "bandwidth"],
+                         ids=["bucketstats", "replication-peers",
+                              "bandwidth-peers"])
+def test_peer_fanouts_of_a_standalone_server(scrapes, op):
+    """A server with no peers answers ``?peers=1`` as the JAX server does:
+    bucketstats as its own one-row ``nodes`` list, replication and
+    bandwidth as its local report (the fan-outs of a cluster are held to
+    the JAX cluster's in tests/test_torch_dist_cluster.py)."""
+    r = _admin(scrapes["client"], op, peers="1")
+    assert r.status_code == 200, r.content
+    out = r.json()
+    if op == "bucketstats":
+        assert len(out["nodes"]) == 1 and out["nodes"][0]["endpoint"]
+    elif op == "bandwidth":
+        assert "bucketStats" in out
+    else:
+        assert "peers" not in out
 
 
 @pytest.fixture(scope="module")

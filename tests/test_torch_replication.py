@@ -369,15 +369,22 @@ def test_each_package_replays_the_others_journal(tmp_path):
 
 
 def test_unregistered_endpoint_of_a_node_waits_for_the_dist_layer():
+    """Without a node an unknown endpoint has no transport; a node builds
+    (and caches) a peer RPC client with its cluster secret, as the JAX
+    package does; a registered transport wins."""
+    from minio_tpu_torch.dist.peer import PeerRESTClient
     rs = prepl.ReplicationSys(None, None)
     assert rs._peer_for("http://x:1") is None
     rs.node = type("Node", (), {"peers": [], "secret": "s",
                                 "local_url": "http://me:1"})()
-    with pytest.raises(NotImplementedError):
-        rs._peer_for("http://x:1")
+    built = rs._peer_for("http://x:1")
+    assert isinstance(built, PeerRESTClient)
+    assert built.url == "http://x:1" and built.rpc.secret == "s"
+    assert built.rpc.src == "http://me:1"
+    assert rs._peer_for("http://x:1/") is built
     peer = _Peer()
-    rs._extra_peers["http://x:1"] = peer
-    assert rs._peer_for("http://x:1/") is peer
+    rs._extra_peers["http://y:1"] = peer
+    assert rs._peer_for("http://y:1/") is peer
 
 
 def test_each_server_reads_the_others_replication_rules(tmp_path, pinned):

@@ -964,18 +964,21 @@ def test_cli_needs_the_card_unless_cpu_is_asked(tmp_path):
 
 @pytest.mark.parametrize("argv,item", [
     (["/one/disk"], "item 7"),
-    (["http://h{1...4}/d"], "item 9"),
+    (["--device", "cpu", "--address", "127.0.0.1:9000",
+      "http://127.0.0.1:1/d{1...4}"], "matches no endpoint"),
     (["--address", "127.0.0.1:1,127.0.0.1:2", "http://h{1...4}/d"],
-     "item 9"),
+     "multi-addr"),
     (["--gateway", "nas", "/mnt"], "item 10"),
     (["/p{1...4}", "/plain"], "ellipses"),
 ])
 def test_cli_refuses_unported_modes(argv, item, capsys):
+    """The unported modes, and the distributed arguments the CLI cannot
+    serve (no endpoint of this node's address, several addresses)."""
     from minio_tpu_torch.server.__main__ import main
     with pytest.raises(SystemExit) as e:
         main(argv)
     assert e.value.code != 0
-    assert item in capsys.readouterr().err
+    assert item in capsys.readouterr().err + str(e.value.code)
 
 
 @pytest.mark.parametrize("args,want", [
